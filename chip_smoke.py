@@ -8,8 +8,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 1. device: the card's name and power limit (nvidia-smi), CUDA and nvcc
    versions; no CUDA device -> exit 2, no ``pfd_tpu_torch`` beside this
    script -> exit 3, and no result is printed;
-2. build: K1 (``csrc/flash_attention.cu``) and K2 (``csrc/cross_attention.cu``)
-   with nvcc for sm_90a, one process per source, both at once;
+2. build: K1 (``csrc/flash_attention.cu``), K2 (``csrc/cross_attention.cu``),
+   K4/K5 (``csrc/flash_attention_int8.cu``) and the int8 conv
+   (``csrc/conv_int8.cu``) with nvcc for sm_90a, one process per source, all
+   at once;
 3. K1 against its plain PyTorch version in bf16 at the serving shapes, within
    ``kernel_tolerance`` (a tenth of the output's RMS, at most 2e-2), with
    kernel, plain, library (``scaled_dot_product_attention``, a yardstick only)
@@ -21,14 +23,34 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    a finite image in [0, 1] and launch K1 501 times and K2 500 times; request
    B (= A) must repeat it bit for bit; request C (seed 7, 10 steps) must
    differ; one UNet call through the kernels is held against the same call
-   through plain attention;
-6. a ``kernels`` JSON line, then the device JSON as the last line.
+   through plain attention, and profiled;
+6. K4 and K5 (the int8 mode's attention) against their plain versions within
+   ``kernel_tolerance`` and against float attention within ``pfd_tpu``'s
+   bounds (max-abs / max|want| < 0.08, mean-abs / max|want| < 0.01; where the
+   plain version itself is further off in max-abs, as at S = 4096, within
+   its error plus ``kernel_tolerance``), at the serving shapes and at
+   ``pfd_tpu``'s own test shapes;
+7. the int8 conv against its plain version, bit for bit, at every int8 conv
+   geometry of a 512^2 request;
+8. the int8 serving mode at full width (``quantized=True``,
+   ``self_attn_fn_int8``): request D (as A) must give a finite image in
+   [0, 1] and launch K4 500, K2 500, K1 1 and the int8 conv the number of
+   quantized convs the plan runs; request D' (= D) must repeat it bit for
+   bit; request E (mode "full", 10 steps) must launch K5 100 times; one int8
+   UNet call through the kernels is held against the same call through the
+   plain versions (relative L2 <= 5e-2) and profiled; one line of
+   throughput, 8 images of 10 steps, bf16 against int8, and a profile of one
+   UNet call at that batch in each mode;
+9. a ``kernels`` JSON line, the card's name and power limit, then the device
+   JSON as the last line.
 
 Imports neither JAX nor ``pfd_tpu``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import os
 import statistics
@@ -39,6 +61,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_INT8_OPS = 1979e12    # H100 SXM dense int8
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 MUFU_PER_SM_CLK = 16       # exp2 (MUFU.EX2) results per SM per clock on Hopper
 
@@ -104,6 +127,255 @@ def check_kernel(name, kernel, qshape, skv, mufu_rate, gen):
     return row
 
 
+def int8_attention_bound_ms(b, h, s, d, mufu_rate, full):
+    """Least time for K4 (full=False) or K5: q, k (bf16, or int8 for K5) and
+    the int8 v read once, the bf16 output written once, over the memory
+    rate; QK^T at the bf16 rate (int8 for K5) plus int8 P.V at the int8
+    rate; the exp2 count over the MUFU rate."""
+    qk_bytes = 1 if full else 2
+    nbytes = b * h * s * d * (2 * qk_bytes + 1 + 2)
+    prod = 2 * b * h * s * s * d
+    t_mma = prod / (PEAK_INT8_OPS if full else PEAK_BF16_FLOPS) + prod / PEAK_INT8_OPS
+    t_ops = max(t_mma, b * h * s * s / mufu_rate)
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_int8_attention(name, quant, shape, mufu_rate, gen):
+    """K4 (quant="pv") or K5 (quant=True) against its plain version, and
+    the int8 attention against float attention."""
+    import torch
+    import torch.nn.functional as F
+    from pfd_tpu_torch.ops import flash_attention as fa
+    from pfd_tpu_torch.ops import nn as tnn
+    from pfd_tpu_torch.ops import quant as tq
+
+    b, h, s, d = shape
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").bfloat16() for _ in range(3))
+    got = fa.flash_attention(q, k, v, quant=quant)
+    want = fa.attention_int8_plain(q, k, v, quant=quant)
+    ref = tnn.dot_product_attention(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = fa.kernel_tolerance(want)
+    if not err <= tol:
+        raise AssertionError(f"{name} {shape}: max_abs_err {err} > {tol}")
+    # pfd_tpu's bounds against float attention (tests/test_flash_attention.py
+    # :95-98, S <= 520): max-abs / max|ref| < 0.08, mean-abs / max|ref| < 0.01.
+    # On unit-normal inputs at S >= 4096 the int8 function itself (the plain
+    # version) is further off in max-abs than 0.08, so there the kernel may
+    # be off by the plain version's own error plus kernel_tolerance.
+    top = ref.abs().max().item()
+    e = (got.float() - ref).abs()
+    vs_float = (e.max().item() / top, e.mean().item() / top)
+    plain_vs_float = (want.float() - ref).abs().max().item() / top
+    max_limit = max(0.08, plain_vs_float + tol / top)
+    if not (vs_float[0] < max_limit and vs_float[1] < 0.01):
+        raise AssertionError(f"{name} {shape}: off float attention {vs_float}, "
+                             f"limit ({max_limit}, 0.01)")
+    # the kernel alone (and its plain version) on the quantized inputs
+    scale = d ** -0.5
+    v8, _ = tq.quantize_act(v, amax_dims=(1, 2))
+    if quant is True:
+        q8, sq = tq.quantize_act(q, amax_dims=(1, 2))
+        k8, sk = tq.quantize_act(k, amax_dims=(1, 2))
+        c = (sq * sk * (scale * fa.LOG2E)).reshape(1)
+        kern = lambda: fa.flash_attention_int8(q8, k8, v8, c, out_dtype=q.dtype)  # noqa: E731
+        plain = lambda: fa.int8_plain(q8, k8, v8, c, out_dtype=q.dtype)  # noqa: E731
+    else:
+        qs = fa._qscale(q, scale)
+        kern = lambda: fa.flash_attention_pv8(q, k, v8, qscale=qs)  # noqa: E731
+        plain = lambda: fa.pv8_plain(q, k, v8, qscale=qs)  # noqa: E731
+    big = b * h * s * s > 2 ** 28
+    row = {
+        "shape": [b, h, s, s, d],
+        "max_abs_err": err,
+        "tol": tol,
+        "err_over_tol": err / tol,
+        "vs_float_max_mean": list(vs_float),
+        "plain_vs_float_max": plain_vs_float,
+        "kernel_ms": cuda_ms(kern, 20),
+        "plain_ms": cuda_ms(plain, 3 if big else 10),
+        "sdpa_bf16_ms_yardstick_other_function": cuda_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v), 20),
+        "library_ms": None,
+    }
+    row["bound_ms"], row["bound_by"] = int8_attention_bound_ms(b, h, s, d, mufu_rate,
+                                                               quant is True)
+    print(f"{name} {json.dumps(row)}  bound_us={row['bound_ms'] * 1e3:.1f}", flush=True)
+    return row
+
+
+def conv_bound_ms(n, c, h, w, k, kh, ho, wo):
+    """Least time for the int8 conv: x and w (int8) read once and y (int32)
+    written once over the memory rate; 2*M*N*K operations over the int8
+    rate."""
+    nbytes = n * c * h * w + k * c * kh * kh + 4 * n * k * ho * wo
+    ops = 2 * n * ho * wo * k * kh * kh * c
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_INT8_OPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_conv(label, xshape, cout, ksize, stride, padding, gen):
+    """The int8 conv against its plain version (bit for bit), with kernel,
+    plain, cuDNN bf16 (same geometry, a yardstick) and bound times."""
+    import torch
+    import torch.nn.functional as F
+    from pfd_tpu_torch.ops import int8_conv
+
+    def codes(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8).contiguous(memory_format=torch.channels_last)
+
+    x8, w8 = codes(xshape), codes((cout, xshape[1], ksize, ksize))
+    got = int8_conv.conv_int8(x8, w8, stride=stride, padding=padding)
+    want = int8_conv.conv_int8_plain(x8, w8, stride=stride, padding=padding)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        bad = (got != want).sum().item() if got.shape == want.shape else "shape"
+        raise AssertionError(f"conv_int8 {label}: not bit-exact ({bad} differ)")
+    xb = F.pad(x8.to(torch.bfloat16), int8_conv.pads(padding))
+    wb = w8.to(torch.bfloat16)
+    n, c, h, w = xshape
+    ho, wo = got.shape[2:]
+    row = {"shape": label, "max_abs_err": 0.0,
+           "kernel_ms": cuda_ms(lambda: int8_conv.conv_int8(x8, w8, stride=stride,
+                                                            padding=padding), 20),
+           "plain_ms": cuda_ms(lambda: int8_conv.conv_int8_plain(
+               x8, w8, stride=stride, padding=padding), 3),
+           "cudnn_bf16_ms_yardstick": cuda_ms(lambda: F.conv2d(xb, wb, stride=stride), 20),
+           "library_ms": None}
+    row["bound_ms"], row["bound_by"] = conv_bound_ms(n, c, h, w, cout, ksize, ho, wo)
+    print(f"conv_int8 {json.dumps(row)}  bound_us={row['bound_ms'] * 1e3:.1f}", flush=True)
+    return row
+
+
+def launch_counts():
+    from pfd_tpu_torch.ops import flash_attention as fa
+    from pfd_tpu_torch.ops import int8_conv
+    return {"flash_attention": fa.flash_attention.launches,
+            "cross_attention": fa.cross_attention.launches,
+            "flash_attention_pv8": fa.flash_attention_pv8.launches,
+            "flash_attention_int8": fa.flash_attention_int8.launches,
+            "conv_int8": int8_conv.conv_int8.launches}
+
+
+def reset_counts():
+    from pfd_tpu_torch.ops import flash_attention as fa
+    from pfd_tpu_torch.ops import int8_conv
+    fa.reset_launch_counts()
+    int8_conv.conv_int8.launches = 0
+
+
+def serve(pipe, ref, seed, steps, label):
+    """One request through ``action_inference`` with the launch counts set
+    to 0 just before it; per-stage device times from CUDA events. Returns
+    (image, stats)."""
+    import torch
+
+    timings = {"ctx_encode": [], "apply_model": [], "vae_decode": []}
+    net = pipe.net
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*args, **kwargs)
+            e.record()
+            timings[name].append((s, e))
+            return out
+        return run
+
+    for name in timings:
+        setattr(net, name, timed(name, getattr(net, name)))
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        img = pipe.action_inference(ref, h=512, w=512, ugscale=2.0, seed=seed, steps=steps)[0]
+        torch.cuda.synchronize()
+    finally:
+        for name in timings:
+            delattr(net, name)
+    s_per_img = time.perf_counter() - t0
+    launches = launch_counts()
+    ms = {k: [s.elapsed_time(e) for s, e in v] for k, v in timings.items()}
+    stats = {"seecoder_ms": ms["ctx_encode"][0],
+             "step_ms_median": statistics.median(ms["apply_model"]),
+             "steps": len(ms["apply_model"]), "vae_decode_ms": ms["vae_decode"][0],
+             "s_per_img": s_per_img,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "launches": launches}
+    print(f"request {label}: seecoder_ms={stats['seecoder_ms']:.3f} "
+          f"step_ms_median={stats['step_ms_median']:.3f} (n={stats['steps']}) "
+          f"vae_decode_ms={stats['vae_decode_ms']:.3f} s_per_img={s_per_img:.4f} "
+          f"peak_mem_gb={stats['peak_mem_gb']:.3f} launches={json.dumps(launches)}",
+          flush=True)
+    return img, stats
+
+
+def check_image(img, label):
+    import numpy as np
+    if img.shape != (512, 512, 3) or not np.isfinite(img).all():
+        raise AssertionError(f"request {label}: bad image {img.shape}")
+    if not (img.min() >= 0.0 and img.max() <= 1.0):
+        raise AssertionError(f"request {label}: image outside [0, 1]")
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Route every kernel wrapper of the int8 path to its plain version (the
+    on-card oracle of a whole UNet call)."""
+    from pfd_tpu_torch.ops import flash_attention as fa
+    from pfd_tpu_torch.ops import int8_conv
+
+    saved = (fa.flash_attention_pv8, fa.cross_attention, int8_conv.conv_int8)
+    fa.flash_attention_pv8 = lambda q, k, v8, *, qscale: fa.pv8_plain(q, k, v8, qscale=qscale)
+    fa.cross_attention = lambda q, k, v, *, scale=None: fa.attention_plain(q, k, v, scale=scale)
+    int8_conv.conv_int8 = int8_conv.conv_int8_plain
+    try:
+        yield
+    finally:
+        fa.flash_attention_pv8, fa.cross_attention, int8_conv.conv_int8 = saved
+
+
+def compare_eps(label, e_k, e_p):
+    """A UNet eps through the kernels against the same call through plain
+    versions: relative L2 at most 5e-2."""
+    rel = ((e_k - e_p).norm() / e_p.norm()).item()
+    print(f"{label}: rel_l2={rel:.3e} max_abs={(e_k - e_p).abs().max().item():.3e} "
+          f"|eps|_rms={e_p.pow(2).mean().sqrt().item():.3e}", flush=True)
+    if not rel < 5e-2:
+        raise AssertionError(f"{label}: rel_l2 {rel}")
+
+
+def profile_unet(label, call):
+    """Where one UNet call's device time goes (torch.profiler, CUPTI)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side rows only (kernels, copies): a CPU op's row repeats the
+    # device time of the kernels it launched
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")
+              and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"{label}: wall {wall_ms:.3f} ms (profiled), device busy {busy_ms:.3f} ms, "
+          f"idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}", flush=True)
+    for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:12]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}",
+              flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -154,58 +426,30 @@ def main() -> int:
     from pfd_tpu_torch.models.build import dezero_
     from pfd_tpu_torch.pipeline import PromptFreeDiffusionPipeline
 
-    t0 = time.perf_counter()
-    pipe = PromptFreeDiffusionPipeline(fp16=True, device="cuda", seed=0,
-                                       self_attn_fn=fa.self_attn_fn)
-    dezero_(pipe.net, torch.Generator(device="cuda").manual_seed(1))
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in pipe.net.parameters())
-    print(f"slice: pfd_seecoder built, {n_params / 1e6:.1f} M parameters (bf16), "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    def build_pipe(label, **kw):
+        t0 = time.perf_counter()
+        pipe = PromptFreeDiffusionPipeline(fp16=True, device="cuda", seed=0, **kw)
+        dezero_(pipe.net, torch.Generator(device="cuda").manual_seed(1))
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in pipe.net.parameters())
+        n_buf = sum(b.numel() for b in pipe.net.buffers())
+        print(f"{label}: pfd_seecoder built, {n_params / 1e6:.1f} M parameters, "
+              f"{n_buf / 1e6:.1f} M buffer values, {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        return pipe
 
+    pipe = build_pipe("slice", self_attn_fn=fa.self_attn_fn)
+    net = pipe.net
     ref = np.random.default_rng(0).random((512, 512, 3), dtype=np.float32)
     pipe.action_inference(ref, h=512, w=512, ugscale=2.0, seed=0, steps=2)  # warm-up
 
-    timings = {"ctx_encode": [], "apply_model": [], "vae_decode": []}
-    net = pipe.net
-
-    def timed(name, fn):
-        def run(*args, **kwargs):
-            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            s.record()
-            out = fn(*args, **kwargs)
-            e.record()
-            timings[name].append((s, e))
-            return out
-        return run
-
-    for name in timings:
-        setattr(net, name, timed(name, getattr(net, name)))
-
-    torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    img_a = pipe.action_inference(ref, h=512, w=512, ugscale=2.0, seed=42, steps=50)[0]
-    torch.cuda.synchronize()
-    s_per_img = time.perf_counter() - t0
-    launches = {"flash_attention": fa.flash_attention.launches,
-                "cross_attention": fa.cross_attention.launches}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for name in timings:
-        delattr(net, name)
-    ms = {k: [s.elapsed_time(e) for s, e in v] for k, v in timings.items()}
-    print(f"request A: seecoder_ms={ms['ctx_encode'][0]:.3f} "
-          f"step_ms_median={statistics.median(ms['apply_model']):.3f} "
-          f"(n={len(ms['apply_model'])}) vae_decode_ms={ms['vae_decode'][0]:.3f} "
-          f"s_per_img={s_per_img:.4f} peak_mem_gb={peak_gb:.3f} "
-          f"launches={json.dumps(launches)}", flush=True)
-    if img_a.shape != (512, 512, 3) or not np.isfinite(img_a).all():
-        raise AssertionError(f"request A: bad image {img_a.shape}")
-    if not (img_a.min() >= 0.0 and img_a.max() <= 1.0):
-        raise AssertionError("request A: image outside [0, 1]")
-    if launches != {"flash_attention": 10 * 50 + 1, "cross_attention": 10 * 50}:
-        raise AssertionError(f"request A: launches {launches}, want K1 501 and K2 500")
+    img_a, stats_a = serve(pipe, ref, 42, 50, "A")
+    launches = stats_a["launches"]
+    check_image(img_a, "A")
+    want = {"flash_attention": 10 * 50 + 1, "cross_attention": 10 * 50,
+            "flash_attention_pv8": 0, "flash_attention_int8": 0, "conv_int8": 0}
+    if launches != want:
+        raise AssertionError(f"request A: launches {launches}, want {want}")
     print(f"request A: image mean {img_a.mean():.4f} std {img_a.std():.4f}", flush=True)
 
     t0 = time.perf_counter()
@@ -228,40 +472,97 @@ def main() -> int:
         xi, ci = {"type": "image", "x": x}, {"type": "image", "c": c2}
         e_k = net.apply_model(xi, t, ci, self_attn_fn=fa.self_attn_fn).float()
         e_p = net.apply_model(xi, t, ci, self_attn_fn=None).float()
-    rel = ((e_k - e_p).norm() / e_p.norm()).item()
-    print(f"unet eps, kernels vs plain attention at 512^2: rel_l2={rel:.3e} "
-          f"max_abs={(e_k - e_p).abs().max().item():.3e} |eps|_rms={e_p.pow(2).mean().sqrt().item():.3e}",
-          flush=True)
-    if not rel < 5e-2:
-        raise AssertionError(f"UNet eps through the kernels is off plain attention: {rel}")
+    compare_eps("unet eps, kernels vs plain attention at 512^2", e_k, e_p)
+    profile_unet("unet call profile", lambda: net.apply_model(
+        xi, t, ci, self_attn_fn=fa.self_attn_fn))
 
-    # where one UNet call's device time goes (torch.profiler, CUPTI)
-    from torch.profiler import ProfilerActivity, profile
+    # ---- 6. K4 and K5 against their plain versions ----------------------------
+    # the serving shapes, then pfd_tpu's own test shapes for its float bounds
+    int8_shapes = [(2, 8, 4096, 40), (2, 8, 1024, 80), (1, 2, 1000, 40), (2, 8, 2304, 160),
+                   (2, 3, 256, 40), (2, 3, 520, 80)]
+    k4_rows = [check_int8_attention("K4", "pv", s, mufu_rate, gen) for s in int8_shapes]
+    k5_rows = [check_int8_attention("K5", True, s, mufu_rate, gen) for s in int8_shapes]
+
+    # ---- 7. the int8 conv against its plain version, bit for bit -------------
+    conv_rows = [check_conv(*case, gen) for case in [
+        ("3x3s1 (2,320,64,64)->320", (2, 320, 64, 64), 320, 3, 1, 1),
+        ("3x3s1 (2,640,32,32)->640", (2, 640, 32, 32), 640, 3, 1, 1),
+        ("3x3s1 (2,1280,16,16)->1280", (2, 1280, 16, 16), 1280, 3, 1, 1),
+        ("3x3s1 (2,1280,8,8)->1280", (2, 1280, 8, 8), 1280, 3, 1, 1),
+        ("3x3s2 (2,320,64,64)->320", (2, 320, 64, 64), 320, 3, 2, 1),
+        ("phase2x2 (2,1280,8,8)->5120", (2, 1280, 8, 8), 4 * 1280, 2, 1, 1),
+        ("phase2x2 (2,1280,16,16)->5120", (2, 1280, 16, 16), 4 * 1280, 2, 1, 1),
+        ("phase2x2 (2,640,32,32)->2560", (2, 640, 32, 32), 4 * 640, 2, 1, 1),
+        ("vae 3x3s1 (1,128,512,512)->128", (1, 128, 512, 512), 128, 3, 1, 1),
+        ("vae 3x3s1 (1,512,64,64)->512", (1, 512, 64, 64), 512, 3, 1, 1),
+    ]]
+
+    # ---- 8. the int8 serving mode at full width --------------------------------
+    from pfd_tpu_torch.ops import quant as tq
+    pipe8 = build_pipe("int8 slice", quantized=True, self_attn_fn=fa.self_attn_fn_int8)
+    net8 = pipe8.net
+    per_unet = sum(tq.is_quantized(m) for m in net8.diffuser["image"].modules())
+    per_decode = sum(tq.is_quantized(m) for m in net8.vae["image"].decoder.modules())
+    n_conv = 50 * per_unet + per_decode
+    print(f"int8 plan: {per_unet} int8 convs per UNet call, {per_decode} in the VAE "
+          f"decoder -> {n_conv} conv_int8 launches in 50 steps", flush=True)
+    if (per_unet, per_decode) != (50, 31):
+        raise AssertionError(f"int8 plan: want 50 convs per UNet call and 31 in the "
+                             f"decoder, got {per_unet} and {per_decode}")
+    pipe8.action_inference(ref, h=512, w=512, ugscale=2.0, seed=0, steps=2)  # warm-up
+
+    img_d, stats_d = serve(pipe8, ref, 42, 50, "D")
+    launches_d = stats_d["launches"]
+    check_image(img_d, "D")
+    want = {"flash_attention": 1, "cross_attention": 10 * 50,
+            "flash_attention_pv8": 10 * 50, "flash_attention_int8": 0, "conv_int8": n_conv}
+    if launches_d != want:
+        raise AssertionError(f"request D: launches {launches_d}, want {want}")
+    img_d2 = pipe8.action_inference(ref, h=512, w=512, ugscale=2.0, seed=42, steps=50)[0]
+    if not np.array_equal(img_d, img_d2):
+        raise AssertionError("request D' (same as D) is not bit-identical")
+    print(f"request D': bit-identical to D; D image mean {img_d.mean():.4f} std "
+          f"{img_d.std():.4f}; mean |D-A| {np.abs(img_d - img_a).mean():.5f} "
+          f"max |D-A| {np.abs(img_d - img_a).max():.4f} (information only)", flush=True)
+
+    pipe8.self_attn_fn = functools.partial(fa.self_attn_fn_int8, mode="full")
+    img_e, stats_e = serve(pipe8, ref, 42, 10, "E")
+    pipe8.self_attn_fn = fa.self_attn_fn_int8
+    launches_e = stats_e["launches"]
+    check_image(img_e, "E")
+    if launches_e["flash_attention_int8"] != 10 * 10 or launches_e["flash_attention_pv8"]:
+        raise AssertionError(f"request E: launches {launches_e}, want K5 100 and K4 0")
+
     with torch.no_grad():
-        net.apply_model(xi, t, ci, self_attn_fn=fa.self_attn_fn)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            net.apply_model(xi, t, ci, self_attn_fn=fa.self_attn_fn)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side rows only (kernels, copies): a CPU op's row repeats the
-    # device time of the kernels it launched
-    events = [e for e in prof.key_averages()
-              if str(getattr(e, "device_type", "")).endswith("CUDA")
-              and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"unet call profile: wall {wall_ms:.3f} ms (profiled), device busy "
-          f"{busy_ms:.3f} ms, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}", flush=True)
-    for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:12]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}",
-              flush=True)
+        e_k = net8.apply_model(xi, t, ci, self_attn_fn=fa.self_attn_fn_int8).float()
+        with plain_versions():
+            e_p = net8.apply_model(xi, t, ci, self_attn_fn=fa.self_attn_fn_int8).float()
+    compare_eps("int8 unet eps, kernels vs plain versions at 512^2", e_k, e_p)
+    profile_unet("int8 unet call profile", lambda: net8.apply_model(
+        xi, t, ci, self_attn_fn=fa.self_attn_fn_int8))
 
-    # ---- 6. summary ----------------------------------------------------------
-    def summary(name, source, replaces, rows):
+    # one line of throughput: 8 images of 10 steps per request
+    b8 = {}
+    for label, p in (("bf16", pipe), ("int8", pipe8)):
+        p.n_sample_image = 8
+        p.action_inference(ref, h=512, w=512, ugscale=2.0, seed=0, steps=2)  # warm-up
+        _, st = serve(p, ref, 42, 10, f"{label} b8")
+        p.n_sample_image = 1
+        b8[label] = st["s_per_img"] / 8
+    print(f"throughput b8 10 steps 512^2: bf16 {b8['bf16']:.4f} s/img, int8 "
+          f"{b8['int8']:.4f} s/img, int8/bf16 {b8['int8'] / b8['bf16']:.3f}", flush=True)
+    xi8 = {"type": "image", "x": x.repeat(8, 1, 1, 1)}
+    ci8, t8 = {"type": "image", "c": c2.repeat(8, 1, 1)}, t.repeat(8)
+    profile_unet("b8 unet call profile, bf16", lambda: net.apply_model(
+        xi8, t8, ci8, self_attn_fn=fa.self_attn_fn))
+    profile_unet("b8 unet call profile, int8", lambda: net8.apply_model(
+        xi8, t8, ci8, self_attn_fn=fa.self_attn_fn_int8))
+
+    # ---- 9. summary ----------------------------------------------------------
+    def summary(name, source, replaces, rows, n):
         main_row = rows[0]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches[name],
+                "launches": n,
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
                 "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -269,9 +570,18 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         summary("flash_attention", "pfd_tpu_torch/csrc/flash_attention.cu",
-                "pfd_tpu/ops/flash_attention.py:277", k1_rows),
+                "pfd_tpu/ops/flash_attention.py:277", k1_rows, launches["flash_attention"]),
         summary("cross_attention", "pfd_tpu_torch/csrc/cross_attention.cu",
-                "pfd_tpu/ops/flash_attention.py:465", k2_rows)]}), flush=True)
+                "pfd_tpu/ops/flash_attention.py:465", k2_rows, launches["cross_attention"]),
+        summary("flash_attention_pv8", "pfd_tpu_torch/csrc/flash_attention_int8.cu",
+                "pfd_tpu/ops/flash_attention.py:359", k4_rows,
+                launches_d["flash_attention_pv8"]),
+        summary("flash_attention_int8", "pfd_tpu_torch/csrc/flash_attention_int8.cu",
+                "pfd_tpu/ops/flash_attention.py:359", k5_rows,
+                launches_e["flash_attention_int8"]),
+        summary("conv_int8", "pfd_tpu_torch/csrc/conv_int8.cu",
+                "pfd_tpu/tools/int8_lab.py:129", conv_rows, launches_d["conv_int8"]),
+    ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

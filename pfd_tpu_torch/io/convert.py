@@ -4,7 +4,11 @@
 inverse walk (convert.py:134-164): pytrees mirror the upstream torch module
 names segment for segment, so only the tensor layout changes (HWIO -> OIHW
 convs, (in, out) -> (out, in) linears, norm ``scale`` -> ``weight``, packed
-``in_proj`` kernels back to ``in_proj_weight``).
+``in_proj`` kernels back to ``in_proj_weight``). A layer that
+``pfd_tpu.ops.quant.quantize_params`` quantized carries ``kernel_q`` (int8,
+HWIO) and ``kernel_scale``; they become the port's ``weight_q`` (int8, OIHW)
+and ``weight_scale`` buffers (``ops/quant.py``), so both packages run on the
+same int8 codes. Load them into a model whose layers are quantized already.
 
 ``params_from_jax`` turns that into torch tensors ready for
 ``module.load_state_dict(sd, strict=True)``. The Swin buffers the JAX side
@@ -34,14 +38,16 @@ def pytree_to_torch_sd(tree: dict, *, prefix: str = "") -> dict[str, np.ndarray]
         if parent == "in_proj":
             key = path[:-2] + (f"in_proj_{'weight' if leaf == 'kernel' else 'bias'}",)
             arr = arr.T if leaf == "kernel" else arr
-        elif leaf == "kernel":
+        elif leaf in ("kernel", "kernel_q"):
             if arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)
             elif arr.ndim == 3:
                 arr = arr.transpose(2, 1, 0)
             else:
                 arr = arr.T
-            key = path[:-1] + ("weight",)
+            key = path[:-1] + ("weight" if leaf == "kernel" else "weight_q",)
+        elif leaf == "kernel_scale":
+            key = path[:-1] + ("weight_scale",)
         elif leaf == "scale":
             key = path[:-1] + ("weight",)
         else:

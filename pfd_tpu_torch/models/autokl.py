@@ -18,6 +18,7 @@ from torch import nn
 from pfd_tpu_torch import registry
 from pfd_tpu_torch.ops import flash_attention as fa
 from pfd_tpu_torch.ops import nn as F
+from pfd_tpu_torch.ops import quant
 from pfd_tpu_torch.policy import Policy, FP32
 
 _EPS = 1e-6  # autokl_modules.py:38 Normalize eps
@@ -156,6 +157,7 @@ class Decoder(nn.Module):
                           if curr_res in attn_resolutions else None)
             if i != 0:
                 level.upsample = _Resample(cout)
+                quant.mark_upsample(level.upsample.conv)
                 curr_res *= 2
             else:
                 level.upsample = None

@@ -15,6 +15,7 @@ from torch import nn
 from pfd_tpu_torch.models.build import zero_init
 from pfd_tpu_torch.ops import flash_attention as fa
 from pfd_tpu_torch.ops import nn as F
+from pfd_tpu_torch.ops import quant
 from pfd_tpu_torch.policy import Policy
 
 
@@ -148,7 +149,7 @@ class Downsample(nn.Module):
 class Upsample(nn.Module):
     def __init__(self, ch, cout):
         super().__init__()
-        self.conv = nn.Conv2d(ch, cout, 3, padding=1)
+        self.conv = quant.mark_upsample(nn.Conv2d(ch, cout, 3, padding=1))
 
     def forward(self, x):
         return F.upsample_conv2d(x, self.conv)

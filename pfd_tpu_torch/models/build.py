@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from pfd_tpu_torch import registry
+from pfd_tpu_torch.ops import quant
 from pfd_tpu_torch.policy import Policy, FP32
 
 _ZERO_ATTR = "_pfd_zero_init"
@@ -76,10 +77,22 @@ def dezero_(model: nn.Module, generator: torch.Generator, scale=0.05) -> nn.Modu
     no branch of the model is silently dead in a parity check (the port's
     counterpart of ``tests/ref_utils.dezero_pytree``). With zero-initialised
     output layers the UNet's eps is identically 0 and a broken attention
-    kernel would pass end to end."""
-    for p in model.parameters():
-        if p.numel() and not torch.any(p):
-            _normal(p, scale, generator)
+    kernel would pass end to end.
+
+    An int8 layer (``ops/quant.py``) with all-zero codes gets the codes of
+    such values. The values are drawn in parameter order with the weight in
+    its float place, so a quantized model de-zeroed from one generator state
+    holds the quantized weights of its float twin de-zeroed from the same
+    state."""
+    for mod in model.modules():
+        if quant.is_quantized(mod) and not torch.any(mod.weight_q):
+            dtype = mod.bias.dtype if mod.bias is not None else torch.float32
+            w = torch.randn(mod.weight_q.shape, generator=generator,
+                            device=mod.weight_q.device, dtype=torch.float32) * scale
+            quant.set_quantized_weight(mod, *quant.quantize_weight(w.to(dtype)))
+        for p in mod.parameters(recurse=False):
+            if p.numel() and not torch.any(p):
+                _normal(p, scale, generator)
     return model
 
 

@@ -31,6 +31,10 @@ SIGNATURES = {
                         (_VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP)),
     "cross_attention": ("pfd_cross_attention_bf16",
                         (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _VP)),
+    "flash_attention_int8": ("pfd_flash_attention_int8",
+                             (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _I, _VP)),
+    "conv_int8": ("pfd_conv_int8",
+                  (_VP, _VP, _VP) + (_I,) * 13 + (_VP,)),
 }
 
 _loaded: dict = {}  # name -> (CDLL, entry point); the CDLL stays referenced

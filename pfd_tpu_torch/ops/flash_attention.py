@@ -1,5 +1,6 @@
-"""Attention kernels of the serving path: K1 (flash self-attention) and K2
-(short-KV cross-attention), the port of ``pfd_tpu/ops/flash_attention.py``.
+"""Attention kernels of the serving path: K1 (flash self-attention), K2
+(short-KV cross-attention) and the int8 flash kernels K4 (int8 P.V) and K5
+(int8 QK^T and P.V), the port of ``pfd_tpu/ops/flash_attention.py``.
 
 ``flash_attention`` replaces ``pfd_tpu`` ``flash_attention`` ->
 ``_flash_kernel`` (flash_attention.py:277, body :53-97) and
@@ -10,6 +11,17 @@ routine and its design notes are in ``csrc/attention_tile.cuh``): bf16 in
 and out, fp32 online softmax in base 2 on a q pre-scaled by
 ``scale * log2(e)`` rounded to q's dtype, as ``pfd_tpu`` scales q before its
 kernel (:391, :482).
+
+``flash_attention(..., quant="pv" | True)`` is the int8 serving mode's
+self-attention (``pfd_tpu`` :274-380): V is quantized per tensor over the
+whole (B, H, S, D) v, and with ``quant=True`` q and k too; the kernels are
+``flash_attention_pv8`` (K4, replaces ``_flash_kernel_pv8``, :347-359, body
+:167-215) and ``flash_attention_int8`` (K5, replaces ``_flash_kernel_int8``,
+:333-359, body :218-267), one CUDA C++ template with a mode flag
+(``csrc/flash_attention_int8.cu``). Both round p to int8 per 64-key tile
+against the running row max, so their plain versions walk the same tiles
+(``block_k``); the TPU kernel's tiles are up to 2048 keys, and the tests
+pass its block size to hold the plain versions against it.
 
 Each wrapper
 - on a CPU tensor computes ``attention_plain``, the plain PyTorch version of
@@ -30,8 +42,13 @@ import torch
 
 from pfd_tpu_torch.ops import cuda_build
 from pfd_tpu_torch.ops import nn
+from pfd_tpu_torch.ops import quant as quant_lib
 
 LOG2E = 1.4426950408889634
+LOG2_127 = 6.988684686772166  # log2(127)
+NEG_INF = -1e30
+INT_NEG = -(2 ** 30)
+INT8_BLOCK_K = 64  # the key tile of the int8 kernels
 
 
 def _qscale(q, scale):
@@ -107,11 +124,18 @@ def _launch_check(err, name):
         raise RuntimeError(f"{name} kernel launch failed with cudaError {err}")
 
 
-def flash_attention(q, k, v, *, scale=None):
-    """K1: non-causal self-attention, q, k, v: (B, H, S, D) -> (B, H, S, D)."""
+def flash_attention(q, k, v, *, scale=None, quant=False):
+    """Non-causal self-attention, q, k, v: (B, H, S, D) -> (B, H, S, D).
+    ``quant=False``: K1; ``"pv"``: K4; ``True`` (or ``"full"``): K5. Head
+    dims that are a multiple of 128 run K1 whatever ``quant`` says, as in
+    ``pfd_tpu`` (:293-294)."""
     _check(q, k, v, self_attn=True)
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if quant and q.shape[3] % 128 == 0:
+        quant = False
+    if quant:
+        return _flash_quant(q, k, v, scale, "full" if quant is True else quant)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale=scale)
     if q.device.type != "cuda":
@@ -154,9 +178,156 @@ def cross_attention(q, k, v, *, scale=None):
 cross_attention.launches = 0
 
 
+def _flash_quant(q, k, v, scale, mode, plain=False):
+    """The int8 serving mode's attention (``pfd_tpu`` :314-380): per-tensor
+    int8 V (and q, k for "full"), the kernel's acc / l in q's dtype, then
+    ``* sv`` in fp32 and rounded to q's dtype again. ``plain`` computes the
+    kernels' plain versions instead, on any device."""
+    if mode not in ("full", "pv"):
+        raise ValueError(f"quant is False, 'pv' or True/'full', got {mode!r}")
+    v8, sv = quant_lib.quantize_act(v, amax_dims=(1, 2))
+    if mode == "full":
+        q8, sq = quant_lib.quantize_act(q, amax_dims=(1, 2))
+        k8, sk = quant_lib.quantize_act(k, amax_dims=(1, 2))
+        c = (sq * sk * (scale * LOG2E)).reshape(1)
+        fn = int8_plain if plain else flash_attention_int8
+        o = fn(q8, k8, v8, c, out_dtype=q.dtype)
+    else:
+        fn = pv8_plain if plain else flash_attention_pv8
+        o = fn(q, k, v8, qscale=_qscale(q, scale))
+    return (o.float() * sv).to(q.dtype)
+
+
+def attention_int8_plain(q, k, v, *, quant="pv", scale=None):
+    """``flash_attention(q, k, v, quant=quant)`` through the plain versions
+    of K4 / K5 on any device: the oracle of the int8 kernels on the card."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _flash_quant(q, k, v, scale, "full" if quant is True else quant, plain=True)
+
+
+def pv8_plain(q, k, v8, *, qscale, block_k=INT8_BLOCK_K):
+    """The plain version of K4: bf16 (q's dtype) QK^T on q pre-scaled by
+    ``qscale`` (rounded to q's dtype), online softmax over key tiles of
+    ``block_k`` with int8 p = round(127 exp2(s - m)), int32 P.V against the
+    int8 v8, l summing the rounded p. Returns acc / l in q's dtype (before
+    the V scale). The int8 products are exact in fp32 (|sums| < 2^24)."""
+    qf = (q * qscale).float()
+    kf = k.float()
+
+    def logits(j0, j1):
+        return torch.matmul(qf, kf[:, :, j0:j1].transpose(-1, -2))
+
+    def p8_alpha(s, m, m_new):
+        p8 = (torch.exp2(s - (m_new - LOG2_127)) + 0.5).to(torch.int8)
+        return p8, torch.exp2(m - m_new)
+
+    m0 = torch.full(q.shape[:3] + (1,), NEG_INF, dtype=torch.float32, device=q.device)
+    return _online_int8(logits, p8_alpha, m0, v8, block_k).to(q.dtype)
+
+
+def int8_plain(q8, k8, v8, c, *, out_dtype, block_k=INT8_BLOCK_K):
+    """The plain version of K5: int32 QK^T of int8 q8, k8, integer online
+    softmax (int32 m from -2^30) with ``c`` (the fp32 scalar
+    sq*sk*scale*log2(e)) turning logit differences into base-2 exponents,
+    int32 P.V against v8. Returns acc / l in ``out_dtype``."""
+    qf, kf = q8.float(), k8.float()
+
+    def logits(j0, j1):
+        return torch.matmul(qf, kf[:, :, j0:j1].transpose(-1, -2)).to(torch.int32)
+
+    def p8_alpha(s, m, m_new):
+        p8 = (torch.exp2((s - m_new).float() * c + LOG2_127) + 0.5).to(torch.int8)
+        return p8, torch.exp2((m - m_new).float() * c)
+
+    m0 = torch.full(q8.shape[:3] + (1,), INT_NEG, dtype=torch.int32, device=q8.device)
+    return _online_int8(logits, p8_alpha, m0, v8, block_k).to(out_dtype)
+
+
+def _online_int8(logits, p8_alpha, m, v8, block_k):
+    """The key-tile loop shared by K4's and K5's plain versions."""
+    s_len = v8.shape[2]
+    vf = v8.float()
+    acc = torch.zeros(v8.shape[:2] + (m.shape[2], v8.shape[3]), dtype=torch.float32,
+                      device=v8.device)
+    l = torch.zeros_like(m, dtype=torch.float32)
+    for j0 in range(0, s_len, block_k):
+        j1 = min(j0 + block_k, s_len)
+        s = logits(j0, j1)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p8, alpha = p8_alpha(s, m, m_new)
+        pf = p8.float()
+        acc = acc * alpha + torch.matmul(pf, vf[:, :, j0:j1])
+        l = l * alpha + pf.sum(dim=-1, keepdim=True)
+        m = m_new
+    return acc / l
+
+
+def _check_int8(t, name):
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name}: the int8 attention kernels take contiguous, "
+                         "16-byte aligned tensors")
+
+
+def _launch_int8(q, k, v8, c, qscale, out_dtype, full):
+    b, h, s, d = q.shape
+    if out_dtype != torch.bfloat16 or (not full and q.dtype != torch.bfloat16):
+        raise TypeError("the int8 attention kernels take and return bfloat16")
+    if d % 8 or d > 160:
+        raise ValueError(f"the int8 attention kernels take D % 8 == 0 and D <= 160, got {d}")
+    if b * h > 65535:
+        raise ValueError("B * H must be at most 65535")
+    for t, name in ((q, "q"), (k, "k"), (v8, "v8")):
+        _check_int8(t, name)
+    o = torch.empty(q.shape, dtype=out_dtype, device=q.device)
+    fn = cuda_build.entry("flash_attention_int8")
+    err = fn(q.data_ptr(), k.data_ptr(), v8.data_ptr(), o.data_ptr(),
+             c.data_ptr() if full else None, b * h, s, d, float(qscale), int(full),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _launch_check(err, "flash_attention_int8" if full else "flash_attention_pv8")
+    return o
+
+
+def flash_attention_pv8(q, k, v8, *, qscale):
+    """K4: q, k (B, H, S, D) bf16, v8 int8 -> acc / l (B, H, S, D) bf16;
+    ``qscale`` = scale*log2(e) rounded to q's dtype."""
+    if q.shape != k.shape or q.shape != v8.shape or v8.dtype != torch.int8:
+        raise ValueError("flash_attention_pv8 takes q, k and int8 v8 of one shape")
+    if q.device.type == "cpu":
+        return pv8_plain(q, k, v8, qscale=qscale)
+    if q.device.type != "cuda" or k.device != q.device or v8.device != q.device:
+        raise ValueError(f"flash_attention_pv8 runs on cpu or cuda, got {q.device}")
+    o = _launch_int8(q, k, v8, None, qscale, q.dtype, full=False)
+    flash_attention_pv8.launches += 1
+    return o
+
+
+def flash_attention_int8(q8, k8, v8, c, *, out_dtype):
+    """K5: int8 q8, k8, v8 (B, H, S, D) and the fp32 scalar tensor ``c`` ->
+    acc / l (B, H, S, D) in ``out_dtype`` (bf16 on the card)."""
+    if not (q8.shape == k8.shape == v8.shape) or not all(
+            t.dtype == torch.int8 for t in (q8, k8, v8)):
+        raise ValueError("flash_attention_int8 takes int8 q8, k8, v8 of one shape")
+    if q8.device.type == "cpu":
+        return int8_plain(q8, k8, v8, c, out_dtype=out_dtype)
+    if q8.device.type != "cuda" or not (k8.device == v8.device == c.device == q8.device):
+        raise ValueError(f"flash_attention_int8 runs on cpu or cuda, got {q8.device}")
+    if c.dtype != torch.float32 or c.numel() != 1:
+        raise ValueError("c is one fp32 value")
+    o = _launch_int8(q8, k8, v8, c, 0.0, out_dtype, full=True)
+    flash_attention_int8.launches += 1
+    return o
+
+
+flash_attention_pv8.launches = 0
+flash_attention_int8.launches = 0
+
+
 def reset_launch_counts():
     flash_attention.launches = 0
     cross_attention.launches = 0
+    flash_attention_pv8.launches = 0
+    flash_attention_int8.launches = 0
 
 
 def cross_attn_fn(q, k, v, *, min_seq=1024, max_kv=512):
@@ -175,3 +346,11 @@ def self_attn_fn(q, k, v, *, min_seq=1024):
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
     return nn.dot_product_attention(q, k, v)
 
+
+def self_attn_fn_int8(q, k, v, *, min_seq=1024, mode="pv"):
+    """The int8 serving mode's self-attention: K4 (``mode="pv"``) or K5
+    (``mode="full"``) for long self-attention, plain attention for short
+    sequences (``pfd_tpu`` flash_attention.py:547-557)."""
+    if q.shape[2] >= min_seq and q.shape[2] == k.shape[2]:
+        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), quant=mode)
+    return nn.dot_product_attention(q, k, v)

@@ -11,11 +11,24 @@ Semantics match ``pfd_tpu``: GroupNorm/LayerNorm statistics in
 ``norm_dtype`` (fp32), attention softmax in ``softmax_dtype`` (fp32),
 cos-then-sin timestep embedding, GEGLU with tanh GELU under the BF16 policy.
 
-``upsample_conv2d`` is nearest-2x followed by the 3x3 conv. ``pfd_tpu``
-rewrites that pair as one phase-decomposed conv at the low resolution
-(nn.py:261-329); the rewrite is an exact identity in fp32 and measured
-end-to-end neutral on the TPU (docs/PARITY.md), so the port keeps the plain
-form and cuDNN's conv. The parity test holds the two against each other.
+int8 serving mode: a conv, linear or fused linear whose module carries
+``weight_q`` / ``weight_scale`` (``ops/quant.py``) runs as in ``pfd_tpu``
+(nn.py:101-107, 115-150): ``x8, sx = quantize_act(x)``, an exact int32
+product, then ``(y.float() * (sx * scale)).to(x.dtype)``, then the bias in
+x's dtype. The int32 conv is ``int8_conv.conv_int8`` (a CUDA kernel on the
+card); the int32 matmul of the linears, which ``quantize_params`` never
+produces, is a float64 matmul of the integer values (exact) until the int8
+matmul kernel (K7b) is ported.
+
+``upsample_conv2d`` in float is nearest-2x followed by the 3x3 conv.
+``pfd_tpu`` rewrites that pair as one phase-decomposed conv at the low
+resolution (nn.py:261-329); in float the rewrite is an exact identity and
+measured end-to-end neutral on the TPU (docs/PARITY.md), so the port keeps
+the plain form and cuDNN's conv there. In int8 it is not an identity:
+``pfd_tpu`` requantizes the phase kernel per output channel, a different
+set of codes from the 3x3 ones, so a quantized upsample conv takes the
+phase form, with the kernel requantized once at quantize time
+(``quant.phase_kernel``).
 """
 
 from __future__ import annotations
@@ -24,6 +37,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from pfd_tpu_torch.ops import int8_conv, quant
 
 
 def _w(m, x):
@@ -34,21 +49,60 @@ def _b(m, x):
     return None if getattr(m, "bias", None) is None else m.bias.to(x.dtype)
 
 
+def _dequant(y, sx, scale, x, channel_dim):
+    """int32 y -> x's dtype: ``y * (sx * scale)`` in fp32, scale per output
+    channel along ``channel_dim``."""
+    s = sx * scale.float()
+    if channel_dim == 1:
+        s = s[None, :, None, None]
+    return (y.float() * s).to(x.dtype)
+
+
+def _conv_q(x, w8, scale, *, stride, padding):
+    x8, sx = quant.quantize_act(x, memory_format=torch.channels_last)
+    y = int8_conv.conv_int8(x8, w8, stride=stride, padding=padding)
+    return _dequant(y, sx, scale, x, 1)
+
+
 def conv2d(x, m, *, stride=1, padding=0):
-    """NCHW conv with the module's weights cast to ``x.dtype``.
+    """NCHW conv with the module's weights cast to ``x.dtype``, or the int8
+    conv where the module is quantized (module docstring).
     ``padding`` is an int (symmetric) or ``(left, right, top, bottom)``."""
+    if quant.is_quantized(m):
+        y = _conv_q(x, m.weight_q, m.weight_scale, stride=stride, padding=padding)
+        b = _b(m, x)
+        return y if b is None else y + b[None, :, None, None]
     if isinstance(padding, tuple):
         x = F.pad(x, padding)
         padding = 0
     return F.conv2d(x, _w(m, x), _b(m, x), stride=stride, padding=padding)
 
 
+def _matmul_q(x, w8, scale):
+    """int8 x (..., in) by int8 w (out, in), exact, dequantized."""
+    x8, sx = quant.quantize_act(x)
+    y = torch.matmul(x8.double(), w8.double().t())
+    return _dequant(y, sx, scale, x, -1)
+
+
 def linear(x, m):
+    if quant.is_quantized(m):
+        y = _matmul_q(x, m.weight_q, m.weight_scale)
+        b = _b(m, x)
+        return y if b is None else y + b
     return F.linear(x, _w(m, x), _b(m, x))
 
 
 def fused_linear(x, ms):
-    """Several no-bias linears as one matmul (the self-attention q|k|v)."""
+    """Several no-bias linears as one matmul (the self-attention q|k|v). If
+    every layer is quantized, the codes are concatenated and x is quantized
+    once (``pfd_tpu`` nn.py:131-150); a mix of the two raises."""
+    nq = sum(quant.is_quantized(m) for m in ms)
+    if nq == len(ms):
+        return _matmul_q(x, torch.cat([m.weight_q for m in ms], dim=0),
+                         torch.cat([m.weight_scale for m in ms], dim=0))
+    if nq:
+        raise ValueError("fused_linear: quantize all or none of the fused layers")
     w = torch.cat([m.weight for m in ms], dim=0).to(x.dtype)
     return F.linear(x, w)
 
@@ -122,8 +176,25 @@ def timestep_embedding(timesteps, dim, max_period=10000, dtype=torch.float32):
 
 
 def upsample_conv2d(x, m):
-    """Nearest-2x upsample then 3x3 conv, padding 1 (see module docstring)."""
-    return conv2d(F.interpolate(x, scale_factor=2.0, mode="nearest"), m, padding=1)
+    """Nearest-2x upsample then 3x3 conv, padding 1; a quantized ``m`` runs
+    ``pfd_tpu``'s int8 phase form (module docstring): one 2x2 int8 conv
+    over the 1-padded input into 4*K phase channels ordered (p, q, K),
+    dequantized with the phase scales, then interleaved, then the bias."""
+    if not quant.is_quantized(m):
+        return conv2d(F.interpolate(x, scale_factor=2.0, mode="nearest"), m, padding=1)
+    if "phase_q" not in m._buffers:
+        raise ValueError("a quantized upsample conv needs its phase kernel: "
+                         "mark it with quant.mark_upsample before quantizing")
+    n, _, h, w = x.shape
+    z = _conv_q(x, m.phase_q, m.phase_scale, stride=1, padding=1)
+    k = z.shape[1] // 4
+    # phase (p, q) output (i, j) sits at padded-conv index (i + p, j + q)
+    z4 = torch.stack([z[:, 0 * k:1 * k, 0:h, 0:w], z[:, 1 * k:2 * k, 0:h, 1:w + 1],
+                      z[:, 2 * k:3 * k, 1:h + 1, 0:w], z[:, 3 * k:4 * k, 1:h + 1, 1:w + 1]],
+                     dim=2)                                   # (N, K, 2p+q, H, W)
+    y = z4.reshape(n, k, 2, 2, h, w).permute(0, 1, 4, 2, 5, 3).reshape(n, k, 2 * h, 2 * w)
+    b = _b(m, x)
+    return y if b is None else y + b[None, :, None, None]
 
 
 def split_heads(x, n_heads):

@@ -11,6 +11,13 @@ The serving path passes ``self_attn_fn=ops.flash_attention.self_attn_fn``
 self-attention to K1 and its cross-attention to K2; the VAE's mid-block
 attention takes K1 on CUDA by itself.
 
+``quantized=True`` is the int8 serving mode (as ``pfd_tpu``'s
+``quantized=True``, pipeline.py:85-105): after the build, every spatial conv
+of the diffuser and the VAE is quantized to int8 (``ops/quant.py``) and runs
+through the int8 conv kernel; SeeCoder, run once per image, stays bf16. Pair
+it with ``self_attn_fn=ops.flash_attention.self_attn_fn_int8`` (K4; K5 with
+``functools.partial(..., mode="full")``) for int8 attention.
+
 Weights: without checkpoint files the model runs with random weights seeded
 by ``seed``. Loading the published zoo needs ``io/loader.py``, which is not
 ported yet: a checkpoint file found on disk raises instead of being ignored.
@@ -27,6 +34,7 @@ import torch
 from pfd_tpu_torch import config, zoo
 from pfd_tpu_torch.diffusion.ddim import DDIMSampler
 from pfd_tpu_torch.models.build import build_model
+from pfd_tpu_torch.ops import quant
 from pfd_tpu_torch.policy import Policy, FP32, BF16
 
 
@@ -54,7 +62,7 @@ class PromptFreeDiffusionPipeline:
                  tag_ctx="SeeCoder", tag_diffuser="Deliberate-v2.0",
                  tag_ctl="none", pretrained_root=None, seed=0,
                  with_control=False, self_attn_fn=None, config_override=None,
-                 device="cuda"):
+                 quantized=False, device="cuda"):
         if with_control:
             raise NotImplementedError("ControlNet is not ported yet: use with_control=False")
         self.policy = policy or (BF16 if fp16 else FP32)
@@ -73,6 +81,9 @@ class PromptFreeDiffusionPipeline:
                 cfg["args"]["ctx_cfg_list"] = [["image", config.model_cfg("seecoder_pa")]]
         self.net = build_model(cfg, policy=self.policy, device=self.device,
                                generator=self._generator())
+        if quantized:
+            for part in (self.net.diffuser, self.net.vae):
+                quant.quantize_params(part)
         self.sampler = DDIMSampler(self.net)
         self.tag_ctx = self.tag_diffuser = self.tag_ctl = None
         self.action_load_ctx(tag_ctx)
@@ -100,6 +111,9 @@ class PromptFreeDiffusionPipeline:
         return tag
 
     def action_load_diffuser(self, tag):
+        """Swap the diffuser. In the int8 mode the loaded weights must be
+        quantized again (``quant.quantize_params``), as ``pfd_tpu`` does
+        (pipeline.py:159-169), once the loader lands."""
         path = zoo.resolve(zoo.DIFFUSER_PATH.get(tag), self.root)
         if path is not None and os.path.exists(path):
             _loader_missing(path)

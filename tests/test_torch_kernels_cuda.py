@@ -1,6 +1,7 @@
-"""K1 and K2 on the card against their plain PyTorch versions, bf16, at the
-serving path's shapes, on unit-normal inputs, within ``kernel_tolerance``:
-max-abs a tenth of the output's RMS, at most 2e-2.
+"""K1, K2, K4 and K5 on the card against their plain PyTorch versions,
+bf16, at the serving path's shapes, on unit-normal inputs, within
+``kernel_tolerance``: max-abs a tenth of the output's RMS, at most 2e-2;
+and the int8 conv kernel against its plain version, bit for bit.
 
 Needs a CUDA device and ``nvcc``; skips where there is none. Imports neither
 JAX nor pfd_tpu, so it also runs on a machine without them:
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from pfd_tpu_torch.ops import flash_attention as fa
+from pfd_tpu_torch.ops import int8_conv
 
 
 def _need_cuda():
@@ -65,3 +67,43 @@ def test_kernels_refuse_what_they_do_not_take():
     qw = torch.zeros(1, 1, 64, 512, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         fa.cross_attention(qw, qw, qw)  # K2 serves D <= 160
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["pv", True])
+@pytest.mark.parametrize("shape", [(2, 8, 4096, 40), (1, 2, 1000, 80)])
+def test_int8_flash_kernels_match_plain(shape, quant):
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = (_randn(shape, g) for _ in range(3))
+    counter = fa.flash_attention_int8 if quant is True else fa.flash_attention_pv8
+    before = counter.launches
+    got = fa.flash_attention(q, k, v, quant=quant)
+    want = fa.attention_int8_plain(q, k, v, quant=quant)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert (got.float() - want.float()).abs().max().item() <= fa.kernel_tolerance(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xshape,cout,ksize,stride,padding", [
+    ((2, 320, 64, 64), 320, 3, 1, 1),          # ResBlock conv
+    ((2, 1280, 8, 8), 1280, 3, 1, 1),          # late UNet: depth split over 11 blocks
+    ((2, 640, 16, 16), 4 * 640, 2, 1, 1),      # upsample phase conv
+    ((1, 128, 33, 47), 128, 3, 2, (0, 1, 0, 1)),  # VAE encoder, ragged tiles
+])
+def test_conv_int8_kernel_is_bit_exact(xshape, cout, ksize, stride, padding):
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def codes(shape):
+        return torch.randint(-127, 128, shape, generator=g, device="cuda",
+                             dtype=torch.int8).contiguous(memory_format=torch.channels_last)
+
+    x8, w8 = codes(xshape), codes((cout, xshape[1], ksize, ksize))
+    before = int8_conv.conv_int8.launches
+    got = int8_conv.conv_int8(x8, w8, stride=stride, padding=padding)
+    want = int8_conv.conv_int8_plain(x8, w8, stride=stride, padding=padding)
+    torch.cuda.synchronize()
+    assert int8_conv.conv_int8.launches == before + 1
+    assert got.shape == want.shape and torch.equal(got, want)

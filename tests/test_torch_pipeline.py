@@ -40,8 +40,35 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _tiny_pipe(**kw):
-    return PromptFreeDiffusionPipeline(fp16=False, config_override=PFD, device="cpu",
-                                       self_attn_fn=tfa.self_attn_fn, **kw)
+    kw.setdefault("self_attn_fn", tfa.self_attn_fn)
+    return PromptFreeDiffusionPipeline(fp16=False, config_override=PFD, device="cpu", **kw)
+
+
+def _quantize_jax(params):
+    from pfd_tpu.ops import quant as jquant
+    q = dict(params)
+    q["diffuser"] = jquant.quantize_params(params["diffuser"])
+    q["vae"] = jquant.quantize_params(params["vae"])
+    return q
+
+
+def _jax_slice(jm, params, ref_img, x_start, steps, self_attn_fn):
+    c = jax.jit(jm.ctx_encode)(params, jnp.asarray(ref_img)[None])
+    x, _ = JDDIM(jm).sample(
+        params, jax.random.PRNGKey(0), x_start.shape,
+        x_info={"xt": jnp.asarray(x_start)},
+        c_info={"conditioning": c, "unconditional_conditioning": jnp.zeros_like(c),
+                "unconditional_guidance_scale": 2.0},
+        steps=steps, eta=0.0, self_attn_fn=self_attn_fn)
+    return c, np.asarray(jax.jit(jm.vae_decode)(params, x))[0]
+
+
+def _port_slice(pipe, ref_img, x_start, steps):
+    ct = pipe.encode_context(ref_img)
+    img = pipe.sample_decode(ct, pipe.negative_context(ct),
+                             torch.from_numpy(x_start.transpose(0, 3, 1, 2).copy()),
+                             2.0, steps)
+    return ct, img[0].permute(1, 2, 0).numpy()
 
 
 def test_slice_matches_pfd_tpu_through_kernels(monkeypatch):
@@ -77,6 +104,61 @@ def test_slice_matches_pfd_tpu_through_kernels(monkeypatch):
     assert sorted(calls) == [16] * 12 + [1024] * 12
     assert 0.02 < want.std()  # the image depends on the weights, not a constant
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-3)
+
+
+def test_int8_slice_matches_pfd_tpu_through_k4(monkeypatch):
+    """The int8 serving mode: int8 diffuser and VAE convs (the same codes on
+    both sides, through the bridge) and int8-PV self-attention. The 32x32
+    latent gives S = 1024 at ds1, so pfd_tpu's ``self_attn_fn_int8`` runs its
+    K4 Pallas kernel in interpret mode and the port its K4 wrapper (the plain
+    version here, on 64-key tiles where pfd_tpu's tile holds all 1024 keys).
+    4 DDIM steps (the uniform grid needs a divisor of 1000). Limits: mean-abs
+    1e-2, max-abs 5e-2. An int8 code that flips under fp32 re-association
+    upstream moves one conv output by one quantization step, and the next
+    quantized layers pass that on: pfd_tpu against itself, with the start
+    latent scaled by (1 + 1e-6), moves by mean-abs 6.5e-3 and max-abs
+    3.9e-2 here, so a tighter limit would fail pfd_tpu too. Observed: port
+    vs pfd_tpu mean-abs 6.6e-3, max-abs 4.3e-2 (6.5e-3 and 4.9e-2 with the
+    port's plain K4 on pfd_tpu's 1024-key tile, so the tile is not the
+    cause)."""
+    jm = jreg.get("pfd")(**PFD["args"])
+    qparams = _quantize_jax(numpy_params(jm, 0))
+    rng = np.random.default_rng(5)
+    ref_img = rng.random((64, 64, 3), dtype=np.float32)
+    x_start = rng.standard_normal((1, 32, 32, 4)).astype(np.float32)
+    _, want = _jax_slice(jm, qparams, ref_img, x_start, 4, jfa.self_attn_fn_int8)
+
+    pipe = _tiny_pipe(quantized=True, self_attn_fn=tfa.self_attn_fn_int8)
+    pipe.net.load_state_dict(params_from_jax(qparams), strict=True)
+    calls = []
+    plain = tfa.pv8_plain
+    monkeypatch.setattr(tfa, "pv8_plain",
+                        lambda q, k, v8, **kw: calls.append(q.shape[2]) or plain(q, k, v8, **kw))
+    _, got = _port_slice(pipe, ref_img, x_start, 4)
+    assert got.shape == (128, 128, 3)
+    assert calls == [1024] * 12  # 4 steps x 3 first-level transformer blocks
+    assert 0.02 < want.std()
+    err = np.abs(got - want)
+    assert err.mean() <= 1e-2 and err.max() <= 5e-2, (err.mean(), err.max())
+
+
+def test_int8_ssim_against_float():
+    """test_quant_e2e.py:37-60 on the port: SSIM(int8, float) >= 0.93 over
+    SeeCoder -> CFG DDIM (5 steps) -> VAE decode, one weight set."""
+    from pfd_tpu.training.evaluator import ssim
+    jm = jreg.get("pfd")(**PFD["args"])
+    params = numpy_params(jm, 1)
+    rng = np.random.default_rng(5)
+    ref_img = rng.random((64, 64, 3), dtype=np.float32)
+    x_start = rng.standard_normal((1, 16, 16, 4)).astype(np.float32)
+    fp = _tiny_pipe(self_attn_fn=None)
+    fp.net.load_state_dict(params_from_jax(params), strict=True)
+    q8 = _tiny_pipe(self_attn_fn=None, quantized=True)
+    q8.net.load_state_dict(params_from_jax(_quantize_jax(params)), strict=True)
+    img_fp = _port_slice(fp, ref_img, x_start, 5)[1]
+    img_q = _port_slice(q8, ref_img, x_start, 5)[1]
+    assert np.isfinite(img_q).all()
+    assert ssim(img_q, img_fp, data_range=1.0) >= 0.93
 
 
 class _Linear:
