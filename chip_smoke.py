@@ -9,9 +9,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    versions; no CUDA device -> exit 2, no ``pfd_tpu_torch`` beside this
    script -> exit 3, and no result is printed;
 2. build: K1 (``csrc/flash_attention.cu``), K2 (``csrc/cross_attention.cu``),
-   K4/K5 (``csrc/flash_attention_int8.cu``) and the int8 conv
-   (``csrc/conv_int8.cu``) with nvcc for sm_90a, one process per source, all
-   at once;
+   K4/K5 (``csrc/flash_attention_int8.cu``), the int8 conv
+   (``csrc/conv_int8.cu``), K3 (``csrc/flash_attention_pipe.cu``), the bf16
+   conv3x3 of K6 and K7a's bf16 mode (``csrc/conv3x3_bf16.cu``) and K7b
+   (``csrc/matmul_int8.cu``) with nvcc for sm_90a, one process per source,
+   all at once;
 3. K1 against its plain PyTorch version in bf16 at the serving shapes, within
    ``kernel_tolerance`` (a tenth of the output's RMS, at most 2e-2), with
    kernel, plain, library (``scaled_dot_product_attention``, a yardstick only)
@@ -41,7 +43,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    plain versions (relative L2 <= 5e-2) and profiled; one line of
    throughput, 8 images of 10 steps, bf16 against int8, and a profile of one
    UNet call at that batch in each mode;
-9. a ``kernels`` JSON line, the card's name and power limit, then the device
+9. K3 (``flash_attention(pipelined=True)``) against its plain version and
+   against K1 within ``kernel_tolerance``; K6 (``conv3x3_fused``, with the
+   ResBlock shift folded into its affine and a residual) and its conv-only
+   mode against their plain version within relative L2 2e-3 and max-abs one
+   bf16 ulp of the largest output; K7b (``matmul_int8``) against its plain
+   version and ``torch._int_mm``, bit for bit; each with kernel, plain,
+   library and bound times;
+10. the kernel labs through their entry points, a few iterations each:
+   ``perf_audit`` (``AUDIT_SECTIONS=fused``), ``attn_lab`` and ``int8_lab``
+   (``LAB_SECTIONS=pallas_mm,convs``), with the launch counts set to 0 just
+   before and read just after: K3, the conv3x3 kernel and K7b must each
+   launch;
+11. a ``kernels`` JSON line, the card's name and power limit, then the device
    JSON as the last line.
 
 Imports neither JAX nor ``pfd_tpu``.
@@ -250,9 +264,15 @@ def check_conv(label, xshape, cout, ksize, stride, padding, gen):
     return row
 
 
-def launch_counts():
+def launch_counts(labs=False):
+    """The serving path's launch counters; with ``labs`` those of the
+    kernels that only the labs reach."""
     from pfd_tpu_torch.ops import flash_attention as fa
-    from pfd_tpu_torch.ops import int8_conv
+    from pfd_tpu_torch.ops import fused_conv, int8_conv, int8_matmul
+    if labs:
+        return {"flash_attention_pipe": fa.flash_attention_pipe.launches,
+                "conv3x3_bf16": fused_conv.conv3x3_fused.launches,
+                "matmul_int8": int8_matmul.matmul_int8.launches}
     return {"flash_attention": fa.flash_attention.launches,
             "cross_attention": fa.cross_attention.launches,
             "flash_attention_pv8": fa.flash_attention_pv8.launches,
@@ -262,9 +282,178 @@ def launch_counts():
 
 def reset_counts():
     from pfd_tpu_torch.ops import flash_attention as fa
-    from pfd_tpu_torch.ops import int8_conv
+    from pfd_tpu_torch.ops import fused_conv, int8_conv, int8_matmul
     fa.reset_launch_counts()
     int8_conv.conv_int8.launches = 0
+    fused_conv.conv3x3_fused.launches = 0
+    int8_matmul.matmul_int8.launches = 0
+
+
+def check_pipe(shape, mufu_rate, gen):
+    """K3 against its plain version and against K1, within
+    ``kernel_tolerance`` of the plain output."""
+    import torch
+    import torch.nn.functional as F
+    from pfd_tpu_torch.ops import flash_attention as fa
+
+    b, h, s, d = shape
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").bfloat16() for _ in range(3))
+    got = fa.flash_attention(q, k, v, pipelined=True)
+    want = fa.attention_pipe_plain(q, k, v)
+    k1 = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    tol = fa.kernel_tolerance(want)
+    err = (got.float() - want.float()).abs().max().item()
+    err_k1 = (got.float() - k1.float()).abs().max().item()
+    if not (err <= tol and err_k1 <= tol):
+        raise AssertionError(f"K3 {shape}: max_abs_err {err} (vs plain), {err_k1} (vs K1) "
+                             f"> {tol}")
+    big = b * h * s * s > 2 ** 28
+    row = {"shape": [b, h, s, s, d], "max_abs_err": err, "max_abs_err_vs_k1": err_k1,
+           "tol": tol, "err_over_tol": err / tol,
+           "kernel_ms": cuda_ms(lambda: fa.flash_attention(q, k, v, pipelined=True), 20),
+           "k1_ms": cuda_ms(lambda: fa.flash_attention(q, k, v), 20),
+           "plain_ms": cuda_ms(lambda: fa.attention_pipe_plain(q, k, v), 2 if big else 5),
+           "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)}
+    row["bound_ms"], row["bound_by"] = attention_bound_ms(b, h, s, s, d, mufu_rate)
+    print(f"K3 {json.dumps(row)}  bound_us={row['bound_ms'] * 1e3:.1f}", flush=True)
+    return row
+
+
+def conv3x3_bound_ms(n, c, h, w, k, fused):
+    """Least time for the bf16 conv3x3: x, the weight (bf16), the output and,
+    fused, the residual (bf16) and the fp32 affine and bias, each read or
+    written once, over the memory rate; 2*M*N*K FLOP over the bf16 rate."""
+    nbytes = 2 * (n * c * h * w + 9 * k * c + n * k * h * w)
+    if fused:
+        nbytes += 2 * n * k * h * w + 4 * (2 * n * c + k)
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = 2 * n * h * w * k * 9 * c / PEAK_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_conv3x3(xshape, fused, gen):
+    """The bf16 conv3x3 kernel against its plain version: fused (K6, the
+    GroupNorm affine with a ResBlock shift folded in, bias, residual) or
+    conv only (K7a's bf16 mode). Relative L2 at most 2e-3 and max-abs at
+    most one bf16 ulp of the largest output (both round an fp32 sum to
+    bf16). Yardsticks: cuDNN's bf16 conv for the conv-only mode (the same
+    function), the eager GroupNorm -> SiLU -> conv -> add chain for the
+    fused mode."""
+    import torch
+    import torch.nn.functional as F
+    from pfd_tpu_torch.ops import fused_conv
+    from pfd_tpu_torch.ops import nn as tnn
+
+    n, c, h, w = xshape
+    cl = torch.channels_last
+    x = torch.randn(xshape, generator=gen, device="cuda").bfloat16().contiguous(memory_format=cl)
+    norm = torch.nn.GroupNorm(32, c, device="cuda").requires_grad_(False)
+    conv = torch.nn.Conv2d(c, c, 3, padding=1, device="cuda").requires_grad_(False)
+    norm.weight.copy_(1 + 0.2 * torch.randn(c, generator=gen, device="cuda"))
+    norm.bias.copy_(0.2 * torch.randn(c, generator=gen, device="cuda"))
+    conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen, device="cuda")
+                      / (9 * c) ** 0.5)
+    conv.bias.copy_(0.1 * torch.randn(c, generator=gen, device="cuda"))
+    norm, conv = norm.bfloat16(), conv.bfloat16().to(memory_format=cl)
+    if fused:
+        shift = torch.randn((n, c), generator=gen, device="cuda").bfloat16()
+        a, cc = tnn.group_norm_affine(x, norm.weight, norm.bias, eps=1e-5, shift=shift)
+        args = (x, conv.weight, a, cc, conv.bias)
+        kw = {"residual": x}
+    else:
+        args, kw = (x, conv.weight, None, None, None), {}
+    got = fused_conv.conv3x3_fused(*args, **kw)
+    want = fused_conv.conv3x3_fused_plain(*args, **kw)
+    torch.cuda.synchronize()
+    g, wf = got.float(), want.float()
+    rel = ((g - wf).norm() / wf.norm()).item()
+    err = (g - wf).abs().max().item()
+    ulp = 2.0 ** (torch.floor(torch.log2(wf.abs().max())).item() - 7)
+    label = f"{'fused' if fused else 'conv'} {list(xshape)}->{c}"
+    if not (rel <= 2e-3 and err <= ulp):
+        raise AssertionError(f"conv3x3_bf16 {label}: rel_l2 {rel} (limit 2e-3), max_abs "
+                             f"{err} (limit {ulp})")
+    if fused:
+        def yardstick():
+            hh = tnn.group_norm(x + shift[:, :, None, None], norm, eps=1e-5)
+            return tnn.conv2d(tnn.silu(hh), conv, padding=1) + x
+        ykey = "eager_gn_silu_conv_add_ms"
+    else:
+        def yardstick():
+            return F.conv2d(x, conv.weight, padding=1)
+        ykey = "library_ms"
+    row = {"shape": label, "max_abs_err": err, "rel_l2": rel, "ulp_limit": ulp,
+           "kernel_ms": cuda_ms(lambda: fused_conv.conv3x3_fused(*args, **kw), 20),
+           "plain_ms": cuda_ms(lambda: fused_conv.conv3x3_fused_plain(*args, **kw), 5),
+           ykey: cuda_ms(yardstick, 20)}
+    row.setdefault("library_ms", None)
+    row["bound_ms"], row["bound_by"] = conv3x3_bound_ms(n, c, h, w, c, fused)
+    print(f"conv3x3_bf16 {json.dumps(row)}  bound_us={row['bound_ms'] * 1e3:.1f}",
+          flush=True)
+    return row
+
+
+def check_matmul(m, k, n, gen):
+    """K7b against its plain version and ``torch._int_mm``, bit for bit.
+    Bound: x, w (int8) read and y (int32) written once over the memory
+    rate; 2*M*N*K over the int8 rate."""
+    import torch
+    from pfd_tpu_torch.ops import int8_matmul
+
+    x8 = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+    got = int8_matmul.matmul_int8(x8, w8)
+    want = int8_matmul.matmul_int8_plain(x8, w8)
+    lib = torch._int_mm(x8, w8.t())
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(got, lib)):
+        raise AssertionError(f"matmul_int8 {m}x{k}x{n}: not bit-exact "
+                             f"({(got != want).sum().item()} differ from plain, "
+                             f"{(got != lib).sum().item()} from torch._int_mm)")
+    t_bytes = (m * k + n * k + 4 * m * n) / PEAK_BYTES
+    t_ops = 2 * m * n * k / PEAK_INT8_OPS
+    row = {"shape": f"{m}x{k}x{n}", "max_abs_err": 0.0,
+           "kernel_ms": cuda_ms(lambda: int8_matmul.matmul_int8(x8, w8), 20),
+           "plain_ms": cuda_ms(lambda: int8_matmul.matmul_int8_plain(x8, w8), 3),
+           "library_ms": cuda_ms(lambda: torch._int_mm(x8, w8.t()), 20),
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print(f"matmul_int8 {json.dumps(row)}  bound_us={row['bound_ms'] * 1e3:.1f}", flush=True)
+    return row
+
+
+def run_labs():
+    """The kernel labs through their entry points (``main``), a few
+    iterations each, with every launch count set to 0 just before; returns
+    the counts just after."""
+    import torch
+    from pfd_tpu_torch.tools import attn_lab, int8_lab, perf_audit
+
+    env = {"AUDIT_SECTIONS": "fused", "AUDIT_ITERS": "3", "LAB_ITERS": "3",
+           "LAB_SECTIONS": "pallas_mm,convs"}
+    saved = {key: os.environ.get(key) for key in env}
+    os.environ.update(env)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        perf_audit.main()
+        attn_lab.main()
+        int8_lab.main()
+        torch.cuda.synchronize()
+    finally:
+        for key, val in saved.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+    counts = launch_counts(labs=True)
+    print(f"labs: {time.perf_counter() - t0:.1f} s, launches {json.dumps(counts)}", flush=True)
+    missing = [name for name, n in counts.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"labs: {missing} never launched")
+    return counts
 
 
 def serve(pipe, ref, seed, steps, label):
@@ -558,7 +747,25 @@ def main() -> int:
     profile_unet("b8 unet call profile, int8", lambda: net8.apply_model(
         xi8, t8, ci8, self_attn_fn=fa.self_attn_fn_int8))
 
-    # ---- 9. summary ----------------------------------------------------------
+    # ---- 9. K3, K6 and K7b against their plain versions ----------------------
+    # At B = 2 and at the labs' own shapes (LAB_BATCH / AUDIT_BATCH 16):
+    # attn_lab's two attention shapes, perf_audit's three fused shapes and
+    # int8_lab's two bf16 conv shapes.
+    k3_rows = [check_pipe(s, mufu_rate, gen) for s in
+               [(2, 8, 4096, 40), (2, 8, 1024, 80), (1, 2, 1000, 40), (1, 1, 4096, 512),
+                (16, 8, 4096, 40), (16, 8, 1024, 80)]]
+    fused_shapes = [(2, 320, 64, 64), (2, 640, 32, 32), (2, 1280, 16, 16)]
+    lab_fused = [(16, 320, 64, 64), (16, 640, 32, 32), (16, 1280, 16, 16)]
+    lab_conv = [(16, 320, 64, 64), (16, 1280, 16, 16)]
+    k6_rows = ([check_conv3x3(s, False, gen) for s in fused_shapes + lab_conv]
+               + [check_conv3x3(s, True, gen) for s in fused_shapes + lab_fused])
+    k7b_rows = [check_matmul(m, k, n, gen) for m, k, n in
+                [(8192, 320, 2560), (8192, 1280, 320), (4096, 1280, 1280)]]
+
+    # ---- 10. the kernel labs ---------------------------------------------------
+    lab_launches = run_labs()
+
+    # ---- 11. summary ---------------------------------------------------------
     def summary(name, source, replaces, rows, n):
         main_row = rows[0]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -581,6 +788,13 @@ def main() -> int:
                 launches_e["flash_attention_int8"]),
         summary("conv_int8", "pfd_tpu_torch/csrc/conv_int8.cu",
                 "pfd_tpu/tools/int8_lab.py:129", conv_rows, launches_d["conv_int8"]),
+        summary("flash_attention_pipe", "pfd_tpu_torch/csrc/flash_attention_pipe.cu",
+                "pfd_tpu/ops/flash_attention.py:108", k3_rows,
+                lab_launches["flash_attention_pipe"]),
+        summary("conv3x3_bf16", "pfd_tpu_torch/csrc/conv3x3_bf16.cu",
+                "pfd_tpu/ops/fused_conv.py:102", k6_rows, lab_launches["conv3x3_bf16"]),
+        summary("matmul_int8", "pfd_tpu_torch/csrc/matmul_int8.cu",
+                "pfd_tpu/tools/int8_lab.py:192", k7b_rows, lab_launches["matmul_int8"]),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

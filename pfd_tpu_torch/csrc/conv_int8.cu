@@ -64,20 +64,9 @@ struct Geometry {
   int N, H, W, C, K, kh, kw, stride, pad_t, pad_l, Ho, Wo, per_split;
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using pfd::cp_async16;
+using pfd::cp_async_commit;
+using pfd::cp_async_wait;
 
 __global__ void __launch_bounds__(NT)
 conv_int8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,

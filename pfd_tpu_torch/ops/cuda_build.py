@@ -35,6 +35,10 @@ SIGNATURES = {
                              (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _I, _VP)),
     "conv_int8": ("pfd_conv_int8",
                   (_VP, _VP, _VP) + (_I,) * 13 + (_VP,)),
+    "flash_attention_pipe": ("pfd_flash_attention_pipe_bf16",
+                             (_VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP)),
+    "conv3x3_bf16": ("pfd_conv3x3_bf16", (_VP,) * 7 + (_I,) * 5 + (_VP,)),
+    "matmul_int8": ("pfd_matmul_int8", (_VP, _VP, _VP, _I, _I, _I, _VP)),
 }
 
 _loaded: dict = {}  # name -> (CDLL, entry point); the CDLL stays referenced

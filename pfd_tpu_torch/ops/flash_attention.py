@@ -23,6 +23,17 @@ against the running row max, so their plain versions walk the same tiles
 (``block_k``); the TPU kernel's tiles are up to 2048 keys, and the tests
 pass its block size to hold the plain versions against it.
 
+``flash_attention(..., pipelined=True)`` is K3, K1's function computed with
+``pfd_tpu``'s software-pipelined schedule (``_flash_kernel_pipe``, :108-160,
+grid :406-414): ``nk + 1`` steps, each issuing the logits of key tile
+``min(j, nk-1)`` into one slot of a two-slot buffer before the softmax and
+P.V of tile ``j-1`` (v tile ``max(j-1, 0)``) read the other slot, with the
+``S_EMPTY`` / ``M_EMPTY`` sentinels making the priming step a no-op and
+one drain step at the end. Its kernel is ``flash_attention_pipe``
+(``csrc/flash_attention_pipe.cu``); its plain version
+``attention_pipe_plain`` walks the same steps. ``pfd_tpu`` has no int8
+pipelined kernel, so ``quant`` with ``pipelined=True`` raises.
+
 Each wrapper
 - on a CPU tensor computes ``attention_plain``, the plain PyTorch version of
   the same function (the tests' path, and the oracle on the card);
@@ -47,6 +58,13 @@ from pfd_tpu_torch.ops import quant as quant_lib
 LOG2E = 1.4426950408889634
 LOG2_127 = 6.988684686772166  # log2(127)
 NEG_INF = -1e30
+# K3's "nothing yet" sentinels (pfd_tpu flash_attention.py:100-105): the
+# priming step reads a logits slot of S_EMPTY against m = M_EMPTY > S_EMPTY,
+# so p = exp2(S_EMPTY - M_EMPTY) = 0 and alpha = exp2(0) = 1
+S_EMPTY = -1e30
+M_EMPTY = -1e29
+PIPE_BLOCK_K = 64  # the key tile of K3 for D <= 160 ...
+PIPE_BLOCK_K_WIDE = 16  # ... and for the D = 512 head (launch<512, 2, 16>)
 INT_NEG = -(2 ** 30)
 INT8_BLOCK_K = 64  # the key tile of the int8 kernels
 
@@ -124,34 +142,111 @@ def _launch_check(err, name):
         raise RuntimeError(f"{name} kernel launch failed with cudaError {err}")
 
 
-def flash_attention(q, k, v, *, scale=None, quant=False):
+def flash_attention(q, k, v, *, scale=None, quant=False, pipelined=False):
     """Non-causal self-attention, q, k, v: (B, H, S, D) -> (B, H, S, D).
-    ``quant=False``: K1; ``"pv"``: K4; ``True`` (or ``"full"``): K5. Head
-    dims that are a multiple of 128 run K1 whatever ``quant`` says, as in
-    ``pfd_tpu`` (:293-294)."""
+    ``quant=False``: K1 (K3 with ``pipelined=True``); ``"pv"``: K4;
+    ``True`` (or ``"full"``): K5. Head dims that are a multiple of 128 run
+    K1 whatever ``quant`` says, as in ``pfd_tpu`` (:293-294)."""
     _check(q, k, v, self_attn=True)
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if quant and pipelined:
+        raise ValueError("there is no int8 pipelined flash kernel: pass quant=False "
+                         "with pipelined=True")
     if quant and q.shape[3] % 128 == 0:
         quant = False
     if quant:
         return _flash_quant(q, k, v, scale, "full" if quant is True else quant)
+    if pipelined:
+        return flash_attention_pipe(q, k, v, scale=scale)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
-    _check_cuda(q, k, v, max_d=512)
-    b, h, s, d = q.shape
-    o = torch.empty_like(q)
-    fn = cuda_build.entry("flash_attention")
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, s, d,
-             _qscale(q, scale), torch.cuda.current_stream(q.device).cuda_stream)
-    _launch_check(err, "flash_attention")
+    o = _launch_self_attention("flash_attention", q, k, v, scale)
     flash_attention.launches += 1
     return o
 
 
 flash_attention.launches = 0
+
+
+def _launch_self_attention(name, q, k, v, scale):
+    """Launch K1 or K3 (``csrc/<name>.cu``, one C signature) on CUDA q, k, v."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
+    _check_cuda(q, k, v, max_d=512)
+    b, h, s, d = q.shape
+    o = torch.empty_like(q)
+    fn = cuda_build.entry(name)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, s, d,
+             _qscale(q, scale), torch.cuda.current_stream(q.device).cuda_stream)
+    _launch_check(err, name)
+    return o
+
+
+def attention_pipe_plain(q, k, v, *, scale=None, block_k=None, s_empty=S_EMPTY,
+                         m_empty=M_EMPTY, on_step=None):
+    """The plain version of K3, walking ``pfd_tpu``'s pipelined steps
+    literally (flash_attention.py:108-160): ``nk + 1`` steps over key tiles
+    of ``block_k`` (by default the kernel's: ``PIPE_BLOCK_K`` for D <= 160,
+    ``PIPE_BLOCK_K_WIDE`` above); step j computes the logits of tile ``min(j, nk-1)``
+    (keys past S masked to ``NEG_INF``) before the softmax and P.V of the
+    logits slot written at step j-1, against v tile ``max(j-1, 0)``; the
+    logits live in a two-slot buffer whose second slot starts at
+    ``s_empty``, and m starts at ``m_empty``, with no predicate on the
+    priming step; the last step drains. Arithmetic as ``attention_plain``
+    (q pre-scaled and rounded to q's dtype, fp32 logits, m and l, p rounded
+    to v's dtype for P.V). ``on_step(j, acc, l, m)``, if given, sees the
+    fp32 accumulator, denominator and running max after each step j."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if block_k is None:
+        block_k = PIPE_BLOCK_K if q.shape[3] <= 160 else PIPE_BLOCK_K_WIDE
+    s_len = k.shape[2]
+    nk = -(-s_len // block_k)
+    qf = (q * _qscale(q, scale)).float()
+    kf, vf = k.float(), v.float()
+    rows = q.shape[:3] + (1,)
+    m = torch.full(rows, m_empty, dtype=torch.float32, device=q.device)
+    l = torch.zeros(rows, dtype=torch.float32, device=q.device)
+    acc = torch.zeros(q.shape[:3] + (v.shape[3],), dtype=torch.float32, device=q.device)
+    slots = [None, torch.full(q.shape[:3] + (block_k,), s_empty, dtype=torch.float32,
+                              device=q.device)]
+    for j in range(nk + 1):
+        kt, vt = min(j, nk - 1), max(j - 1, 0)
+        k0, v0 = kt * block_k, vt * block_k
+        s_new = torch.matmul(qf, kf[:, :, k0:k0 + block_k].transpose(-1, -2))
+        if s_new.shape[-1] < block_k:  # the ragged last tile: padded keys masked
+            s_new = torch.nn.functional.pad(s_new, (0, block_k - s_new.shape[-1]),
+                                            value=NEG_INF)
+        s = slots[(j + 1) % 2]
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        vj = vf[:, :, v0:v0 + block_k]
+        pv = torch.matmul(p[..., :vj.shape[2]].to(v.dtype).float(), vj)
+        acc = acc * alpha + pv
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        m = m_new
+        slots[j % 2] = s_new
+        if on_step is not None:
+            on_step(j, acc, l, m)
+    return (acc / l).to(q.dtype)
+
+
+def flash_attention_pipe(q, k, v, *, scale=None):
+    """K3: ``flash_attention(q, k, v, pipelined=True)`` without the
+    dispatch; q, k, v (B, H, S, D)."""
+    _check(q, k, v, self_attn=True)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return attention_pipe_plain(q, k, v, scale=scale)
+    o = _launch_self_attention("flash_attention_pipe", q, k, v, scale)
+    flash_attention_pipe.launches += 1
+    return o
+
+
+flash_attention_pipe.launches = 0
 
 
 def cross_attention(q, k, v, *, scale=None):
@@ -325,6 +420,7 @@ flash_attention_int8.launches = 0
 
 def reset_launch_counts():
     flash_attention.launches = 0
+    flash_attention_pipe.launches = 0
     cross_attention.launches = 0
     flash_attention_pv8.launches = 0
     flash_attention_int8.launches = 0

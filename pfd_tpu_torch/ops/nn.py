@@ -15,10 +15,14 @@ int8 serving mode: a conv, linear or fused linear whose module carries
 ``weight_q`` / ``weight_scale`` (``ops/quant.py``) runs as in ``pfd_tpu``
 (nn.py:101-107, 115-150): ``x8, sx = quantize_act(x)``, an exact int32
 product, then ``(y.float() * (sx * scale)).to(x.dtype)``, then the bias in
-x's dtype. The int32 conv is ``int8_conv.conv_int8`` (a CUDA kernel on the
-card); the int32 matmul of the linears, which ``quantize_params`` never
-produces, is a float64 matmul of the integer values (exact) until the int8
-matmul kernel (K7b) is ported.
+x's dtype. The int32 conv is ``int8_conv.conv_int8`` and the int32 matmul
+of the linears (which ``quantize_params`` never produces) is
+``int8_matmul.matmul_int8`` (K7b); both are CUDA kernels on the card and
+exact plain versions on the CPU. On the card both read the depth in
+16-byte chunks: a quantized conv needs in_channels % 16 == 0 and a
+quantized linear in_features % 16 == 0, and raises otherwise (``pfd_tpu``'s
+int8 ``nn.linear`` takes any in_features). The convs that
+``quant.quantize_params`` picks in the served models all meet it.
 
 ``upsample_conv2d`` in float is nearest-2x followed by the 3x3 conv.
 ``pfd_tpu`` rewrites that pair as one phase-decomposed conv at the low
@@ -38,7 +42,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from pfd_tpu_torch.ops import int8_conv, quant
+from pfd_tpu_torch.ops import int8_conv, int8_matmul, quant
 
 
 def _w(m, x):
@@ -81,8 +85,8 @@ def conv2d(x, m, *, stride=1, padding=0):
 def _matmul_q(x, w8, scale):
     """int8 x (..., in) by int8 w (out, in), exact, dequantized."""
     x8, sx = quant.quantize_act(x)
-    y = torch.matmul(x8.double(), w8.double().t())
-    return _dequant(y, sx, scale, x, -1)
+    y = int8_matmul.matmul_int8(x8.reshape(-1, x8.shape[-1]).contiguous(), w8)
+    return _dequant(y.reshape(*x8.shape[:-1], w8.shape[0]), sx, scale, x, -1)
 
 
 def linear(x, m):

@@ -1,0 +1,96 @@
+"""K7b of the port (``ops/int8_matmul.matmul_int8``) and K7a's bf16 mode
+(``ops/fused_conv.conv3x3_bf16``) against pfd_tpu's int8 lab kernels, and
+the int8 linear through K7b.
+
+pfd_tpu's ``pallas_matmul_int8`` and ``_pallas_conv`` take no ``interpret``
+argument, so the tests run them with ``pl.pallas_call`` patched to interpret
+mode. The int8 products are compared bit for bit (ragged M and N); the bf16
+conv on integer-valued inputs sums exactly in fp32 (|y| < 2^24), so both
+sides round the same sums to bf16 and agree bit for bit too.
+"""
+
+import functools
+import os
+
+os.environ["PFD_COMPILE_CACHE"] = ""  # importing pfd_tpu.tools must not write a cache
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+from jax.experimental import pallas as pl  # noqa: E402
+
+from pfd_tpu.ops import nn as jnn  # noqa: E402
+from pfd_tpu.ops import quant as jquant  # noqa: E402
+from pfd_tpu.tools import int8_lab as jlab  # noqa: E402
+from pfd_tpu_torch.io.convert import params_from_jax  # noqa: E402
+from pfd_tpu_torch.ops import fused_conv as tfc  # noqa: E402
+from pfd_tpu_torch.ops import int8_matmul as tmm  # noqa: E402
+from pfd_tpu_torch.ops import nn as tn  # noqa: E402
+from pfd_tpu_torch.ops import quant as tquant  # noqa: E402
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+
+
+def _codes(shape, rng):
+    return rng.integers(-127, 128, shape, dtype=np.int8)
+
+
+@pytest.mark.parametrize("m,k,n", [(300, 64, 200), (129, 32, 257)])
+def test_plain_matches_pallas_bit_for_bit(interpret, m, k, n):
+    rng = np.random.default_rng(m + n)
+    x8, w8 = _codes((m, k), rng), _codes((k, n), rng)   # pfd_tpu's (K, N) weight
+    want = np.asarray(jlab.pallas_matmul_int8(jnp.asarray(x8), jnp.asarray(w8), bm=128, bn=128))
+    before = tmm.matmul_int8.launches
+    got = tmm.matmul_int8(torch.from_numpy(x8), torch.from_numpy(np.ascontiguousarray(w8.T)))
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(want, x8.astype(np.int64) @ w8.astype(np.int64))
+    assert tmm.matmul_int8.launches == before  # no kernel launch on the CPU
+
+
+def test_bf16_conv_plain_matches_pallas_conv(interpret):
+    """``_pallas_conv`` in bf16 (int8_lab.py:170-174: bf16 in, fp32
+    accumulate, bf16 out) against the conv-only plain version."""
+    rng = np.random.default_rng(5)
+    b, side, cin, cout = 2, 16, 32, 48
+    x8, k8 = _codes((b, side, side, cin), rng), _codes((3, 3, cin, cout), rng)
+    xb, kb = jnp.asarray(x8).astype(jnp.bfloat16), jnp.asarray(k8).astype(jnp.bfloat16)
+    want = np.asarray(jlab._pallas_conv(xb, kb, jnp.float32, jnp.bfloat16, 8), np.float32)
+    xt = torch.from_numpy(np.ascontiguousarray(x8.transpose(0, 3, 1, 2))).bfloat16()
+    wt = torch.from_numpy(np.ascontiguousarray(k8.transpose(3, 2, 0, 1))).bfloat16()
+    got = tfc.conv3x3_bf16(xt, wt)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy().transpose(0, 2, 3, 1), want)
+
+
+def test_int8_linear_runs_k7b_and_matches_pfd_tpu(monkeypatch):
+    """A quantized ``nn.Linear`` through the port's ``nn.linear`` goes
+    through ``matmul_int8`` and gives pfd_tpu's int8 ``nn.linear``: the same
+    codes, the same int32 product, the output within 1e-6 of its largest
+    value (the activation scales may differ by one fp32 ulp)."""
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 7, 96)).astype(np.float32)
+    w = (0.2 * rng.standard_normal((96, 80))).astype(np.float32)
+    bias = (0.2 * rng.standard_normal(80)).astype(np.float32)
+    q, s = jquant.quantize_weight(jnp.asarray(w))
+    pq = {"kernel_q": q, "kernel_scale": s, "bias": jnp.asarray(bias)}
+    m = torch.nn.Linear(96, 80).requires_grad_(False)
+    tquant.set_quantized_weight(m, torch.zeros(80, 96, dtype=torch.int8), torch.ones(80))
+    m.load_state_dict(params_from_jax(pq), strict=True)
+
+    calls = []
+    real = tmm.matmul_int8
+    monkeypatch.setattr(tmm, "matmul_int8", lambda a, b: calls.append(real(a, b)) or calls[-1])
+    got = tn.linear(torch.from_numpy(x), m).numpy()
+    want = np.asarray(jnn.linear(jnp.asarray(x), pq))
+    assert len(calls) == 1
+    j8, _ = jquant.quantize_act(jnp.asarray(x))
+    y = np.asarray(j8, np.int64).reshape(-1, 96) @ np.asarray(q, np.int64)
+    np.testing.assert_array_equal(calls[0].numpy(), y)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(want).max())

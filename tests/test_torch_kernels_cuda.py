@@ -1,7 +1,10 @@
-"""K1, K2, K4 and K5 on the card against their plain PyTorch versions,
-bf16, at the serving path's shapes, on unit-normal inputs, within
-``kernel_tolerance``: max-abs a tenth of the output's RMS, at most 2e-2;
-and the int8 conv kernel against its plain version, bit for bit.
+"""K1, K2, K3, K4 and K5 on the card against their plain PyTorch versions,
+bf16, at the serving path's and the labs' shapes, on unit-normal inputs,
+within ``kernel_tolerance``: max-abs a tenth of the output's RMS, at most
+2e-2; the int8 conv and int8 matmul kernels against their plain versions,
+bit for bit; and the bf16 conv3x3 kernel (K6 fused, and conv only) against
+its plain version within relative L2 2e-3 and max-abs one bf16 ulp of the
+largest output.
 
 Needs a CUDA device and ``nvcc``; skips where there is none. Imports neither
 JAX nor pfd_tpu, so it also runs on a machine without them:
@@ -12,7 +15,7 @@ import pytest
 import torch
 
 from pfd_tpu_torch.ops import flash_attention as fa
-from pfd_tpu_torch.ops import int8_conv
+from pfd_tpu_torch.ops import fused_conv, int8_conv, int8_matmul
 
 
 def _need_cuda():
@@ -107,3 +110,89 @@ def test_conv_int8_kernel_is_bit_exact(xshape, cout, ksize, stride, padding):
     torch.cuda.synchronize()
     assert int8_conv.conv_int8.launches == before + 1
     assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 8, 4096, 40), (2, 8, 1024, 80), (1, 2, 1000, 40),
+                                   (1, 1, 4096, 512), (1, 2, 200, 160),
+                                   (16, 8, 4096, 40), (16, 8, 1024, 80)])
+def test_pipelined_flash_kernel_matches_plain_and_k1(shape):
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = (_randn(shape, g) for _ in range(3))
+    before = fa.flash_attention_pipe.launches
+    got = fa.flash_attention(q, k, v, pipelined=True)
+    want = fa.attention_pipe_plain(q, k, v)
+    k1 = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_pipe.launches == before + 1
+    tol = fa.kernel_tolerance(want)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert (got.float() - k1.float()).abs().max().item() <= tol
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, v, quant="pv", pipelined=True)
+
+
+def conv_close(got, want):
+    """Relative L2 at most 2e-3 and max-abs at most one bf16 ulp of the
+    largest output (both round an fp32 sum to bf16)."""
+    g, w = got.float(), want.float()
+    rel = ((g - w).norm() / w.norm()).item()
+    ulp = 2.0 ** (torch.floor(torch.log2(w.abs().max())).item() - 7)
+    return rel <= 2e-3 and (g - w).abs().max().item() <= ulp, (rel, ulp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("xshape,cout", [((2, 320, 64, 64), 320), ((2, 1280, 16, 16), 1280),
+                                         ((1, 64, 9, 13), 48), ((16, 320, 64, 64), 320),
+                                         ((16, 640, 32, 32), 640), ((16, 1280, 16, 16), 1280)])
+def test_conv3x3_bf16_kernel_matches_plain(xshape, cout, fused):
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    n, cin = xshape[:2]
+    x = _randn(xshape, g)
+    w = (torch.randn((cout, cin, 3, 3), generator=g, device="cuda") / (9 * cin) ** 0.5).bfloat16()
+    if fused:
+        a = 1 + 0.3 * torch.randn((n, cin), generator=g, device="cuda")
+        c = 0.5 * torch.randn((n, cin), generator=g, device="cuda")
+        bias = 0.1 * torch.randn((cout,), generator=g, device="cuda")
+        res = _randn((n, cout) + xshape[2:], g)
+    else:
+        a = c = bias = res = None
+    before = fused_conv.conv3x3_fused.launches
+    got = fused_conv.conv3x3_fused(x, w, a, c, bias, residual=res)
+    want = fused_conv.conv3x3_fused_plain(x, w, a, c, bias, residual=res)
+    torch.cuda.synchronize()
+    assert fused_conv.conv3x3_fused.launches == before + 1
+    ok, detail = conv_close(got, want)
+    assert ok, detail
+
+
+@pytest.mark.cuda
+def test_conv3x3_kernel_refuses_what_it_does_not_take():
+    _need_cuda()
+    w = torch.zeros(16, 16, 3, 3, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        fused_conv.conv3x3_bf16(torch.zeros(1, 16, 8, 8, device="cuda"), w)  # fp32
+    with pytest.raises(ValueError):
+        fused_conv.conv3x3_bf16(torch.zeros(1, 12, 8, 8, device="cuda", dtype=torch.bfloat16),
+                                torch.zeros(16, 12, 3, 3, device="cuda", dtype=torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8192, 320, 2560), (8192, 1280, 320), (4096, 1280, 1280),
+                                   (300, 64, 200), (1, 48, 5)])
+def test_matmul_int8_kernel_is_bit_exact(m, k, n):
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x8 = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8)
+    before = int8_matmul.matmul_int8.launches
+    got = int8_matmul.matmul_int8(x8, w8)
+    want = int8_matmul.matmul_int8_plain(x8, w8)
+    torch.cuda.synchronize()
+    assert int8_matmul.matmul_int8.launches == before + 1
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        int8_matmul.matmul_int8(x8[:, :8].contiguous(), w8[:, :8].contiguous())  # K % 16
