@@ -1,5 +1,7 @@
-// One q-tile of softmax attention with an fp32 online softmax, shared by the
-// flash (K1) and the resident-KV cross-attention (K2) kernels.
+// One q-tile of softmax attention with an fp32 online softmax (WMMA tiles),
+// used by the resident-KV cross-attention kernel (K2); the int8 flash
+// kernels (K4, K5) share its helpers. K1 and K3 have their own Hopper design
+// (flash_sm90.cuh).
 //
 // A block of NW warps owns BQ = 16*NW query rows of one (batch*head); each
 // warp owns 16 of them. The block walks the keys in tiles of BK rows: K and V
@@ -203,9 +205,9 @@ __device__ __forceinline__ void attend_tile(const bf16* __restrict__ q,
 }
 
 // Head-dim buckets: the smallest padded DP >= D among those the serving path
-// reaches (UNet heads 40, 80, 160; the VAE's single head 512). Returns 0 where
-// D is not served (D % 8 != 0, or D > 512); each kernel rejects the buckets
-// it does not instantiate.
+// reaches (UNet heads 40, 80, 160; 512 for a single wide head). Returns 0
+// where D is not served (D % 8 != 0, or D > 512); each kernel rejects the
+// buckets it does not instantiate.
 inline int head_bucket(int D) {
   if (D <= 0 || D % 8 != 0) return 0;
   if (D <= 48) return 48;

@@ -9,8 +9,7 @@
 // shared memory once; every warp reuses it. When Skv <= KVC (the 148-token
 // context with KVC = 160 at D <= 80) that is one chunk and one pass; where
 // Skv * D does not fit (Skv = 512 at D = 160 needs 320 KB for K and V) the
-// block loops over chunks with the same fp32 online softmax as K1
-// (attention_tile.cuh).
+// block loops over chunks with the fp32 online softmax of attention_tile.cuh.
 //
 // What bounds it on an H100: per q row it reads D bf16 values and does
 // 2 * Skv * D multiply-adds plus Skv exp2s; at Skv = 148 the ~2 * 148 FLOP

@@ -4,9 +4,9 @@
 // K4 replaces pfd_tpu/ops/flash_attention.py flash_attention(quant="pv") ->
 // _flash_kernel_pv8 (set-up :347-357, pallas_call :359, body :167-215);
 // K5 replaces flash_attention(quant=True) -> _flash_kernel_int8 (:333-346,
-// :359, body :218-267). As in K1 (attention_tile.cuh), one block of 4 warps
-// owns 64 query rows of one (batch*head) and loops over 64-key tiles; the
-// TPU's sequential key grid axis becomes that loop. Per key tile:
+// :359, body :218-267). As in the tile routine of attention_tile.cuh, one
+// block of 4 warps owns 64 query rows of one (batch*head) and loops over
+// 64-key tiles; the TPU's sequential key grid axis becomes that loop. Per key tile:
 //
 //   K4: S = Q K^T in bf16 WMMA tiles (fp32 accumulate) on a q pre-scaled by
 //       scale*log2(e) rounded to bf16; m_new = max(m, rowmax S);
@@ -27,11 +27,12 @@
 // contraction), as the plain PyTorch version computes them.
 //
 // What bounds it on an H100: S^2 * D operations per product and S^2 exp2s for
-// S * D bytes, as K1: the tensor cores (bf16 QK^T at 989 TFLOP/s, int8 PV at
+// S * D bytes, as for K1: the tensor cores (bf16 QK^T at 989 TFLOP/s, int8 PV at
 // 1979 TOP/s) and the MUFU's exp2 rate, which is the larger bound at the
 // UNet's head dims. The design keeps the logits out of device memory, runs
 // the products on tensor-core tiles, and spends one ex2.approx per logit.
-// Like K1 it uses WMMA through shared memory, not wgmma/TMA; the int32 PV
+// It uses WMMA through shared memory, not wgmma/TMA (K1's Hopper design,
+// csrc/flash_sm90.cuh, is not yet carried over); the int32 PV
 // tile goes through shared memory too, where the per-row alpha is applied.
 // Making it fast is later work.
 //

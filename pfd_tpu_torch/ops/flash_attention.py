@@ -6,9 +6,10 @@
 ``_flash_kernel`` (flash_attention.py:277, body :53-97) and
 ``cross_attention`` replaces ``cross_attention`` -> ``_cross_kernel``
 (:465, body :446-461). Both are hand-written CUDA C++ for ``sm_90a``
-(``csrc/flash_attention.cu``, ``csrc/cross_attention.cu``; the shared tile
-routine and its design notes are in ``csrc/attention_tile.cuh``): bf16 in
-and out, fp32 online softmax in base 2 on a q pre-scaled by
+(``csrc/flash_attention.cu`` on the Hopper design of ``csrc/flash_sm90.cuh``:
+TMA loads, wgmma, the softmax and the output accumulator in registers;
+``csrc/cross_attention.cu`` on the WMMA tile routine of
+``csrc/attention_tile.cuh``): bf16 in and out, fp32 online softmax in base 2 on a q pre-scaled by
 ``scale * log2(e)`` rounded to q's dtype, as ``pfd_tpu`` scales q before its
 kernel (:391, :482).
 
@@ -30,8 +31,10 @@ grid :406-414): ``nk + 1`` steps, each issuing the logits of key tile
 P.V of tile ``j-1`` (v tile ``max(j-1, 0)``) read the other slot, with the
 ``S_EMPTY`` / ``M_EMPTY`` sentinels making the priming step a no-op and
 one drain step at the end. Its kernel is ``flash_attention_pipe``
-(``csrc/flash_attention_pipe.cu``); its plain version
-``attention_pipe_plain`` walks the same steps. ``pfd_tpu`` has no int8
+(``csrc/flash_attention_pipe.cu``: K1's kernel with the schedule as a
+compile-time flag, the logits wgmma of step j in flight while the softmax
+and P.V of step j-1 run); its plain version ``attention_pipe_plain`` walks
+the same steps over the kernel's key tiles. ``pfd_tpu`` has no int8
 pipelined kernel, so ``quant`` with ``pipelined=True`` raises.
 
 Each wrapper
@@ -63,8 +66,18 @@ NEG_INF = -1e30
 # so p = exp2(S_EMPTY - M_EMPTY) = 0 and alpha = exp2(0) = 1
 S_EMPTY = -1e30
 M_EMPTY = -1e29
-PIPE_BLOCK_K = 64  # the key tile of K3 for D <= 160 ...
-PIPE_BLOCK_K_WIDE = 16  # ... and for the D = 512 head (launch<512, 2, 16>)
+# K3's key tiles (csrc/flash_sm90.cuh Cfg): 128 keys for D <= 64, 64 for
+# D <= 192, 32 above; pipe_block_k(D) picks one
+PIPE_BLOCK_K_NARROW = 128
+PIPE_BLOCK_K = 64
+PIPE_BLOCK_K_WIDE = 32
+
+
+def pipe_block_k(d):
+    """The key tile K3 walks for head dim ``d``."""
+    if d <= 64:
+        return PIPE_BLOCK_K_NARROW
+    return PIPE_BLOCK_K if d <= 192 else PIPE_BLOCK_K_WIDE
 INT_NEG = -(2 ** 30)
 INT8_BLOCK_K = 64  # the key tile of the int8 kernels
 
@@ -187,8 +200,8 @@ def attention_pipe_plain(q, k, v, *, scale=None, block_k=None, s_empty=S_EMPTY,
                          m_empty=M_EMPTY, on_step=None):
     """The plain version of K3, walking ``pfd_tpu``'s pipelined steps
     literally (flash_attention.py:108-160): ``nk + 1`` steps over key tiles
-    of ``block_k`` (by default the kernel's: ``PIPE_BLOCK_K`` for D <= 160,
-    ``PIPE_BLOCK_K_WIDE`` above); step j computes the logits of tile ``min(j, nk-1)``
+    of ``block_k`` (by default the kernel's, ``pipe_block_k(D)``); step j
+    computes the logits of tile ``min(j, nk-1)``
     (keys past S masked to ``NEG_INF``) before the softmax and P.V of the
     logits slot written at step j-1, against v tile ``max(j-1, 0)``; the
     logits live in a two-slot buffer whose second slot starts at
@@ -200,7 +213,7 @@ def attention_pipe_plain(q, k, v, *, scale=None, block_k=None, s_empty=S_EMPTY,
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if block_k is None:
-        block_k = PIPE_BLOCK_K if q.shape[3] <= 160 else PIPE_BLOCK_K_WIDE
+        block_k = pipe_block_k(q.shape[3])
     s_len = k.shape[2]
     nk = -(-s_len // block_k)
     qf = (q * _qscale(q, scale)).float()

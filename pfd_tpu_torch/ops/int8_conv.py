@@ -11,9 +11,12 @@ the int8 upsample, and the VAE encoder's right/bottom-padded s2 conv.
 - on a CPU tensor computes ``conv_int8_plain``: a float64 conv of the
   integer values (exact below 2^53) cast to int32, so the kernel must equal
   it bit for bit;
-- on a CUDA tensor checks its arguments, launches the kernel on the current
-  stream and counts the launch in ``conv_int8.launches``, or raises. It never
-  falls back to the plain version.
+- on a CUDA tensor checks its arguments, pads C up to a multiple of 16 with
+  zero channels in x and w (``int8_matmul.pad_depth``: zero codes add
+  nothing to the int32 sums, so the result stays exact), launches the
+  kernel on the current stream and counts the launch in
+  ``conv_int8.launches``, or raises. It never falls back to the plain
+  version.
 
 The dequantize and the bias stay in ``ops/nn.py``, in ``pfd_tpu``'s order.
 """
@@ -26,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from pfd_tpu_torch.ops import cuda_build
+from pfd_tpu_torch.ops.int8_matmul import pad_depth
 
 TILE = 128        # output rows (pixels) and columns (channels) of one block
 SLICE = 64        # bytes of cin in one depth slice
@@ -81,8 +85,7 @@ def split_depth(tiles, slices, sms):
 
 def conv_int8(x8, w8, *, stride=1, padding=0):
     """int8 x (N, C, H, W), int8 w (K, C, kh, kw) -> int32 y (N, K, Ho, Wo).
-    On CUDA both must be channels-last (x NHWC, w (K, kh, kw, C) in memory),
-    C a multiple of 16."""
+    On CUDA both must be channels-last (x NHWC, w (K, kh, kw, C) in memory)."""
     _check(x8, w8, stride)
     if x8.device.type == "cpu":
         return conv_int8_plain(x8, w8, stride=stride, padding=padding)
@@ -95,8 +98,8 @@ def conv_int8(x8, w8, *, stride=1, padding=0):
             raise ValueError(f"conv_int8 takes a channels-last {name} on CUDA")
         if t.data_ptr() % 16:
             raise ValueError(f"conv_int8 takes a 16-byte aligned {name}")
-    if c % 16:
-        raise ValueError(f"conv_int8 takes C % 16 == 0 on CUDA, got {c}")
+    x8, w8 = pad_depth(x8, 1), pad_depth(w8, 1)
+    c = x8.shape[1]
     left, right, top, bottom = pads(padding)
     ho = (h + top + bottom - kh) // stride + 1
     wo = (w + left + right - kw) // stride + 1

@@ -10,9 +10,11 @@ tools hand over its transpose.
 - on a CPU tensor computes ``matmul_int8_plain``: a float64 product of the
   integer values (exact below 2^53) cast to int32, so the kernel must equal
   it bit for bit;
-- on a CUDA tensor checks its arguments, launches the kernel on the current
-  stream and counts the launch in ``matmul_int8.launches``, or raises. It
-  never falls back to the plain version.
+- on a CUDA tensor checks its arguments, pads K up to a multiple of 16 with
+  zero columns in both operands (``pad_depth``: zero codes add nothing to
+  the int32 sums, so the result stays exact), launches the kernel on the
+  current stream and counts the launch in ``matmul_int8.launches``, or
+  raises. It never falls back to the plain version.
 
 ``ops/nn.py``'s int8 ``linear`` and ``fused_linear`` run their product
 through it.
@@ -21,8 +23,24 @@ through it.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from pfd_tpu_torch.ops import cuda_build
+
+DEPTH = 16  # the kernels read the depth (K, or C of a conv) in 16-byte chunks
+
+
+def pad_depth(t, dim):
+    """``t`` with dimension ``dim`` zero-padded up to a multiple of
+    ``DEPTH``, in ``t``'s memory format; ``t`` itself where it already is."""
+    extra = -t.shape[dim] % DEPTH
+    if not extra:
+        return t
+    pad = [0, 0] * (t.ndim - dim % t.ndim)
+    pad[-1] = extra
+    cl = t.ndim == 4 and t.is_contiguous(memory_format=torch.channels_last)
+    out = F.pad(t, pad)
+    return out.contiguous(memory_format=torch.channels_last) if cl else out.contiguous()
 
 
 def matmul_int8_plain(x8, w8):
@@ -32,7 +50,7 @@ def matmul_int8_plain(x8, w8):
 
 def matmul_int8(x8, w8):
     """int8 x (M, K), int8 w (N, K) -> int32 y (M, N). On CUDA both
-    contiguous and 16-byte aligned, K a multiple of 16."""
+    contiguous and 16-byte aligned."""
     if x8.ndim != 2 or w8.ndim != 2 or x8.shape[1] != w8.shape[1]:
         raise ValueError(f"matmul_int8 takes x (M, K) and w (N, K), got {tuple(x8.shape)} "
                          f"and {tuple(w8.shape)}")
@@ -49,9 +67,11 @@ def matmul_int8(x8, w8):
     for t, name in ((x8, "x"), (w8, "w")):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"matmul_int8 takes a contiguous, 16-byte aligned {name} on CUDA")
-    if k % 16 or min(m, n, k) == 0:
-        raise ValueError(f"matmul_int8 takes K % 16 == 0 and non-empty operands on CUDA, "
+    if min(m, n, k) == 0:
+        raise ValueError(f"matmul_int8 takes non-empty operands on CUDA, "
                          f"got M={m}, N={n}, K={k}")
+    x8, w8 = pad_depth(x8, 1), pad_depth(w8, 1)
+    k = x8.shape[1]
     y = torch.empty((m, n), dtype=torch.int32, device=x8.device)
     fn = cuda_build.entry("matmul_int8")
     err = fn(x8.data_ptr(), w8.data_ptr(), y.data_ptr(), m, n, k,

@@ -19,10 +19,8 @@ x's dtype. The int32 conv is ``int8_conv.conv_int8`` and the int32 matmul
 of the linears (which ``quantize_params`` never produces) is
 ``int8_matmul.matmul_int8`` (K7b); both are CUDA kernels on the card and
 exact plain versions on the CPU. On the card both read the depth in
-16-byte chunks: a quantized conv needs in_channels % 16 == 0 and a
-quantized linear in_features % 16 == 0, and raises otherwise (``pfd_tpu``'s
-int8 ``nn.linear`` takes any in_features). The convs that
-``quant.quantize_params`` picks in the served models all meet it.
+16-byte chunks and pad it with zeros up to a multiple of 16, so they take
+any in_channels and in_features, as ``pfd_tpu`` does.
 
 ``upsample_conv2d`` in float is nearest-2x followed by the 3x3 conv.
 ``pfd_tpu`` rewrites that pair as one phase-decomposed conv at the low

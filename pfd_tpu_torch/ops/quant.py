@@ -116,9 +116,7 @@ def _refresh_phase(m, *_):
 
 def set_quantized_weight(m: nn.Module, q, scale):
     """Give conv or linear ``m`` the int8 codes ``q`` (OIHW or (out, in))
-    and per-output-channel ``scale``, dropping its float ``weight``. On the
-    card the int8 kernels take in_channels / in_features % 16 == 0 only
-    (``ops/nn.py``); such a layer raises when it runs there."""
+    and per-output-channel ``scale``, dropping its float ``weight``."""
     m._parameters.pop("weight", None)
     fmt = torch.channels_last if q.ndim == 4 else torch.contiguous_format
     m.register_buffer("weight_q", q.to(torch.int8).contiguous(memory_format=fmt))

@@ -41,6 +41,23 @@ def test_pipelined_plain_matches_pallas(s, d):
     assert tfa.flash_attention_pipe.launches == before  # no kernel launch on the CPU
 
 
+@pytest.mark.parametrize("s,d,block_k", [(300, 40, 128), (200, 80, 64), (100, 256, 32)])
+def test_plain_at_the_kernel_tiles_matches_pallas(s, d, block_k):
+    """``attention_pipe_plain`` at K3's own key tiles (``pipe_block_k``:
+    ``PIPE_BLOCK_K_NARROW`` for D <= 64, ``PIPE_BLOCK_K`` up to 192,
+    ``PIPE_BLOCK_K_WIDE`` above) against pfd_tpu's
+    pipelined kernel run with the same ``block_k``."""
+    assert tfa.pipe_block_k(d) == block_k
+    q, k, v = _qkv(1, 2, s, d, seed=s + d)
+    want = np.asarray(jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                          block_q=128, block_k=block_k, pipelined=True))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    steps = []
+    got = tfa.attention_pipe_plain(tq, tk, tv, on_step=lambda j, *_: steps.append(j))
+    assert len(steps) == -(-s // block_k) + 1  # the default tile is the kernel's
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-3, atol=2e-4)
+
+
 def test_pipelined_equals_its_plain_version_on_the_cpu():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 300, 40, seed=1))
     torch.testing.assert_close(tfa.flash_attention(q, k, v, pipelined=True),
@@ -72,9 +89,10 @@ def test_sentinels():
 
     got = tfa.attention_pipe_plain(q, k, v, s_empty=tfa.NEG_INF, m_empty=tfa.NEG_INF,
                                    on_step=spy)
-    first_tile = v[:, :, :tfa.PIPE_BLOCK_K].sum(dim=2, keepdim=True)
+    block_k = tfa.pipe_block_k(40)  # the kernel's first tile
+    first_tile = v[:, :, :block_k].sum(dim=2, keepdim=True)
     torch.testing.assert_close(prime["acc"], first_tile.expand_as(prime["acc"]))
-    assert torch.all(prime["l"] == tfa.PIPE_BLOCK_K)
+    assert torch.all(prime["l"] == block_k)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=2e-3, atol=2e-4)
 
     inf = float("-inf")

@@ -94,3 +94,28 @@ def test_int8_linear_runs_k7b_and_matches_pfd_tpu(monkeypatch):
     y = np.asarray(j8, np.int64).reshape(-1, 96) @ np.asarray(q, np.int64)
     np.testing.assert_array_equal(calls[0].numpy(), y)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("depth", [8, 40, 48])
+def test_depth_padding_leaves_the_plain_results_unchanged(depth):
+    """``pad_depth`` (the CUDA wrappers' zero padding of K and C up to a
+    multiple of 16) changes neither the int8 matmul nor the int8 conv."""
+    from pfd_tpu_torch.ops import int8_conv as tconv
+
+    g = torch.Generator().manual_seed(depth)
+
+    def codes(shape):
+        return torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+
+    x8, w8 = codes((9, depth)), codes((5, depth))
+    px, pw = tmm.pad_depth(x8, 1), tmm.pad_depth(w8, 1)
+    assert px.shape[1] % 16 == 0 and px.shape[1] - depth < 16
+    assert torch.equal(tmm.matmul_int8_plain(px, pw), tmm.matmul_int8_plain(x8, w8))
+
+    cl = torch.channels_last
+    xc = codes((2, depth, 7, 6)).contiguous(memory_format=cl)
+    wc = codes((4, depth, 3, 3)).contiguous(memory_format=cl)
+    pxc, pwc = tmm.pad_depth(xc, 1), tmm.pad_depth(wc, 1)
+    assert pxc.shape[1] % 16 == 0 and pxc.is_contiguous(memory_format=cl)
+    assert torch.equal(tconv.conv_int8_plain(pxc, pwc, stride=1, padding=1),
+                       tconv.conv_int8_plain(xc, wc, stride=1, padding=1))

@@ -1,10 +1,11 @@
 """K1, K2, K3, K4 and K5 on the card against their plain PyTorch versions,
-bf16, at the serving path's and the labs' shapes, on unit-normal inputs,
-within ``kernel_tolerance``: max-abs a tenth of the output's RMS, at most
+bf16, at the serving path's and the labs' shapes and at every head-dim
+bucket of K1 and K3 with ragged S, on unit-normal inputs, within
+``kernel_tolerance``: max-abs a tenth of the output's RMS, at most
 2e-2; the int8 conv and int8 matmul kernels against their plain versions,
-bit for bit; and the bf16 conv3x3 kernel (K6 fused, and conv only) against
-its plain version within relative L2 2e-3 and max-abs one bf16 ulp of the
-largest output.
+bit for bit, depths that are not a multiple of 16 included; and the bf16
+conv3x3 kernel (K6 fused, and conv only) against its plain version within
+relative L2 2e-3 and max-abs one bf16 ulp of the largest output.
 
 Needs a CUDA device and ``nvcc``; skips where there is none. Imports neither
 JAX nor pfd_tpu, so it also runs on a machine without them:
@@ -40,6 +41,31 @@ def test_flash_kernel_matches_plain(shape):
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
     assert (got.float() - want.float()).abs().max().item() <= fa.kernel_tolerance(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 40, 64, 80, 128, 160, 256, 512])
+@pytest.mark.parametrize("s", [65, 1000, 4097, 32])
+def test_flash_kernels_every_head_dim_and_ragged_s(d, s):
+    """K1 and K3 against ``attention_plain`` and against each other at every
+    head-dim bucket, with S ragged against every key tile (65, 1000, 4097)
+    and S no longer than one key tile (32: K3 runs only its priming step,
+    one step and the drain)."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(d + s)
+    shape = (1, 2, s, d)
+    q, k, v = (_randn(shape, g) for _ in range(3))
+    k1_before, k3_before = fa.flash_attention.launches, fa.flash_attention_pipe.launches
+    k1 = fa.flash_attention(q, k, v)
+    k3 = fa.flash_attention(q, k, v, pipelined=True)
+    want = fa.attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == k1_before + 1
+    assert fa.flash_attention_pipe.launches == k3_before + 1
+    tol = fa.kernel_tolerance(want)
+    assert (k1.float() - want.float()).abs().max().item() <= tol
+    assert (k3.float() - want.float()).abs().max().item() <= tol
+    assert (k3.float() - k1.float()).abs().max().item() <= tol
 
 
 @pytest.mark.cuda
@@ -194,5 +220,28 @@ def test_matmul_int8_kernel_is_bit_exact(m, k, n):
     torch.cuda.synchronize()
     assert int8_matmul.matmul_int8.launches == before + 1
     assert torch.equal(got, want)
-    with pytest.raises(ValueError):
-        int8_matmul.matmul_int8(x8[:, :8].contiguous(), w8[:, :8].contiguous())  # K % 16
+    x8, w8 = x8[:, :8].contiguous(), w8[:, :8].contiguous()  # K % 16 != 0: zero-padded
+    assert torch.equal(int8_matmul.matmul_int8(x8, w8), int8_matmul.matmul_int8_plain(x8, w8))
+
+
+@pytest.mark.cuda
+def test_int8_kernels_take_a_depth_that_is_not_a_multiple_of_16():
+    """K = 40 for the int8 matmul and C = 8 for the int8 conv: the wrappers
+    pad the depth with zero codes, so both stay bit-exact."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def codes(shape):
+        return torch.randint(-127, 128, shape, generator=g, device="cuda", dtype=torch.int8)
+
+    x8, w8 = codes((300, 40)), codes((200, 40))
+    assert torch.equal(int8_matmul.matmul_int8(x8, w8), int8_matmul.matmul_int8_plain(x8, w8))
+    cl = torch.channels_last
+    xc = codes((2, 8, 33, 47)).contiguous(memory_format=cl)
+    wc = codes((64, 8, 3, 3)).contiguous(memory_format=cl)
+    before = int8_conv.conv_int8.launches
+    got = int8_conv.conv_int8(xc, wc, stride=1, padding=1)
+    want = int8_conv.conv_int8_plain(xc, wc, stride=1, padding=1)
+    torch.cuda.synchronize()
+    assert int8_conv.conv_int8.launches == before + 1
+    assert got.shape == want.shape and torch.equal(got, want)
