@@ -13,9 +13,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (``csrc/conv_int8.cu``), K3 (``csrc/flash_attention_pipe.cu``), the bf16
    conv3x3 of K6 and K7a's bf16 mode (``csrc/conv3x3_bf16.cu``) and K7b
    (``csrc/matmul_int8.cu``) with nvcc for sm_90a, one process per source,
-   all at once;
+   all at once. The compiler's report is printed: registers and spills, any C7515
+   (serialised wgmma) or C7517 (injected wait) line, and one count of C7519
+   (injected ``warpgroup.arrive``) per kernel instantiation;
 3. K1 against its plain PyTorch version in bf16 at the serving shapes, at
-   D = 8 and at a ragged S = 4097, within ``kernel_tolerance`` (a tenth of
+   D = 8, at a ragged S = 4097, and at ragged S on grids wide enough for
+   128-row blocks (B*H = 16, S = 5184 and 1296: the last block's second
+   warpgroup has no row inside S), within ``kernel_tolerance`` (a tenth of
    the output's RMS, at most 2e-2), with kernel, plain, library
    (``scaled_dot_product_attention``, a yardstick only) and bound times;
 4. the same for K2;
@@ -44,7 +48,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    throughput, 8 images of 10 steps, bf16 against int8, and a profile of one
    UNet call at that batch in each mode;
 9. K3 (``flash_attention(pipelined=True)``) against its plain version and
-   against K1 within ``kernel_tolerance``; K6 (``conv3x3_fused``, with the
+   against K1 within ``kernel_tolerance``, at K1's wide-grid ragged shapes
+   among others; K6 (``conv3x3_fused``, with the
    ResBlock shift folded into its affine and a residual) and its conv-only
    mode against their plain version within relative L2 2e-3 and max-abs one
    bf16 ulp of the largest output; K7b (``matmul_int8``) against its plain
@@ -63,10 +68,12 @@ Imports neither JAX nor ``pfd_tpu``.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -597,17 +604,21 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s wall", flush=True)
     for name, entry in log.items():
         print(f"build {name}: {entry['seconds']:.1f} s -> {entry['path']}", flush=True)
-        for line in entry["ptxas"].splitlines():
+        for line in entry["ptxas"].splitlines():  # C7519 lines: counted below
             if "C7519" not in line and any(
                     key in line for key in ("registers", "spill", "C7515", "C7517")):
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
+        arrives = collections.Counter(re.findall(r"\(C7519\).*?function '(\w+)'",
+                                                 entry["ptxas"]))
+        for fn, n in sorted(arrives.items()):
+            print(f"  ptxas {name}: C7519 (warpgroup.arrive injected) x{n} in {fn}", flush=True)
 
     # ---- 3./4. kernels against their plain versions -------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
     k1_rows = [check_kernel("K1", fa.flash_attention, s, s[2], mufu_rate, gen)
                for s in [(2, 8, 4096, 40), (2, 8, 1024, 80), (1, 1, 4096, 512),
                          (1, 2, 1000, 40), (2, 8, 2304, 160), (2, 8, 1024, 8),
-                         (1, 2, 4097, 80)]]
+                         (1, 2, 4097, 80), (2, 8, 5184, 40), (2, 8, 1296, 80)]]
     k2_rows = [check_kernel("K2", fa.cross_attention, s, skv, mufu_rate, gen)
                for s, skv in [((2, 8, 4096, 40), 148), ((2, 8, 1024, 80), 148),
                               ((1, 2, 1024, 160), 512)]]
@@ -755,7 +766,7 @@ def main() -> int:
     # int8_lab's two bf16 conv shapes.
     k3_rows = [check_pipe(s, mufu_rate, gen) for s in
                [(2, 8, 4096, 40), (2, 8, 1024, 80), (1, 2, 1000, 40), (1, 1, 4096, 512),
-                (16, 8, 4096, 40), (16, 8, 1024, 80)]]
+                (16, 8, 4096, 40), (16, 8, 1024, 80), (2, 8, 5184, 40), (2, 8, 1296, 80)]]
     fused_shapes = [(2, 320, 64, 64), (2, 640, 32, 32), (2, 1280, 16, 16)]
     lab_fused = [(16, 320, 64, 64), (16, 640, 32, 32), (16, 1280, 16, 16)]
     lab_conv = [(16, 320, 64, 64), (16, 1280, 16, 16)]

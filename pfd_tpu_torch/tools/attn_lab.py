@@ -11,11 +11,7 @@ and, under ``LAB_PAD_SWEEP``, the HBM lane padding of the head dim
 so the lab times each kernel as it is.
 
 Usage: python -m pfd_tpu_torch.tools.attn_lab
-Env:   LAB_BATCH (default 16 = the CFG-doubled bench batch 8), LAB_ITERS (20),
-       ATTN_SECTIONS (default ``lab``: the shapes above at LAB_BATCH;
-       ``serving``: the serving path's K1 shapes at their own batch, the
-       UNet's at B = 2 and the VAE's single d = 512 head at B = 1; both:
-       ``lab,serving``)
+Env:   LAB_BATCH (default 16 = the CFG-doubled bench batch 8), LAB_ITERS (20)
 """
 
 from __future__ import annotations
@@ -31,8 +27,6 @@ from pfd_tpu_torch.tools.perf_audit import (PEAK_BF16_FLOPS, card_line, require_
                                             timeit)
 
 SHAPES = ((4096, 40, 8), (1024, 80, 8))  # (S, D, heads): ds1 and ds2 at 512^2
-# (B, S, D, heads) of K1 on the serving path at 512^2, and d = 160 (ds1 at 768^2)
-SERVING = ((2, 4096, 40, 8), (2, 1024, 80, 8), (1, 4096, 512, 1), (2, 2304, 160, 8))
 
 
 def run(b, iters, shapes=SHAPES, device="cuda"):
@@ -62,15 +56,8 @@ def main():
     require_device("cuda")
     b = int(os.environ.get("LAB_BATCH", "16"))
     iters = int(os.environ.get("LAB_ITERS", "20"))
-    sections = os.environ.get("ATTN_SECTIONS", "lab").split(",")
-    if set(sections) - {"lab", "serving"}:
-        raise ValueError(f"ATTN_SECTIONS: known lab, serving; got {sections}")
     print(card_line(), flush=True)
-    rows = run(b, iters) if "lab" in sections else []
-    if "serving" in sections:
-        for sb, s, d, nh in SERVING:
-            rows += run(sb, iters, shapes=((s, d, nh),))
-    return rows
+    return run(b, iters)
 
 
 if __name__ == "__main__":

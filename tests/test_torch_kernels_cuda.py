@@ -1,8 +1,8 @@
 """K1, K2, K3, K4 and K5 on the card against their plain PyTorch versions,
 bf16, at the serving path's and the labs' shapes and at every head-dim
-bucket of K1 and K3 with ragged S, on unit-normal inputs, within
-``kernel_tolerance``: max-abs a tenth of the output's RMS, at most
-2e-2; the int8 conv and int8 matmul kernels against their plain versions,
+bucket of K1 and K3 with ragged S on narrow and wide grids, on unit-normal
+inputs, within ``kernel_tolerance``: max-abs a tenth of the output's RMS,
+at most 2e-2; the int8 conv and int8 matmul kernels against their plain versions,
 bit for bit, depths that are not a multiple of 16 included; and the bf16
 conv3x3 kernel (K6 fused, and conv only) against its plain version within
 relative L2 2e-3 and max-abs one bf16 ulp of the largest output.
@@ -45,15 +45,19 @@ def test_flash_kernel_matches_plain(shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [8, 40, 64, 80, 128, 160, 256, 512])
-@pytest.mark.parametrize("s", [65, 1000, 4097, 32])
-def test_flash_kernels_every_head_dim_and_ragged_s(d, s):
+@pytest.mark.parametrize("s", [65, 1000, 1296, 4097, 5184, 32])
+@pytest.mark.parametrize("bh", [(1, 2), (2, 8)])
+def test_flash_kernels_every_head_dim_and_ragged_s(d, s, bh):
     """K1 and K3 against ``attention_plain`` and against each other at every
-    head-dim bucket, with S ragged against every key tile (65, 1000, 4097)
-    and S no longer than one key tile (32: K3 runs only its priming step,
-    one step and the drain)."""
+    head-dim bucket, with S ragged against every key tile (65, 1000, 1296,
+    4097, 5184) and S no longer than one key tile (32: K3 runs only its
+    priming step, one step and the drain). B*H = 2 keeps every grid narrow
+    (64-row blocks); at B*H = 16 and S > 512 heads up to 192 wide run
+    128-row blocks, and at S = 1296, 4097 and 5184 the last block's second
+    warpgroup has no row inside S."""
     _need_cuda()
-    g = torch.Generator(device="cuda").manual_seed(d + s)
-    shape = (1, 2, s, d)
+    g = torch.Generator(device="cuda").manual_seed(d + s + bh[1])
+    shape = bh + (s, d)
     q, k, v = (_randn(shape, g) for _ in range(3))
     k1_before, k3_before = fa.flash_attention.launches, fa.flash_attention_pipe.launches
     k1 = fa.flash_attention(q, k, v)
