@@ -22,7 +22,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    warpgroup has no row inside S), within ``kernel_tolerance`` (a tenth of
    the output's RMS, at most 2e-2), with kernel, plain, library
    (``scaled_dot_product_attention``, a yardstick only) and bound times;
-4. the same for K2;
+4. the same for K2, at the serving shapes over the 148 context tokens, at
+   Sq = 5184 (ragged against 128-row blocks, each block walking 5-6 q-tiles)
+   and over 512 and 1,024 keys (K1's key loop), each row with the variant
+   the launcher picks (rows a block, key tile, blocks a head) and the host's
+   cost of one call (1,000 calls without a sync);
 5. the slice at full published width (``pfd_seecoder``, BF16, random weights
    from a seed with the zero-initialised layers de-zeroed): request A
    (512x512 reference image, 50 DDIM steps, guidance 2.0, seed 42) must give
@@ -52,9 +56,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    among others; K6 (``conv3x3_fused``, with the
    ResBlock shift folded into its affine and a residual) and its conv-only
    mode against their plain version within relative L2 2e-3 and max-abs one
-   bf16 ulp of the largest output; K7b (``matmul_int8``) against its plain
-   version and ``torch._int_mm``, bit for bit; each with kernel, plain,
-   library and bound times;
+   bf16 ulp of the largest output, each row with its plan (box, tiles, depth
+   split), at (2,1280,8,8) too, where one box spans two images; K7b
+   (``matmul_int8``) against its plain version and ``torch._int_mm``, bit
+   for bit; each with kernel, plain, library and bound times;
 10. the kernel labs through their entry points, a few iterations each:
    ``perf_audit`` (``AUDIT_SECTIONS=fused``), ``attn_lab`` and ``int8_lab``
    (``LAB_SECTIONS=pallas_mm,convs``), with the launch counts set to 0 just
@@ -85,6 +90,7 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_INT8_OPS = 1979e12    # H100 SXM dense int8
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 MUFU_PER_SM_CLK = 16       # exp2 (MUFU.EX2) results per SM per clock on Hopper
+SLEEP_CYCLES_PER_CALL = 400_000  # 0.2 ms at 1,980 MHz: ahead of a timed call's enqueue
 
 
 def sh(cmd):
@@ -92,12 +98,16 @@ def sh(cmd):
 
 
 def cuda_ms(fn, iters):
-    """Mean ms per call over ``iters`` calls after 3 warm-up calls (CUDA events)."""
+    """Mean ms per call over ``iters`` calls after 3 warm-up calls (CUDA events).
+    A sleep kernel ahead of the first event keeps the device busy while the
+    host enqueues the calls, so that the host's cost of a call (15-40 us for
+    a wrapper here) does not set the time of a kernel shorter than it."""
     import torch
     for _ in range(3):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -117,10 +127,14 @@ def attention_bound_ms(b, h, sq, skv, d, mufu_rate):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_kernel(name, kernel, qshape, skv, mufu_rate, gen):
+def check_kernel(name, kernel, qshape, skv, mufu_rate, gen, variant=None):
+    """A bf16 attention kernel against ``attention_plain``; ``variant``: the
+    launcher's pick to print (K2), whose rows also time the host's cost of
+    one call."""
     import torch
     import torch.nn.functional as F
     from pfd_tpu_torch.ops import flash_attention as fa
+    from pfd_tpu_torch.tools import attn_lab
 
     b, h, sq, d = qshape
     q = torch.randn(qshape, generator=gen, device="cuda").bfloat16()
@@ -143,6 +157,9 @@ def check_kernel(name, kernel, qshape, skv, mufu_rate, gen):
         "plain_ms": cuda_ms(lambda: fa.attention_plain(q, k, v), 3 if big else 10),
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20),
     }
+    if variant is not None:
+        row["variant"] = variant
+        row["host_us"] = attn_lab.host_us(kernel, q, k, v)
     row["bound_ms"], row["bound_by"] = attention_bound_ms(b, h, sq, skv, d, mufu_rate)
     print(f"{name} {json.dumps(row)}  bound_us={row['bound_ms'] * 1e3:.1f}", flush=True)
     return row
@@ -378,6 +395,8 @@ def check_conv3x3(xshape, fused, gen):
     err = (g - wf).abs().max().item()
     ulp = 2.0 ** (torch.floor(torch.log2(wf.abs().max())).item() - 7)
     label = f"{'fused' if fused else 'conv'} {list(xshape)}->{c}"
+    plan = fused_conv.conv3x3_plan(n, h, w, c, c, torch.cuda.get_device_properties(0)
+                                   .multi_processor_count)
     if not (rel <= 2e-3 and err <= ulp):
         raise AssertionError(f"conv3x3_bf16 {label}: rel_l2 {rel} (limit 2e-3), max_abs "
                              f"{err} (limit {ulp})")
@@ -390,7 +409,7 @@ def check_conv3x3(xshape, fused, gen):
         def yardstick():
             return F.conv2d(x, conv.weight, padding=1)
         ykey = "library_ms"
-    row = {"shape": label, "max_abs_err": err, "rel_l2": rel, "ulp_limit": ulp,
+    row = {"shape": label, "plan": plan, "max_abs_err": err, "rel_l2": rel, "ulp_limit": ulp,
            "kernel_ms": cuda_ms(lambda: fused_conv.conv3x3_fused(*args, **kw), 20),
            "plain_ms": cuda_ms(lambda: fused_conv.conv3x3_fused_plain(*args, **kw), 5),
            ykey: cuda_ms(yardstick, 20)}
@@ -619,9 +638,12 @@ def main() -> int:
                for s in [(2, 8, 4096, 40), (2, 8, 1024, 80), (1, 1, 4096, 512),
                          (1, 2, 1000, 40), (2, 8, 2304, 160), (2, 8, 1024, 8),
                          (1, 2, 4097, 80), (2, 8, 5184, 40), (2, 8, 1296, 80)]]
-    k2_rows = [check_kernel("K2", fa.cross_attention, s, skv, mufu_rate, gen)
+    sms = props.multi_processor_count
+    k2_rows = [check_kernel("K2", fa.cross_attention, s, skv, mufu_rate, gen,
+                            fa.cross_variant(s[0] * s[1], s[2], skv, s[3], sms))
                for s, skv in [((2, 8, 4096, 40), 148), ((2, 8, 1024, 80), 148),
-                              ((1, 2, 1024, 160), 512)]]
+                              ((1, 2, 1024, 160), 512), ((2, 8, 5184, 40), 148),
+                              ((2, 8, 4096, 40), 1024)]]
 
     # ---- 5. the slice at full width -----------------------------------------
     import numpy as np
@@ -767,7 +789,7 @@ def main() -> int:
     k3_rows = [check_pipe(s, mufu_rate, gen) for s in
                [(2, 8, 4096, 40), (2, 8, 1024, 80), (1, 2, 1000, 40), (1, 1, 4096, 512),
                 (16, 8, 4096, 40), (16, 8, 1024, 80), (2, 8, 5184, 40), (2, 8, 1296, 80)]]
-    fused_shapes = [(2, 320, 64, 64), (2, 640, 32, 32), (2, 1280, 16, 16)]
+    fused_shapes = [(2, 320, 64, 64), (2, 640, 32, 32), (2, 1280, 16, 16), (2, 1280, 8, 8)]
     lab_fused = [(16, 320, 64, 64), (16, 640, 32, 32), (16, 1280, 16, 16)]
     lab_conv = [(16, 320, 64, 64), (16, 1280, 16, 16)]
     k6_rows = ([check_conv3x3(s, False, gen) for s in fused_shapes + lab_conv]

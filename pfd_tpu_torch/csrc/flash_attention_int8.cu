@@ -4,7 +4,7 @@
 // K4 replaces pfd_tpu/ops/flash_attention.py flash_attention(quant="pv") ->
 // _flash_kernel_pv8 (set-up :347-357, pallas_call :359, body :167-215);
 // K5 replaces flash_attention(quant=True) -> _flash_kernel_int8 (:333-346,
-// :359, body :218-267). As in the tile routine of attention_tile.cuh, one
+// :359, body :218-267). One
 // block of 4 warps owns 64 query rows of one (batch*head) and loops over
 // 64-key tiles; the TPU's sequential key grid axis becomes that loop. Per key tile:
 //
@@ -39,6 +39,8 @@
 // Int8 tiles are stored in 16-byte column chunks ([depth/16][rows][16]), so
 // that every int8 WMMA fragment starts 256-bit aligned with a 16-byte leading
 // dimension; int8 rows are loaded in 8-byte pieces (D % 8 == 0).
+
+#include <mma.h>
 
 #include "attention_tile.cuh"
 

@@ -1,40 +1,61 @@
-// Flash self-attention for Hopper (sm_90a): the one design behind K1
-// (flash_attention.cu) and K3 (flash_attention_pipe.cu, PIPE = true).
+// Attention for Hopper (sm_90a): the one kernel behind three TPU kernels of
+// pfd_tpu/ops/flash_attention.py:
+// - K1, flash_attention -> _flash_kernel (:277, call :421): non-causal flash
+//   self-attention (flash_attention.cu);
+// - K3, the same with pipelined=True -> _flash_kernel_pipe (:108-160): K1's
+//   function on the pipelined schedule (flash_attention_pipe.cu, PIPE);
+// - K2, cross_attention -> _cross_kernel (:465, call :491): long q over a
+//   short K/V (cross_attention.cu, RESIDENT for K/V up to 160 keys).
 //
 // Function (as ops/flash_attention.py attention_plain): q pre-scaled by
 // qscale = scale * log2(e) and rounded to bf16, fp32 logits, m and l, the
 // softmax in base 2 with ex2.approx, p rounded to bf16 for P.V, l summing the
-// fp32 p, keys past S masked to -1e30.
+// fp32 p, keys past Skv masked to -1e30.
 //
-// Layout of a block. One (batch*head) and 64 or 128 query rows:
+// What bounds it on an H100: self-attention at the UNet's shapes does S^2 D
+// multiply-adds and S^2 exp2s for S D bytes, far above the card's ~295
+// FLOP/byte, so the exp2s (MUFU, 16 a clock per SM) or the tensor cores do;
+// cross-attention over 148 keys does ~300 FLOP per byte of q and o, near the
+// balance, so the bytes of q and o and the latency of each q-tile do. What
+// the design does about both: the products run as wgmma at the Hopper rate,
+// the logits, p and O never leave registers, TMA loads stay in flight under
+// the math, and K2's short K/V is loaded once per block for many q-tiles.
+//
+// Layout of a block. One (batch*head) and 64 or 128 query rows a q-tile:
 // - a producer warpgroup (the last one) lowers its registers with
-//   setmaxnreg.dec; one of its threads starts every TMA load: Q once, then K
-//   and V tiles of BK keys through a ring of STAGES slots, each slot with its
-//   own full (TMA bytes) and empty (consumer arrivals) mbarrier, K and V
-//   apart;
+//   setmaxnreg.dec; one of its threads starts every TMA load: Q tiles
+//   through QSLOTS slots, then K and V tiles of BK keys through a ring of
+//   STAGES slots, each slot with its own full (TMA bytes) and empty
+//   (consumer arrivals) mbarrier, K and V apart. RESIDENT: one key tile of
+//   160 rows holds the whole K/V, loaded once and never released;
 // - one or two consumer warpgroups raise theirs with setmaxnreg.inc. Each
 //   owns 64 query rows (SPLIT = false), or, for heads wider than 192, both
 //   own the same 64 rows and split O's columns in halves (SPLIT = true; each
-//   computes the whole logits tile itself).
-// Tensor maps are 3-D over (D, S, B*H) bf16 with 64-column boxes and the
-// 128-byte swizzle: a head of D columns takes NB = ceil(D / 64) boxes per
-// tile, and the TMA unit zero-fills columns >= D and rows >= S within the
-// head, so a ragged tile never reads the next head.
+//   computes the whole logits tile itself);
+// - the block walks the q-tiles blockIdx.x, blockIdx.x + gridDim.x, ... of
+//   its head: one for K1 and K3 (one block per q-tile), several for K2
+//   (sm_count / BH blocks a head), whose next Q loads and last O stores run
+//   under the math.
+// Tensor maps are 3-D over (D, Sq or Skv, B*H) bf16 with 64-column boxes and
+// the 128-byte swizzle: a head of D columns takes NB = ceil(D / 64) boxes per
+// tile, and the TMA unit zero-fills columns >= D and rows past the sequence
+// within the head, so a ragged tile never reads the next head.
 //
 // Per key tile, in a consumer warpgroup, all in registers:
-//   S = Q K^T   wgmma m64nBKk16, both operands in shared memory (K-major),
-//               ceil(D / 16) k-steps (zero columns past D are skipped);
+//   S = Q K^T   wgmma m64nBKk16 (BK 32-160), both operands in shared memory
+//               (K-major), ceil(D / 16) k-steps (zero columns past D are
+//               skipped);
 //   softmax     on the accumulator layout: thread t holds rows
 //               16 * (t / 32) + (t % 32) / 4 and that + 8, at columns
 //               8 i + 2 (t % 4) and the next; row max by two quad shuffles;
 //               m, the per-thread part of l, and the alpha rescale of O stay
-//               in registers;
+//               in registers (with one resident tile alpha is 0 on zeros);
 //   O += P V    wgmma m64n64k16 per 64 columns of O, A = P from registers
 //               (bf16 pairs in the accumulator layout), B = V read MN-major
 //               from the swizzled tile.
-// The epilogue divides by l in fp32, rounds to bf16 into Q's shared buffer
-// (in the swizzled layout) and stores it with a TMA store, which clips rows
-// >= S and columns >= D.
+// The epilogue divides by l in fp32, rounds to bf16 into the Q slot (in the
+// swizzled layout) and stores it with a TMA store, which clips rows past Sq
+// and columns >= D; the slot is released once the store has read it.
 //
 // PIPE keeps pfd_tpu's pipelined schedule (flash_attention.py:108-160): nk + 1
 // steps; step j starts the logits of key tile min(j, nk - 1) into register
@@ -126,8 +147,18 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t sr
       : "memory");
 }
 
-__device__ __forceinline__ void tma_store_wait() {
+__device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// waits until this thread's committed TMA stores have read their
+// shared-memory source (the buffer may then be written again)
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// waits until this thread's committed TMA stores are complete
+__device__ __forceinline__ void tma_store_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
@@ -201,12 +232,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "  \
   "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "  \
   "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define PFD_REGS80                                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "  \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "  \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "  \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "  \
+  "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79}"
 #define PFD_ACC8(C, b)                                                                  \
   C(d[b]), C(d[b + 1]), C(d[b + 2]), C(d[b + 3]), C(d[b + 4]), C(d[b + 5]), C(d[b + 6]), \
       C(d[b + 7])
 #define PFD_ACC16(C) PFD_ACC8(C, 0), PFD_ACC8(C, 8)
 #define PFD_ACC32(C) PFD_ACC16(C), PFD_ACC8(C, 16), PFD_ACC8(C, 24)
 #define PFD_ACC64(C) PFD_ACC32(C), PFD_ACC8(C, 32), PFD_ACC8(C, 40), PFD_ACC8(C, 48), PFD_ACC8(C, 56)
+#define PFD_ACC80(C) PFD_ACC64(C), PFD_ACC8(C, 64), PFD_ACC8(C, 72)
 
 // D (64 x N, fp32, R = N / 2 registers) (+)= A (64 x 16) . B (N x 16)^T, both
 // K-major in shared memory (descriptors a, b; operands %R and %R+1). C "=f"
@@ -223,14 +261,16 @@ template <int BK>
 __device__ __forceinline__ void wgmma_ss(float (&d)[BK / 2], uint64_t a, uint64_t b) {
   if constexpr (BK == 32) PFD_WGMMA_SS(32, 16, 16, 17, 18, "+f", 1);
   else if constexpr (BK == 64) PFD_WGMMA_SS(64, 32, 32, 33, 34, "+f", 1);
-  else PFD_WGMMA_SS(128, 64, 64, 65, 66, "+f", 1);
+  else if constexpr (BK == 128) PFD_WGMMA_SS(128, 64, 64, 65, 66, "+f", 1);
+  else PFD_WGMMA_SS(160, 80, 80, 81, 82, "+f", 1);
 }
 
 template <int BK>
 __device__ __forceinline__ void wgmma_ss_first(float (&d)[BK / 2], uint64_t a, uint64_t b) {
   if constexpr (BK == 32) PFD_WGMMA_SS(32, 16, 16, 17, 18, "=f", 0);
   else if constexpr (BK == 64) PFD_WGMMA_SS(64, 32, 32, 33, 34, "=f", 0);
-  else PFD_WGMMA_SS(128, 64, 64, 65, 66, "=f", 0);
+  else if constexpr (BK == 128) PFD_WGMMA_SS(128, 64, 64, 65, 66, "=f", 0);
+  else PFD_WGMMA_SS(160, 80, 80, 81, 82, "=f", 0);
 }
 
 // D (64 x 64, fp32) += A (64 x 16, bf16 pairs in registers) . B (16 x 64),
@@ -249,13 +289,19 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
 
 // NB 64-column boxes of the head; PIPE: K3's tiles. Key tiles (BK) are chosen
 // so that S, P and O fit the consumers' registers without spills (K3 holds
-// two S slots) and the ring fits shared memory.
-template <int NB, bool PIPE>
+// two S slots) and the ring fits shared memory. RESIDENT (K2's short K/V):
+// one key tile of 160 rows holds the whole K/V of the head, loaded once per
+// block into a single stage. QSLOTS: Q tiles in flight (2 where a block
+// walks several q-tiles, so the next one loads under this one's math).
+template <int NB, bool PIPE, bool RESIDENT = false, int QSLOTS = 1>
 struct Cfg {
+  static_assert(!(RESIDENT && (PIPE || NB > 3)), "a resident K/V serves K2 (D <= 192)");
   static constexpr bool SPLIT = NB >= 4;
   static constexpr int BK =
-      SPLIT ? ((NB == 8 || PIPE) ? 32 : 64) : ((NB == 3 || (PIPE && NB == 2)) ? 64 : 128);
-  static constexpr int STAGES = 2;
+      RESIDENT ? 160
+      : SPLIT  ? ((NB == 8 || PIPE) ? 32 : 64)
+               : ((NB == 3 || (PIPE && NB == 2)) ? 64 : 128);
+  static constexpr int STAGES = RESIDENT ? 1 : 2;
   static constexpr int OC = SPLIT ? NB / 2 : NB;  // 64-column chunks of O per warpgroup
   static constexpr uint32_t QBOX = 64 * 128;      // 64 rows of one 128-byte box
   static constexpr uint32_t KBOX = BK * 128;
@@ -264,7 +310,7 @@ struct Cfg {
     return (SPLIT ? 1 : nwg) * NB * QBOX;
   }
   __host__ __device__ static constexpr size_t smem(int nwg) {  // + 1024 aligns the base
-    return 1024 + q_bytes(nwg) + 2 * STAGES * KV_STAGE + 8 * (1 + 4 * STAGES);
+    return 1024 + QSLOTS * q_bytes(nwg) + 2 * STAGES * KV_STAGE + 8 * (2 * QSLOTS + 4 * STAGES);
   }
 };
 
@@ -384,22 +430,24 @@ __device__ __forceinline__ void start_pv(float (&o)[OC][32], const uint32_t (&p)
   wgmma_commit();
 }
 
-// Barriers of the ring: full_q, then full K, full V, empty K, empty V, one
-// of each per stage.
-template <int ST>
+// Barriers: full and empty Q, one of each per Q slot, then full K, full V,
+// empty K, empty V, one of each per stage of the ring.
+template <int ST, int QS>
 struct Bars {
   uint32_t base;
-  __device__ uint32_t full_q() const { return base; }
-  __device__ uint32_t full_k(int st) const { return base + 8 * (1 + st); }
-  __device__ uint32_t full_v(int st) const { return base + 8 * (1 + ST + st); }
-  __device__ uint32_t empty_k(int st) const { return base + 8 * (1 + 2 * ST + st); }
-  __device__ uint32_t empty_v(int st) const { return base + 8 * (1 + 3 * ST + st); }
+  __device__ uint32_t full_q(int s) const { return base + 8 * s; }
+  __device__ uint32_t empty_q(int s) const { return base + 8 * (QS + s); }
+  __device__ uint32_t full_k(int st) const { return base + 8 * (2 * QS + st); }
+  __device__ uint32_t full_v(int st) const { return base + 8 * (2 * QS + ST + st); }
+  __device__ uint32_t empty_k(int st) const { return base + 8 * (2 * QS + 2 * ST + st); }
+  __device__ uint32_t empty_v(int st) const { return base + 8 * (2 * QS + 3 * ST + st); }
 };
 
 // Where a consumer warpgroup's operands lie in shared memory.
 struct Tiles {
   uint32_t q, k, v;  // Q of this warpgroup; slot 0 of K; slot 0 of V at its O columns
   int ksteps, nk, nvalid_last, cq;
+  int step0;  // ring steps taken by this block's earlier q-tiles
 };
 
 // K3's step j: the logits of key tile min(j, nk - 1) into s_new (async)
@@ -409,13 +457,13 @@ struct Tiles {
 // logits' start, so that no instruction touches a wgmma accumulator while
 // the logits are in flight; the exp2s, the bulk of the softmax, overlap
 // them.
-template <int NB, int OC, int BK, int ST>
+template <int NB, int OC, int BK, int ST, int QS>
 __device__ __forceinline__ void pipe_step(int j, float (&s_new)[BK / 2], float (&s_old)[BK / 2],
                                           float (&m)[2], float (&l)[2], float (&o)[OC][32],
-                                          const Bars<ST>& bar, const Tiles& tl) {
+                                          const Bars<ST, QS>& bar, const Tiles& tl) {
   constexpr uint32_t KBOX = BK * 128, KV_STAGE = NB * KBOX;
-  const int st = j % ST;
-  const uint32_t ph = (j / ST) & 1;
+  const int st = (tl.step0 + j) % ST;
+  const uint32_t ph = ((tl.step0 + j) / ST) & 1;
   uint32_t p[BK / 16][4];
   float alpha[2], d[BK / 2];
   softmax_max<BK>(s_old, m, alpha);
@@ -441,34 +489,46 @@ __device__ __forceinline__ void pipe_step(int j, float (&s_new)[BK / 2], float (
 
 // ---- the kernel ------------------------------------------------------------------
 
-template <int NB, int NWG, bool PIPE>
+// One (batch*head) per blockIdx.y. The block walks the q-tiles blockIdx.x,
+// blockIdx.x + gridDim.x, ... of ROWS query rows each (K1 and K3 launch one
+// block per q-tile, so their loop runs once). Q tiles rotate through QSLOTS
+// slots, each with a full (TMA bytes) and an empty (one arrival per consumer
+// warpgroup, once its O store has read the slot) barrier. K/V: with RESIDENT
+// one tile, loaded once per block and never released; otherwise the ring,
+// whose step count runs on across the block's q-tiles.
+template <int NB, int NWG, bool PIPE, bool RESIDENT, int QSLOTS>
 __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 flash_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                   const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mo,
-                  int S, int D, float qscale) {
-  using C = Cfg<NB, PIPE>;
+                  int Sq, int Skv, int D, float qscale) {
+  using C = Cfg<NB, PIPE, RESIDENT, QSLOTS>;
   constexpr int BK = C::BK, ST = C::STAGES, OC = C::OC;
   constexpr bool SPLIT = C::SPLIT;
   static_assert(!SPLIT || NWG == 2, "a split head takes two consumer warpgroups");
   constexpr uint32_t QBOX = C::QBOX, KBOX = C::KBOX, KV_STAGE = C::KV_STAGE;
+  constexpr uint32_t QBYTES = C::q_bytes(NWG);
+  constexpr int ROWS = SPLIT ? 64 : 64 * NWG;
 
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // the swizzle atoms are 1024 bytes
   unsigned char* gbase = smem_raw + (base - raw);
-  const uint32_t sq = base;
-  const uint32_t sk = sq + C::q_bytes(NWG);
+  const uint32_t sq = base;  // QSLOTS slots of QBYTES
+  const uint32_t sk = sq + QSLOTS * QBYTES;
   const uint32_t sv = sk + ST * KV_STAGE;
-  const Bars<ST> bar{sv + ST * KV_STAGE};
+  const Bars<ST, QSLOTS> bar{sv + ST * KV_STAGE};
 
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * (SPLIT ? 64 : 64 * NWG);
-  const int nk = (S + BK - 1) / BK;
+  const int ntq = (Sq + ROWS - 1) / ROWS;
+  const int nk = RESIDENT ? 1 : (Skv + BK - 1) / BK;
   const int nsteps = PIPE ? nk + 1 : nk;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
-    mbar_init(bar.full_q(), 1);
+    for (int s = 0; s < QSLOTS; ++s) {
+      mbar_init(bar.full_q(s), 1);
+      mbar_init(bar.empty_q(s), NWG);
+    }
     for (int st = 0; st < ST; ++st) {
       mbar_init(bar.full_k(st), 1);
       mbar_init(bar.full_v(st), 1);
@@ -483,23 +543,38 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant_
     // ---- producer: one thread starts every load --------------------------------
     reg_dealloc<24>();
     if (threadIdx.x == NWG * 128) {
-      mbar_expect_tx(bar.full_q(), C::q_bytes(NWG));
-      for (int r = 0; r < (SPLIT ? 1 : NWG); ++r)
-        for (int b = 0; b < NB; ++b)
-          tma_load_3d(sq + (r * NB + b) * QBOX, &mq, bar.full_q(), b * 64, q0 + 64 * r, bh);
-      for (int j = 0; j < nsteps; ++j) {
-        const int st = j % ST;
-        const uint32_t ph = (j / ST) & 1;
-        const int kt = PIPE ? min(j, nk - 1) : j;
-        const int vt = PIPE ? max(j - 1, 0) : j;
-        mbar_wait(bar.empty_k(st), ph ^ 1);
-        mbar_expect_tx(bar.full_k(st), KV_STAGE);
-        for (int b = 0; b < NB; ++b)
-          tma_load_3d(sk + st * KV_STAGE + b * KBOX, &mk, bar.full_k(st), b * 64, kt * BK, bh);
-        mbar_wait(bar.empty_v(st), ph ^ 1);
-        mbar_expect_tx(bar.full_v(st), KV_STAGE);
-        for (int b = 0; b < NB; ++b)
-          tma_load_3d(sv + st * KV_STAGE + b * KBOX, &mv, bar.full_v(st), b * 64, vt * BK, bh);
+      if constexpr (RESIDENT) {
+        mbar_expect_tx(bar.full_k(0), KV_STAGE);
+        for (int b = 0; b < NB; ++b) tma_load_3d(sk + b * KBOX, &mk, bar.full_k(0), b * 64, 0, bh);
+        mbar_expect_tx(bar.full_v(0), KV_STAGE);
+        for (int b = 0; b < NB; ++b) tma_load_3d(sv + b * KBOX, &mv, bar.full_v(0), b * 64, 0, bh);
+      }
+      int g = 0;  // ring steps so far
+      for (int qt = blockIdx.x, i = 0; qt < ntq; qt += gridDim.x, ++i) {
+        const int qs = i % QSLOTS;
+        if constexpr (QSLOTS > 1) mbar_wait(bar.empty_q(qs), ((i / QSLOTS) & 1) ^ 1);
+        mbar_expect_tx(bar.full_q(qs), QBYTES);
+        for (int r = 0; r < (SPLIT ? 1 : NWG); ++r)
+          for (int b = 0; b < NB; ++b)
+            tma_load_3d(sq + qs * QBYTES + (r * NB + b) * QBOX, &mq, bar.full_q(qs), b * 64,
+                        qt * ROWS + 64 * r, bh);
+        if constexpr (!RESIDENT) {
+          for (int j = 0; j < nsteps; ++j, ++g) {
+            const int st = g % ST;
+            const uint32_t ph = (g / ST) & 1;
+            const int kt = PIPE ? min(j, nk - 1) : j;
+            const int vt = PIPE ? max(j - 1, 0) : j;
+            mbar_wait(bar.empty_k(st), ph ^ 1);
+            mbar_expect_tx(bar.full_k(st), KV_STAGE);
+            for (int b = 0; b < NB; ++b)
+              tma_load_3d(sk + st * KV_STAGE + b * KBOX, &mk, bar.full_k(st), b * 64, kt * BK, bh);
+            mbar_wait(bar.empty_v(st), ph ^ 1);
+            mbar_expect_tx(bar.full_v(st), KV_STAGE);
+            for (int b = 0; b < NB; ++b)
+              tma_load_3d(sv + st * KV_STAGE + b * KBOX, &mv, bar.full_v(st), b * 64, vt * BK, bh);
+          }
+        }
+        if constexpr (QSLOTS == 1) break;  // K1, K3: one q-tile a block, no loop
       }
     }
   } else {
@@ -511,111 +586,123 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant_
     const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
     const int r0 = 16 * warp + lane / 4;  // this thread's rows: r0 and r0 + 8
     const int cq = 2 * (lane % 4);        // and its columns in each 8-column group
-    const uint32_t qreg = sq + (SPLIT ? 0 : wg * NB * QBOX);
+    const int ksteps = (D + 15) / 16;
+    const int nvalid_last = Skv - (nk - 1) * BK;  // < BK only when Skv % BK != 0
+    const uint32_t vcol = (SPLIT ? wg * OC : 0) * KBOX;  // this warpgroup's V boxes
+    int g = 0;  // ring steps so far
+    for (int qt = blockIdx.x, i = 0; qt < ntq; qt += gridDim.x, ++i, g += nsteps) {
+      const int qs = i % QSLOTS;
+      const uint32_t qreg = sq + qs * QBYTES + (SPLIT ? 0 : wg * NB * QBOX);
 
-    // Q: scale by qscale in fp32, round to bf16, in place (elementwise, so the
-    // swizzle does not matter); then make it visible to the async proxy
-    mbar_wait(bar.full_q(), 0);
-    {
-      const int nthr = SPLIT ? 256 : 128, tid = SPLIT ? threadIdx.x : t;
-      uint4* qv = reinterpret_cast<uint4*>(gbase + (qreg - base));
-      for (int i = tid; i < int(NB * QBOX / 16); i += nthr) {
-        uint4 val = qv[i];
-        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&val);
+      // Q: scale by qscale in fp32, round to bf16, in place (elementwise, so
+      // the swizzle does not matter); then make it visible to the async proxy
+      mbar_wait(bar.full_q(qs), (i / QSLOTS) & 1);
+      {
+        const int nthr = SPLIT ? 256 : 128, tid = SPLIT ? threadIdx.x : t;
+        uint4* qv = reinterpret_cast<uint4*>(gbase + (qreg - base));
+        for (int e = tid; e < int(NB * QBOX / 16); e += nthr) {
+          uint4 val = qv[e];
+          __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&val);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float2 f = __bfloat1622float2(h[e]);
-          h[e] = __floats2bfloat162_rn(f.x * qscale, f.y * qscale);
+          for (int u = 0; u < 4; ++u) {
+            float2 f = __bfloat1622float2(h[u]);
+            h[u] = __floats2bfloat162_rn(f.x * qscale, f.y * qscale);
+          }
+          qv[e] = val;
         }
-        qv[i] = val;
+        fence_proxy_async();
+        named_bar_sync(SPLIT ? 1 : 2 + wg, nthr);
+      }
+
+      float m[2], l[2] = {0.f, 0.f};
+      m[0] = m[1] = PIPE ? kMEmpty : kNegInf;
+      float o[OC][32];
+#pragma unroll
+      for (int c = 0; c < OC; ++c)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) o[c][e] = 0.f;
+      if constexpr (!PIPE) {
+        uint32_t p[BK / 16][4];
+        float alpha[2], s[BK / 2], d[BK / 2];
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e) s[e] = 0.f;
+#pragma unroll 1
+        for (int j = 0; j < nk; ++j) {
+          const int st = RESIDENT ? 0 : (g + j) % ST;
+          const uint32_t ph = RESIDENT ? 0 : ((g + j) / ST) & 1;
+          mbar_wait(bar.full_k(st), ph);
+          start_qk<BK>(s, qreg, sk + st * KV_STAGE, ksteps, QBOX, KBOX);
+          wgmma_wait_all();
+          fence_regs(s);
+          if (!RESIDENT) mbar_arrive(bar.empty_k(st));
+          if (j == nk - 1 && nvalid_last < BK) mask_tail<BK>(s, nvalid_last, cq);
+          softmax_max<BK>(s, m, alpha);
+          softmax_shift<BK>(s, m, d);
+          softmax_exp<BK>(d, alpha, l, p);
+          rescale<OC>(o, alpha);
+#pragma unroll
+          for (int c = 0; c < OC; ++c) fence_regs(o[c]);
+          mbar_wait(bar.full_v(st), ph);
+          start_pv<BK, OC>(o, p, sv + st * KV_STAGE + vcol, KBOX);
+          wgmma_wait_all();
+#pragma unroll
+          for (int c = 0; c < OC; ++c) fence_regs(o[c]);
+          if (!RESIDENT) mbar_arrive(bar.empty_v(st));
+        }
+      } else {
+        float s0[BK / 2], s1[BK / 2];
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e) {
+          s0[e] = 0.f;
+          s1[e] = kSEmpty;  // the slot the priming step reads
+        }
+        const Tiles tl{qreg, sk, sv + vcol, ksteps, nk, nvalid_last, cq, g};
+#pragma unroll 1
+        for (int j = 0; j < nsteps; j += 2) {
+          pipe_step<NB, OC, BK, ST, QSLOTS>(j, s0, s1, m, l, o, bar, tl);
+          if (j + 1 < nsteps) pipe_step<NB, OC, BK, ST, QSLOTS>(j + 1, s1, s0, m, l, o, bar, tl);
+        }
+      }
+
+      // ---- epilogue: O / l -> bf16 into Q's slot (swizzled), TMA store ----------
+      l[0] += __shfl_xor_sync(0xffffffffu, l[0], 1);
+      l[0] += __shfl_xor_sync(0xffffffffu, l[0], 2);
+      l[1] += __shfl_xor_sync(0xffffffffu, l[1], 1);
+      l[1] += __shfl_xor_sync(0xffffffffu, l[1], 2);
+      const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
+      if (SPLIT) named_bar_sync(1, 256);  // both warpgroups are done reading the shared Q
+      const int box0 = SPLIT ? wg * OC : 0;
+      unsigned char* qg = gbase + (qreg - base);
+#pragma unroll
+      for (int c = 0; c < OC; ++c) {
+        unsigned char* box = qg + (box0 + c) * QBOX;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int sw = (e ^ (r0 & 7)) * 16 + cq * 2;  // rows r0 and r0 + 8 share r % 8
+          *reinterpret_cast<uint32_t*>(box + r0 * 128 + sw) =
+              pack_bf16(o[c][4 * e] * inv0, o[c][4 * e + 1] * inv0);
+          *reinterpret_cast<uint32_t*>(box + (r0 + 8) * 128 + sw) =
+              pack_bf16(o[c][4 * e + 2] * inv1, o[c][4 * e + 3] * inv1);
+        }
       }
       fence_proxy_async();
-      named_bar_sync(SPLIT ? 1 : 2 + wg, nthr);
-    }
-
-    const int ksteps = (D + 15) / 16;
-    const int nvalid_last = S - (nk - 1) * BK;  // < BK only when S % BK != 0
-    const uint32_t vcol = (SPLIT ? wg * OC : 0) * KBOX;  // this warpgroup's V boxes
-    float m[2], l[2] = {0.f, 0.f};
-    m[0] = m[1] = PIPE ? kMEmpty : kNegInf;
-    float o[OC][32];
-#pragma unroll
-    for (int c = 0; c < OC; ++c)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
-    if constexpr (!PIPE) {
-      uint32_t p[BK / 16][4];
-      float alpha[2], s[BK / 2], d[BK / 2];
-#pragma unroll
-      for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
-#pragma unroll 1
-      for (int j = 0; j < nk; ++j) {
-        const int st = j % ST;
-        const uint32_t ph = (j / ST) & 1;
-        mbar_wait(bar.full_k(st), ph);
-        start_qk<BK>(s, qreg, sk + st * KV_STAGE, ksteps, QBOX, KBOX);
-        wgmma_wait_all();
-        fence_regs(s);
-        mbar_arrive(bar.empty_k(st));
-        if (j == nk - 1 && nvalid_last < BK) mask_tail<BK>(s, nvalid_last, cq);
-        softmax_max<BK>(s, m, alpha);
-        softmax_shift<BK>(s, m, d);
-        softmax_exp<BK>(d, alpha, l, p);
-        rescale<OC>(o, alpha);
-#pragma unroll
-        for (int c = 0; c < OC; ++c) fence_regs(o[c]);
-        mbar_wait(bar.full_v(st), ph);
-        start_pv<BK, OC>(o, p, sv + st * KV_STAGE + vcol, KBOX);
-        wgmma_wait_all();
-#pragma unroll
-        for (int c = 0; c < OC; ++c) fence_regs(o[c]);
-        mbar_arrive(bar.empty_v(st));
+      named_bar_sync(2 + wg, 128);
+      if (t == 0) {
+        const int row0 = qt * ROWS + (SPLIT ? 0 : 64 * wg);
+        if (row0 < Sq) {
+          for (int c = 0; c < OC; ++c)
+            if ((box0 + c) * 64 < D)
+              tma_store_3d(&mo, qreg + (box0 + c) * QBOX, (box0 + c) * 64, row0, bh);
+          tma_store_commit();
+        }
+        if constexpr (QSLOTS > 1) {  // the slot may take the next Q tile
+          tma_store_wait_read();
+          mbar_arrive(bar.empty_q(qs));
+        }
       }
-    } else {
-      float s0[BK / 2], s1[BK / 2];
-#pragma unroll
-      for (int i = 0; i < BK / 2; ++i) {
-        s0[i] = 0.f;
-        s1[i] = kSEmpty;  // the slot the priming step reads
-      }
-      const Tiles tl{qreg, sk, sv + vcol, ksteps, nk, nvalid_last, cq};
-#pragma unroll 1
-      for (int j = 0; j < nsteps; j += 2) {
-        pipe_step<NB, OC, BK, ST>(j, s0, s1, m, l, o, bar, tl);
-        if (j + 1 < nsteps) pipe_step<NB, OC, BK, ST>(j + 1, s1, s0, m, l, o, bar, tl);
-      }
+      if constexpr (QSLOTS == 1) break;
     }
-
-    // ---- epilogue: O / l -> bf16 into Q's buffer (swizzled), TMA store --------
-    l[0] += __shfl_xor_sync(0xffffffffu, l[0], 1);
-    l[0] += __shfl_xor_sync(0xffffffffu, l[0], 2);
-    l[1] += __shfl_xor_sync(0xffffffffu, l[1], 1);
-    l[1] += __shfl_xor_sync(0xffffffffu, l[1], 2);
-    const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
-    if (SPLIT) named_bar_sync(1, 256);  // both warpgroups are done reading the shared Q
-    const int box0 = SPLIT ? wg * OC : 0;
-    unsigned char* qg = gbase + (qreg - base);
-#pragma unroll
-    for (int c = 0; c < OC; ++c) {
-      unsigned char* box = qg + (box0 + c) * QBOX;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int sw = (i ^ (r0 & 7)) * 16 + cq * 2;  // rows r0 and r0 + 8 share r % 8
-        *reinterpret_cast<uint32_t*>(box + r0 * 128 + sw) =
-            pack_bf16(o[c][4 * i] * inv0, o[c][4 * i + 1] * inv0);
-        *reinterpret_cast<uint32_t*>(box + (r0 + 8) * 128 + sw) =
-            pack_bf16(o[c][4 * i + 2] * inv1, o[c][4 * i + 3] * inv1);
-      }
-    }
-    fence_proxy_async();
-    named_bar_sync(2 + wg, 128);
-    const int row0 = q0 + (SPLIT ? 0 : 64 * wg);
-    if (t == 0 && row0 < S) {
-      for (int c = 0; c < OC; ++c)
-        if ((box0 + c) * 64 < D)
-          tma_store_3d(&mo, qreg + (box0 + c) * QBOX, (box0 + c) * 64, row0, bh);
-      tma_store_wait();
-    }
+    if (t == 0) tma_store_wait();  // the block's stores have landed
   }
 }
 
@@ -647,36 +734,56 @@ inline EncodeTiled encode_tiled() {
 }
 
 // 3-D map over a contiguous (BH, S, D) bf16 tensor: boxes of 64 columns x
-// `rows` rows of one head, 128-byte swizzle, zero fill out of bounds
+// `rows` rows of one head, 128-byte swizzle, zero fill out of bounds. A map
+// is a function of these arguments alone, so each host thread keeps the last
+// 64 it encoded and reuses one whose arguments match (the caching allocator
+// hands the same addresses back call after call).
 inline bool make_map(CUtensorMap* map, const void* ptr, int BH, int S, int D, int rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(S), cuuint64_t(BH)};
-  const cuuint64_t strides[2] = {cuuint64_t(D) * 2, cuuint64_t(S) * D * 2};
-  const cuuint32_t box[3] = {64, cuuint32_t(rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  struct Entry {
+    CUtensorMap map;
+    const void* ptr;
+    int BH, S, D, rows;
+  };
+  thread_local Entry cache[64] = {};
+  const uintptr_t key = reinterpret_cast<uintptr_t>(ptr);
+  Entry& e = cache[((key >> 8) ^ (key >> 20) ^ uintptr_t(S) * 7 ^ uintptr_t(rows)) % 64];
+  if (e.ptr != ptr || e.BH != BH || e.S != S || e.D != D || e.rows != rows) {
+    EncodeTiled fn = encode_tiled();
+    if (fn == nullptr) return false;
+    const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(S), cuuint64_t(BH)};
+    const cuuint64_t strides[2] = {cuuint64_t(D) * 2, cuuint64_t(S) * D * 2};
+    const cuuint32_t box[3] = {64, cuuint32_t(rows), 1};
+    const cuuint32_t elem[3] = {1, 1, 1};
+    e.ptr = nullptr;
+    if (fn(&e.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+           box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+           CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return false;
+    e = Entry{e.map, ptr, BH, S, D, rows};
+  }
+  *map = e.map;
+  return true;
 }
 
-template <int NB, int NWG, bool PIPE>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int BH, int S, int D,
-                   float qscale, cudaStream_t stream) {
-  using C = Cfg<NB, PIPE>;
+// blocks_x: blocks per head (0: one per q-tile)
+template <int NB, int NWG, bool PIPE, bool RESIDENT = false, int QSLOTS = 1>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int BH, int Sq, int Skv,
+                   int D, float qscale, cudaStream_t stream, int blocks_x = 0) {
+  using C = Cfg<NB, PIPE, RESIDENT, QSLOTS>;
   static unsigned long long smem_set = 0;
-  cudaError_t err =
-      opt_in_smem(flash_sm90_kernel<NB, NWG, PIPE>, C::smem(NWG), smem_set);
+  cudaError_t err = opt_in_smem(flash_sm90_kernel<NB, NWG, PIPE, RESIDENT, QSLOTS>,
+                                C::smem(NWG), smem_set);
   if (err != cudaSuccess) return err;
   CUtensorMap mq, mk, mv, mo;
-  if (!make_map(&mq, q, BH, S, D, 64) || !make_map(&mk, k, BH, S, D, C::BK) ||
-      !make_map(&mv, v, BH, S, D, C::BK) || !make_map(&mo, o, BH, S, D, 64))
+  if (!make_map(&mq, q, BH, Sq, D, 64) || !make_map(&mk, k, BH, Skv, D, C::BK) ||
+      !make_map(&mv, v, BH, Skv, D, C::BK) || !make_map(&mo, o, BH, Sq, D, 64))
     return cudaErrorInvalidValue;
   const int rows = C::SPLIT ? 64 : 64 * NWG;
-  dim3 grid((S + rows - 1) / rows, BH);
-  flash_sm90_kernel<NB, NWG, PIPE><<<grid, (NWG + 1) * 128, C::smem(NWG), stream>>>(
-      mq, mk, mv, mo, S, D, qscale);
+  const int ntq = (Sq + rows - 1) / rows;
+  dim3 grid(blocks_x > 0 && blocks_x < ntq ? blocks_x : ntq, BH);
+  flash_sm90_kernel<NB, NWG, PIPE, RESIDENT, QSLOTS>
+      <<<grid, (NWG + 1) * 128, C::smem(NWG), stream>>>(mq, mk, mv, mo, Sq, Skv, D, qscale);
   return cudaGetLastError();
 }
 
@@ -689,6 +796,10 @@ inline int sm_count() {
   return count[dev & 63];
 }
 
+// Whether 128 query rows a block (two consumer warpgroups) fill more than
+// half of the SMs; else 64 rows a block
+inline bool wide_grid(int BH, int Sq) { return 2LL * BH * ((Sq + 127) / 128) > sm_count(); }
+
 // q, k, v, o: contiguous (BH, S, D) bf16, 16-byte aligned, D % 8 == 0 and
 // D <= 512. Heads up to 192 wide run 128 query rows per block (two consumer
 // warpgroups) unless that fills at most half of the SMs, then 64 rows.
@@ -698,18 +809,14 @@ int flash_attention(const void* q, const void* k, const void* v, void* o, int BH
   if (BH <= 0 || S <= 0 || BH > 65535 || D <= 0 || D % 8 != 0 || D > 512)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool wide_grid = 2LL * BH * ((S + 127) / 128) > sm_count();
-  if (D <= 64)
-    return wide_grid ? (int)launch<1, 2, PIPE>(q, k, v, o, BH, S, D, qscale, st)
-                     : (int)launch<1, 1, PIPE>(q, k, v, o, BH, S, D, qscale, st);
-  if (D <= 128)
-    return wide_grid ? (int)launch<2, 2, PIPE>(q, k, v, o, BH, S, D, qscale, st)
-                     : (int)launch<2, 1, PIPE>(q, k, v, o, BH, S, D, qscale, st);
-  if (D <= 192)
-    return wide_grid ? (int)launch<3, 2, PIPE>(q, k, v, o, BH, S, D, qscale, st)
-                     : (int)launch<3, 1, PIPE>(q, k, v, o, BH, S, D, qscale, st);
-  if (D <= 256) return (int)launch<4, 2, PIPE>(q, k, v, o, BH, S, D, qscale, st);
-  return (int)launch<8, 2, PIPE>(q, k, v, o, BH, S, D, qscale, st);
+  const bool wide = wide_grid(BH, S);
+#define PFD_K1(NB, NWG) (int)launch<NB, NWG, PIPE>(q, k, v, o, BH, S, S, D, qscale, st)
+  if (D <= 64) return wide ? PFD_K1(1, 2) : PFD_K1(1, 1);
+  if (D <= 128) return wide ? PFD_K1(2, 2) : PFD_K1(2, 1);
+  if (D <= 192) return wide ? PFD_K1(3, 2) : PFD_K1(3, 1);
+  if (D <= 256) return PFD_K1(4, 2);
+  return PFD_K1(8, 2);
+#undef PFD_K1
 }
 
 }  // namespace sm90

@@ -37,7 +37,7 @@ SIGNATURES = {
                   (_VP, _VP, _VP) + (_I,) * 13 + (_VP,)),
     "flash_attention_pipe": ("pfd_flash_attention_pipe_bf16",
                              (_VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP)),
-    "conv3x3_bf16": ("pfd_conv3x3_bf16", (_VP,) * 7 + (_I,) * 5 + (_VP,)),
+    "conv3x3_bf16": ("pfd_conv3x3_bf16", (_VP,) * 8 + (_I,) * 6 + (_VP,)),
     "matmul_int8": ("pfd_matmul_int8", (_VP, _VP, _VP, _I, _I, _I, _VP)),
 }
 

@@ -5,13 +5,14 @@
 ``flash_attention`` replaces ``pfd_tpu`` ``flash_attention`` ->
 ``_flash_kernel`` (flash_attention.py:277, body :53-97) and
 ``cross_attention`` replaces ``cross_attention`` -> ``_cross_kernel``
-(:465, body :446-461). Both are hand-written CUDA C++ for ``sm_90a``
-(``csrc/flash_attention.cu`` on the Hopper design of ``csrc/flash_sm90.cuh``:
-TMA loads, wgmma, the softmax and the output accumulator in registers;
-``csrc/cross_attention.cu`` on the WMMA tile routine of
-``csrc/attention_tile.cuh``): bf16 in and out, fp32 online softmax in base 2 on a q pre-scaled by
-``scale * log2(e)`` rounded to q's dtype, as ``pfd_tpu`` scales q before its
-kernel (:391, :482).
+(:465, body :446-461). Both are hand-written CUDA C++ for ``sm_90a`` on the
+Hopper design of ``csrc/flash_sm90.cuh`` (TMA loads, wgmma, the softmax and
+the output accumulator in registers): ``csrc/flash_attention.cu`` and
+``csrc/cross_attention.cu``, the latter with the whole short K/V resident as
+one key tile (``cross_variant`` says which variant a shape runs). bf16 in
+and out, fp32 online softmax in base 2 on a q pre-scaled by ``scale *
+log2(e)`` rounded to q's dtype, as ``pfd_tpu`` scales q before its kernel
+(:391, :482).
 
 ``flash_attention(..., quant="pv" | True)`` is the int8 serving mode's
 self-attention (``pfd_tpu`` :274-380): V is quantized per tensor over the
@@ -78,6 +79,27 @@ def pipe_block_k(d):
     if d <= 64:
         return PIPE_BLOCK_K_NARROW
     return PIPE_BLOCK_K if d <= 192 else PIPE_BLOCK_K_WIDE
+
+
+# K2's variants (csrc/cross_attention.cu cross_attention): the whole K/V of a
+# head is one resident key tile up to this many keys, else K1's key loop
+CROSS_RESIDENT_KEYS = 160
+
+
+def cross_variant(bh, sq, skv, d, sms):
+    """The variant K2's launcher picks for ``bh`` heads of ``sq`` queries
+    over ``skv`` keys of width ``d`` on a card of ``sms`` SMs (a mirror of
+    ``cross_attention`` in ``csrc/cross_attention.cu``): query rows a block (128,
+    or 64 where 128 would fill at most half of the SMs, as K1 picks them),
+    the key tile (the resident 160-key tile, or K1's 128 keys at D <= 128 and
+    64 above), and blocks a head (each walking its q-tiles in turn)."""
+    rows = 128 if 2 * bh * -(-sq // 128) > sms else 64
+    resident = skv <= CROSS_RESIDENT_KEYS
+    key_tile = CROSS_RESIDENT_KEYS if resident else (128 if d <= 128 else 64)
+    return {"rows": rows, "key_tile": key_tile, "resident": resident,
+            "blocks_per_head": min(-(-sq // rows), max(1, sms // bh))}
+
+
 INT_NEG = -(2 ** 30)
 INT8_BLOCK_K = 64  # the key tile of the int8 kernels
 

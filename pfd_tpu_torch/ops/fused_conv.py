@@ -12,8 +12,11 @@ fp32 accumulation, the bf16 mode of ``pfd_tpu/tools/int8_lab.py:129``
 ``_pallas_conv`` (as :170-174 calls it); ``conv3x3_bf16`` names that mode.
 
 Both run one hand-written CUDA C++ kernel for ``sm_90a``
-(``csrc/conv3x3_bf16.cu``, a bf16 implicit GEMM on WMMA tiles whose design
-notes are at the top of the source). Like ``pfd_tpu``'s kernel it is not
+(``csrc/conv3x3_bf16.cu``: a bf16 implicit GEMM on ``wgmma``, fed by TMA
+loads of whole image rows a tap, whose design notes are at the top of the
+source). Where its output tiles would fill few SMs the wrapper splits the
+depth over several blocks a tile (``conv3x3_plan``) and hands the kernel an
+fp32 workspace for their partial sums. Like ``pfd_tpu``'s kernel it is not
 wired into the UNet: ``tools/perf_audit`` (``AUDIT_SECTIONS=fused``) and
 ``tools/int8_lab`` (``convs``) reach it.
 
@@ -32,6 +35,7 @@ channels-last in memory on CUDA).
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -76,9 +80,40 @@ def conv3x3_fused_plain(x, weight, a, c, bias, residual=None):
 def fused_available(x):
     """Whether the CUDA kernel takes an activation of x's shape: NCHW with
     C % 8 == 0 (16-byte channel chunks) and N*H*W within int32 row indices.
-    Any H, W and output width; stride 1, padding 1 only."""
+    Any H and W; stride 1, padding 1 only. The output width must be a
+    multiple of 8 too (``conv3x3_fused`` checks it)."""
     return (x.ndim == 4 and x.shape[1] % 8 == 0 and min(x.shape) > 0
             and x.shape[0] * x.shape[2] * x.shape[3] < 2 ** 31 - 128)
+
+
+# The kernel's tiles (csrc/conv3x3_bf16.cu): 128 output pixels (whole image
+# rows of one box) by 160 output channels, depth in blocks of 64 channels
+BLOCK_M, BLOCK_N, BLOCK_C = 128, 160, 64
+MIN_DEPTH_BLOCKS = 4  # depth blocks a split keeps at least
+MAX_SPLIT = 16
+
+
+def conv3x3_plan(n, h, w, cin, cout, sms):
+    """How the kernel tiles an (n, cin, h, w) -> cout conv on ``sms`` SMs.
+    The box of one tile is whole image rows: ``bw = min(w, 128)``, ``bh =
+    min(h, 128 // bw)``, and where a box holds whole images, as many as fit
+    (``bn``). Where the tiles fill fewer than the SMs, the depth (9 taps x
+    ceil(cin / 64) blocks) is split over ``split`` blocks a tile, each keeping
+    at least ``MIN_DEPTH_BLOCKS`` blocks, at most ``MAX_SPLIT`` of them, and
+    none empty. Returns {"box", "tiles", "depth_blocks", "split"}."""
+    bw = min(w, BLOCK_M)
+    bh = min(h, BLOCK_M // bw)
+    bn = min(n, BLOCK_M // (w * h)) if (bw, bh) == (w, h) else 1
+    tiles = -(-w // bw) * -(-h // bh) * -(-n // bn) * -(-cout // BLOCK_N)
+    depth = 9 * -(-cin // BLOCK_C)
+    split = max(1, min(sms // tiles, depth // MIN_DEPTH_BLOCKS, MAX_SPLIT))
+    split = -(-depth // -(-depth // split))  # every block of the split gets depth
+    return {"box": (bw, bh, bn), "tiles": tiles, "depth_blocks": depth, "split": split}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(x, weight, a, c, bias, residual):
@@ -116,6 +151,8 @@ def conv3x3_fused(x, weight, a, c, bias, residual=None):
         raise ValueError(f"the CUDA conv3x3 kernel takes C % 8 == 0, got {tuple(x.shape)}")
     n, cin, h, w = x.shape
     k = weight.shape[0]
+    if k % 8:
+        raise ValueError(f"the CUDA conv3x3 kernel takes Cout % 8 == 0, got {k}")
     cl = torch.channels_last
     xc = x.contiguous(memory_format=cl)
     wc = weight.to(torch.bfloat16).contiguous(memory_format=cl)
@@ -123,17 +160,20 @@ def conv3x3_fused(x, weight, a, c, bias, residual=None):
     cc = None if c is None else c.float().contiguous()
     bc = None if bias is None else bias.float().contiguous()
     rc = None if residual is None else residual.contiguous(memory_format=cl)
-    for t, name in ((xc, "x"), (wc, "w"), (ac, "a"), (cc, "c")):
+    for t, name in ((xc, "x"), (wc, "w"), (ac, "a"), (cc, "c"), (rc, "residual")):
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"the CUDA conv3x3 kernel takes a 16-byte aligned {name}")
     y = torch.empty((n, k, h, w), dtype=torch.bfloat16, device=x.device, memory_format=cl)
+    split = conv3x3_plan(n, h, w, cin, k, _sm_count(x.device.index))["split"]
+    ws = (torch.empty((split, n * h * w * k), dtype=torch.float32, device=x.device)
+          if split > 1 else None)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     fn = cuda_build.entry("conv3x3_bf16")
     err = fn(xc.data_ptr(), wc.data_ptr(), ptr(ac), ptr(cc), ptr(bc), ptr(rc), y.data_ptr(),
-             n, h, w, cin, k, torch.cuda.current_stream(x.device).cuda_stream)
+             ptr(ws), n, h, w, cin, k, split, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"conv3x3_bf16 kernel launch failed with cudaError {err}")
     conv3x3_fused.launches += 1

@@ -107,3 +107,21 @@ def test_wrappers_reject_bad_shapes():
     with pytest.raises(ValueError):
         tfa.cross_attention(q, q.double(), q.double())
 
+
+
+@pytest.mark.parametrize("bh,sq,skv,d,rows,key_tile,blocks", [
+    (16, 4096, 148, 40, 128, 160, 8),     # ds1 at b1 + CFG: resident K/V, 4 q-tiles a block
+    (16, 1024, 148, 80, 128, 160, 8),     # ds2: one q-tile a block
+    (2, 1024, 512, 160, 64, 64, 16),      # narrow grid: 64-row blocks, K1's 64-key loop
+    (16, 4096, 1024, 40, 128, 128, 8),    # pooled keys: K1's 128-key loop
+    (2, 4096, 1, 8, 64, 160, 64),
+    (256, 4096, 148, 40, 128, 160, 1),    # more heads than SMs: one block a head
+])
+def test_cross_variant(bh, sq, skv, d, rows, key_tile, blocks):
+    """K2's variant for a shape on 132 SMs: the whole K/V resident as one
+    160-key tile up to 160 keys, else K1's key loop; K1's row rule; blocks a
+    head that fill the SMs once, never more than the q-tiles."""
+    v = tfa.cross_variant(bh, sq, skv, d, sms=132)
+    assert (v["rows"], v["key_tile"], v["blocks_per_head"]) == (rows, key_tile, blocks)
+    assert v["resident"] == (skv <= tfa.CROSS_RESIDENT_KEYS)
+    assert v["blocks_per_head"] * bh <= max(132, bh)

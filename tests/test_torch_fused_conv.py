@@ -144,3 +144,26 @@ def test_fused_available_and_checks():
         tfc.conv3x3_fused(x, w, torch.zeros(1, 16), None, None)           # a without c
     with pytest.raises(ValueError):
         tfc.conv3x3_fused(x, w, None, None, None, residual=torch.zeros(1, 8, 4, 4))
+
+
+@pytest.mark.parametrize("shape,cout,box,tiles,split", [
+    ((2, 320, 64, 64), 320, (64, 2, 1), 128, 1),      # one wave of 132 SMs: no split
+    ((2, 640, 32, 32), 640, (32, 4, 1), 64, 2),
+    ((2, 1280, 16, 16), 1280, (16, 8, 1), 32, 4),
+    ((2, 1280, 8, 8), 1280, (8, 8, 2), 8, 15),        # a box of two images; 180 / 12 blocks
+    ((16, 1280, 16, 16), 1280, (16, 8, 1), 256, 1),
+    ((1, 64, 9, 13), 48, (13, 9, 1), 1, 2),           # 9 depth blocks, at least 4 a split
+    ((3, 16, 5, 7), 40, (7, 5, 3), 1, 2),
+    ((1, 16, 300, 200), 16, (128, 1, 1), 600, 1),     # W > 128: boxes along the row
+])
+def test_conv3x3_plan(shape, cout, box, tiles, split):
+    """The CUDA kernel's tiling and depth split, chosen in the wrapper: a box
+    of whole image rows (or of whole images) of at most 128 pixels, and a
+    split only where the tiles leave SMs idle, with no split empty."""
+    n, cin, h, w = shape
+    plan = tfc.conv3x3_plan(n, h, w, cin, cout, sms=132)
+    assert plan["box"] == box and plan["tiles"] == tiles and plan["split"] == split
+    assert box[0] * box[1] * box[2] <= tfc.BLOCK_M and max(box) <= 256  # TMA box limits
+    per = -(-plan["depth_blocks"] // split)
+    assert (split - 1) * per < plan["depth_blocks"]
+    assert plan["split"] == 1 or plan["tiles"] * 2 <= 132

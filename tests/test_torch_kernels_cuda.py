@@ -1,11 +1,14 @@
 """K1, K2, K3, K4 and K5 on the card against their plain PyTorch versions,
 bf16, at the serving path's and the labs' shapes and at every head-dim
-bucket of K1 and K3 with ragged S on narrow and wide grids, on unit-normal
+bucket of K1, K2 and K3 with ragged S on narrow and wide grids (K2 also at
+every key-tile variant: its K/V resident, or through K1's key loop), on unit-normal
 inputs, within ``kernel_tolerance``: max-abs a tenth of the output's RMS,
 at most 2e-2; the int8 conv and int8 matmul kernels against their plain versions,
 bit for bit, depths that are not a multiple of 16 included; and the bf16
 conv3x3 kernel (K6 fused, and conv only) against its plain version within
-relative L2 2e-3 and max-abs one bf16 ulp of the largest output.
+relative L2 2e-3 and max-abs one bf16 ulp of the largest output, at boxes
+that span images or leave rows unused, C and Cout not multiples of 64, and
+with and without the depth split.
 
 Needs a CUDA device and ``nvcc``; skips where there is none. Imports neither
 JAX nor pfd_tpu, so it also runs on a machine without them:
@@ -80,6 +83,33 @@ def test_cross_kernel_matches_plain(qshape, skv):
     g = torch.Generator(device="cuda").manual_seed(1)
     q = _randn(qshape, g)
     k, v = (_randn(qshape[:2] + (skv, qshape[3]), g) for _ in range(2))
+    before = fa.cross_attention.launches
+    got = fa.cross_attention(q, k, v)
+    want = fa.attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.cross_attention.launches == before + 1
+    assert (got.float() - want.float()).abs().max().item() <= fa.kernel_tolerance(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 40, 80, 160])
+@pytest.mark.parametrize("skv", [1, 148, 160, 257, 512, 1024])
+@pytest.mark.parametrize("sq", [1000, 4096, 5184])
+@pytest.mark.parametrize("bh", [(1, 2), (2, 8)])
+def test_cross_kernel_every_key_tile_and_row_variant(d, skv, sq, bh):
+    """K2 against ``attention_plain`` at every head-dim bucket, with the
+    K/V resident as one 160-key tile (Skv 1, 148, 160: 159, 12 and 0 keys
+    masked) and through K1's key loop (257, 512, 1024: ragged or not against
+    64- and 128-key tiles), Sq ragged against the 64- and 128-row blocks
+    (1000, 5184) or not (4096). On 132 SMs B*H = 2 runs one q-tile a block,
+    of 64 rows (128 at Sq = 5184); B*H = 16 runs 128-row blocks, 8 a head,
+    so at Sq = 4096 and 5184 each block walks 4-6 q-tiles through the two Q
+    slots; at Sq = 1000 and 5184 the last q-tile's second warpgroup has no
+    row inside Sq."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(d + skv + sq + bh[1])
+    q = _randn(bh + (sq, d), g)
+    k, v = (_randn(bh + (skv, d), g) for _ in range(2))
     before = fa.cross_attention.launches
     got = fa.cross_attention(q, k, v)
     want = fa.attention_plain(q, k, v)
@@ -172,11 +202,25 @@ def conv_close(got, want):
     return rel <= 2e-3 and (g - w).abs().max().item() <= ulp, (rel, ulp)
 
 
+# (shape, cout) -> what the kernel's plan does with it on 132 SMs (conv3x3_plan)
+CONV3X3_CASES = [
+    ((2, 320, 64, 64), 320),     # box 64x2, 128 tiles, no split
+    ((2, 1280, 16, 16), 1280),   # depth split 4
+    ((1, 64, 9, 13), 48),        # box 13x9 (117 of 128 rows), one tile, split 2
+    ((16, 320, 64, 64), 320),
+    ((16, 640, 32, 32), 640),
+    ((16, 1280, 16, 16), 1280),
+    ((2, 1280, 8, 8), 1280),     # box 8x8x2: one box spans two images; split 15
+    ((2, 640, 32, 32), 640),     # split 2
+    ((2, 40, 33, 47), 48),       # C = 40 (one 64-channel block, 24 zero-filled); W = 47
+    ((1, 8, 9, 13), 320),        # C = 8; 320 = two 160-column tiles
+    ((3, 16, 5, 7), 40),         # box 7x5x3: three whole images, last rows unused
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fused", [True, False])
-@pytest.mark.parametrize("xshape,cout", [((2, 320, 64, 64), 320), ((2, 1280, 16, 16), 1280),
-                                         ((1, 64, 9, 13), 48), ((16, 320, 64, 64), 320),
-                                         ((16, 640, 32, 32), 640), ((16, 1280, 16, 16), 1280)])
+@pytest.mark.parametrize("xshape,cout", CONV3X3_CASES)
 def test_conv3x3_bf16_kernel_matches_plain(xshape, cout, fused):
     _need_cuda()
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -208,6 +252,9 @@ def test_conv3x3_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError):
         fused_conv.conv3x3_bf16(torch.zeros(1, 12, 8, 8, device="cuda", dtype=torch.bfloat16),
                                 torch.zeros(16, 12, 3, 3, device="cuda", dtype=torch.bfloat16))
+    with pytest.raises(ValueError):  # Cout % 8 != 0: no 16-byte output rows for TMA
+        fused_conv.conv3x3_bf16(torch.zeros(1, 16, 8, 8, device="cuda", dtype=torch.bfloat16),
+                                torch.zeros(12, 16, 3, 3, device="cuda", dtype=torch.bfloat16))
 
 
 @pytest.mark.cuda

@@ -66,6 +66,16 @@ def test_attn_lab_on_cpu():
     assert fa.flash_attention_pipe.launches == before
 
 
+def test_attn_lab_cross_on_cpu():
+    before = fa.cross_attention.launches
+    rows = attn_lab.cross(1, 1, shapes=[(128, 20, 40, 2)], device="cpu", calls=2)
+    _cpu_rows(rows, 2)
+    assert [r["case"] for r in rows] == ["b1_cross_s128_kv20_d40_cross",
+                                         "b1_cross_s128_kv20_d40_sdpa_yardstick"]
+    assert all(r["host_us"] > 0 for r in rows)
+    assert fa.cross_attention.launches == before
+
+
 def test_int8_lab_sections_on_cpu():
     before = int8_matmul.matmul_int8.launches
     _cpu_rows(int8_lab.pallas_mm([(64, 32, 48)], 1, device="cpu"), 1)
