@@ -9,13 +9,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    versions; no CUDA device -> exit 2, no ``pfd_tpu_torch`` beside this
    script -> exit 3, and no result is printed;
 2. build: K1 (``csrc/flash_attention.cu``), K2 (``csrc/cross_attention.cu``),
-   K4/K5 (``csrc/flash_attention_int8.cu``), the int8 conv
-   (``csrc/conv_int8.cu``), K3 (``csrc/flash_attention_pipe.cu``), the bf16
-   conv3x3 of K6 and K7a's bf16 mode (``csrc/conv3x3_bf16.cu``) and K7b
-   (``csrc/matmul_int8.cu``) with nvcc for sm_90a, one process per source,
+   K4 (``csrc/flash_attention_pv8.cu``), K5 (``csrc/flash_attention_int8.cu``),
+   the int8 conv (``csrc/conv_int8.cu``), K3 (``csrc/flash_attention_pipe.cu``),
+   the bf16 conv3x3 of K6 and K7a's bf16 mode (``csrc/conv3x3_bf16.cu``) and
+   K7b (``csrc/matmul_int8.cu``) with nvcc for sm_90a, one process per source,
    all at once. The compiler's report is printed: registers and spills, any C7515
    (serialised wgmma) or C7517 (injected wait) line, and one count of C7519
-   (injected ``warpgroup.arrive``) per kernel instantiation;
+   (injected ``warpgroup.arrive``) per kernel instantiation; a spill, C7515
+   or C7517 in K4 or K7b fails the run;
 3. K1 against its plain PyTorch version in bf16 at the serving shapes, at
    D = 8, at a ragged S = 4097, and at ragged S on grids wide enough for
    128-row blocks (B*H = 16, S = 5184 and 1296: the last block's second
@@ -26,7 +27,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    Sq = 5184 (ragged against 128-row blocks, each block walking 5-6 q-tiles)
    and over 512 and 1,024 keys (K1's key loop), each row with the variant
    the launcher picks (rows a block, key tile, blocks a head) and the host's
-   cost of one call (1,000 calls without a sync);
+   cost of one call (1,000 calls without a sync); then the dispatchers'
+   routes: fp32 to plain attention with no launch, a head of 36 padded to 40
+   through K1;
 5. the slice at full published width (``pfd_seecoder``, BF16, random weights
    from a seed with the zero-initialised layers de-zeroed): request A
    (512x512 reference image, 50 DDIM steps, guidance 2.0, seed 42) must give
@@ -39,7 +42,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    bounds (max-abs / max|want| < 0.08, mean-abs / max|want| < 0.01; where the
    plain version itself is further off in max-abs, as at S = 4096, within
    its error plus ``kernel_tolerance``), at the serving shapes and at
-   ``pfd_tpu``'s own test shapes;
+   ``pfd_tpu``'s own test shapes; K4's rows time its kernel alone, its
+   wrapper (with the V8^T layout copy) and that copy;
 7. the int8 conv against its plain version, bit for bit, at every int8 conv
    geometry of a 512^2 request;
 8. the int8 serving mode at full width (``quantized=True``,
@@ -57,9 +61,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ResBlock shift folded into its affine and a residual) and its conv-only
    mode against their plain version within relative L2 2e-3 and max-abs one
    bf16 ulp of the largest output, each row with its plan (box, tiles, depth
-   split), at (2,1280,8,8) too, where one box spans two images; K7b
-   (``matmul_int8``) against its plain version and ``torch._int_mm``, bit
-   for bit; each with kernel, plain, library and bound times;
+   split), at (2,1280,8,8) too, where one box spans two images, and at the
+   model's output convs 320 -> 4 and 128 -> 3, whose Cout the wrapper pads;
+   K7b (``matmul_int8``) against its plain version and ``torch._int_mm``,
+   bit for bit, each row with its tile width and waves; each with kernel,
+   plain, library and bound times;
 10. the kernel labs through their entry points, a few iterations each:
    ``perf_audit`` (``AUDIT_SECTIONS=fused``), ``attn_lab`` and ``int8_lab``
    (``LAB_SECTIONS=pallas_mm,convs``), with the launch counts set to 0 just
@@ -165,6 +171,33 @@ def check_kernel(name, kernel, qshape, skv, mufu_rate, gen, variant=None):
     return row
 
 
+def check_dispatch(gen):
+    """The dispatchers' routes on the card: fp32 q, k, v go to plain
+    attention and launch nothing; a bf16 head of 36 is zero-padded to 40,
+    runs K1 once and matches unpadded plain attention within
+    ``kernel_tolerance``."""
+    import torch
+    from pfd_tpu_torch.ops import flash_attention as fa
+    from pfd_tpu_torch.ops import nn as tnn
+
+    q32 = torch.randn((2, 8, 1024, 40), generator=gen, device="cuda")
+    before = fa.flash_attention.launches
+    if not torch.equal(fa.self_attn_fn(q32, q32, q32), tnn.dot_product_attention(q32, q32, q32)):
+        raise AssertionError("dispatch: fp32 self-attention is not plain attention")
+    if fa.flash_attention.launches != before:
+        raise AssertionError("dispatch: fp32 self-attention launched K1")
+    q, k, v = (torch.randn((2, 8, 1024, 36), generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    got = fa.self_attn_fn(q, k, v)
+    want = fa.attention_plain(q, k, v)
+    err = (got.float() - want.float()).abs().max().item()
+    if fa.flash_attention.launches != before + 1 or not err <= fa.kernel_tolerance(want):
+        raise AssertionError(f"dispatch: D = 36 through K1: launches "
+                             f"{fa.flash_attention.launches - before}, max_abs_err {err}")
+    print(f"dispatch: fp32 -> plain attention (no launch); D=36 -> K1 on 40 columns, "
+          f"max_abs_err {err:.3e}", flush=True)
+
+
 def int8_attention_bound_ms(b, h, s, d, mufu_rate, full):
     """Least time for K4 (full=False) or K5: q, k (bf16, or int8 for K5) and
     the int8 v read once, the bf16 output written once, over the memory
@@ -222,7 +255,8 @@ def check_int8_attention(name, quant, shape, mufu_rate, gen):
         plain = lambda: fa.int8_plain(q8, k8, v8, c, out_dtype=q.dtype)  # noqa: E731
     else:
         qs = fa._qscale(q, scale)
-        kern = lambda: fa.flash_attention_pv8(q, k, v8, qscale=qs)  # noqa: E731
+        v8t = fa.v8_keys_major(v8)
+        kern = lambda: fa.launch_pv8(q, k, v8t, qs)  # noqa: E731
         plain = lambda: fa.pv8_plain(q, k, v8, qscale=qs)  # noqa: E731
     big = b * h * s * s > 2 ** 28
     row = {
@@ -238,6 +272,9 @@ def check_int8_attention(name, quant, shape, mufu_rate, gen):
             lambda: F.scaled_dot_product_attention(q, k, v), 20),
         "library_ms": None,
     }
+    if quant == "pv":
+        row["wrapper_ms"] = cuda_ms(lambda: fa.flash_attention_pv8(q, k, v8, qscale=qs), 20)
+        row["v8_layout_ms"] = cuda_ms(lambda: fa.v8_keys_major(v8), 20)
     row["bound_ms"], row["bound_by"] = int8_attention_bound_ms(b, h, s, d, mufu_rate,
                                                                quant is True)
     print(f"{name} {json.dumps(row)}  bound_us={row['bound_ms'] * 1e3:.1f}", flush=True)
@@ -344,19 +381,20 @@ def check_pipe(shape, mufu_rate, gen):
     return row
 
 
-def conv3x3_bound_ms(n, c, h, w, k, fused):
+def conv3x3_bound_ms(n, c, h, w, k, fused, residual=True):
     """Least time for the bf16 conv3x3: x, the weight (bf16), the output and,
-    fused, the residual (bf16) and the fp32 affine and bias, each read or
-    written once, over the memory rate; 2*M*N*K FLOP over the bf16 rate."""
+    fused, the residual (bf16, where there is one) and the fp32 affine and
+    bias, each read or written once, over the memory rate; 2*M*N*K FLOP
+    over the bf16 rate."""
     nbytes = 2 * (n * c * h * w + 9 * k * c + n * k * h * w)
     if fused:
-        nbytes += 2 * n * k * h * w + 4 * (2 * n * c + k)
+        nbytes += 2 * n * k * h * w * residual + 4 * (2 * n * c + k)
     t_bytes = nbytes / PEAK_BYTES
     t_ops = 2 * n * h * w * k * 9 * c / PEAK_BF16_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_conv3x3(xshape, fused, gen):
+def check_conv3x3(xshape, fused, gen, cout=None):
     """The bf16 conv3x3 kernel against its plain version: fused (K6, the
     GroupNorm affine with a ResBlock shift folded in, bias, residual) or
     conv only (K7a's bf16 mode). Relative L2 at most 2e-3 and max-abs at
@@ -370,21 +408,22 @@ def check_conv3x3(xshape, fused, gen):
     from pfd_tpu_torch.ops import nn as tnn
 
     n, c, h, w = xshape
+    cout = cout or c
     cl = torch.channels_last
     x = torch.randn(xshape, generator=gen, device="cuda").bfloat16().contiguous(memory_format=cl)
     norm = torch.nn.GroupNorm(32, c, device="cuda").requires_grad_(False)
-    conv = torch.nn.Conv2d(c, c, 3, padding=1, device="cuda").requires_grad_(False)
+    conv = torch.nn.Conv2d(c, cout, 3, padding=1, device="cuda").requires_grad_(False)
     norm.weight.copy_(1 + 0.2 * torch.randn(c, generator=gen, device="cuda"))
     norm.bias.copy_(0.2 * torch.randn(c, generator=gen, device="cuda"))
     conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen, device="cuda")
                       / (9 * c) ** 0.5)
-    conv.bias.copy_(0.1 * torch.randn(c, generator=gen, device="cuda"))
+    conv.bias.copy_(0.1 * torch.randn(cout, generator=gen, device="cuda"))
     norm, conv = norm.bfloat16(), conv.bfloat16().to(memory_format=cl)
     if fused:
         shift = torch.randn((n, c), generator=gen, device="cuda").bfloat16()
         a, cc = tnn.group_norm_affine(x, norm.weight, norm.bias, eps=1e-5, shift=shift)
         args = (x, conv.weight, a, cc, conv.bias)
-        kw = {"residual": x}
+        kw = {"residual": x} if cout == c else {}
     else:
         args, kw = (x, conv.weight, None, None, None), {}
     got = fused_conv.conv3x3_fused(*args, **kw)
@@ -394,8 +433,8 @@ def check_conv3x3(xshape, fused, gen):
     rel = ((g - wf).norm() / wf.norm()).item()
     err = (g - wf).abs().max().item()
     ulp = 2.0 ** (torch.floor(torch.log2(wf.abs().max())).item() - 7)
-    label = f"{'fused' if fused else 'conv'} {list(xshape)}->{c}"
-    plan = fused_conv.conv3x3_plan(n, h, w, c, c, torch.cuda.get_device_properties(0)
+    label = f"{'fused' if fused else 'conv'} {list(xshape)}->{cout}"
+    plan = fused_conv.conv3x3_plan(n, h, w, c, cout, torch.cuda.get_device_properties(0)
                                    .multi_processor_count)
     if not (rel <= 2e-3 and err <= ulp):
         raise AssertionError(f"conv3x3_bf16 {label}: rel_l2 {rel} (limit 2e-3), max_abs "
@@ -403,7 +442,8 @@ def check_conv3x3(xshape, fused, gen):
     if fused:
         def yardstick():
             hh = tnn.group_norm(x + shift[:, :, None, None], norm, eps=1e-5)
-            return tnn.conv2d(tnn.silu(hh), conv, padding=1) + x
+            y = tnn.conv2d(tnn.silu(hh), conv, padding=1)
+            return y + x if cout == c else y
         ykey = "eager_gn_silu_conv_add_ms"
     else:
         def yardstick():
@@ -414,7 +454,8 @@ def check_conv3x3(xshape, fused, gen):
            "plain_ms": cuda_ms(lambda: fused_conv.conv3x3_fused_plain(*args, **kw), 5),
            ykey: cuda_ms(yardstick, 20)}
     row.setdefault("library_ms", None)
-    row["bound_ms"], row["bound_by"] = conv3x3_bound_ms(n, c, h, w, c, fused)
+    row["bound_ms"], row["bound_by"] = conv3x3_bound_ms(n, c, h, w, cout, fused,
+                                                        residual=cout == c)
     print(f"conv3x3_bf16 {json.dumps(row)}  bound_us={row['bound_ms'] * 1e3:.1f}",
           flush=True)
     return row
@@ -439,7 +480,9 @@ def check_matmul(m, k, n, gen):
                              f"{(got != lib).sum().item()} from torch._int_mm)")
     t_bytes = (m * k + n * k + 4 * m * n) / PEAK_BYTES
     t_ops = 2 * m * n * k / PEAK_INT8_OPS
-    row = {"shape": f"{m}x{k}x{n}", "max_abs_err": 0.0,
+    plan = int8_matmul.matmul_int8_plan(m, n, torch.cuda.get_device_properties(0)
+                                        .multi_processor_count)
+    row = {"shape": f"{m}x{k}x{n}", "plan": plan, "max_abs_err": 0.0,
            "kernel_ms": cuda_ms(lambda: int8_matmul.matmul_int8(x8, w8), 20),
            "plain_ms": cuda_ms(lambda: int8_matmul.matmul_int8_plain(x8, w8), 3),
            "library_ms": cuda_ms(lambda: torch._int_mm(x8, w8.t()), 20),
@@ -631,6 +674,12 @@ def main() -> int:
                                                  entry["ptxas"]))
         for fn, n in sorted(arrives.items()):
             print(f"  ptxas {name}: C7519 (warpgroup.arrive injected) x{n} in {fn}", flush=True)
+        if name in ("flash_attention_pv8", "matmul_int8"):  # this slice's kernels
+            spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", entry["ptxas"])]
+            print(f"  ptxas {name}: {len(spills)} instantiations, spill stores {spills}",
+                  flush=True)
+            if any(spills) or "C7515" in entry["ptxas"] or "C7517" in entry["ptxas"]:
+                raise AssertionError(f"build {name}: ptxas reports spills, C7515 or C7517")
 
     # ---- 3./4. kernels against their plain versions -------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -644,6 +693,8 @@ def main() -> int:
                for s, skv in [((2, 8, 4096, 40), 148), ((2, 8, 1024, 80), 148),
                               ((1, 2, 1024, 160), 512), ((2, 8, 5184, 40), 148),
                               ((2, 8, 4096, 40), 1024)]]
+
+    check_dispatch(gen)
 
     # ---- 5. the slice at full width -----------------------------------------
     import numpy as np
@@ -793,7 +844,9 @@ def main() -> int:
     lab_fused = [(16, 320, 64, 64), (16, 640, 32, 32), (16, 1280, 16, 16)]
     lab_conv = [(16, 320, 64, 64), (16, 1280, 16, 16)]
     k6_rows = ([check_conv3x3(s, False, gen) for s in fused_shapes + lab_conv]
-               + [check_conv3x3(s, True, gen) for s in fused_shapes + lab_fused])
+               + [check_conv3x3(s, True, gen) for s in fused_shapes + lab_fused]
+               + [check_conv3x3((2, 320, 64, 64), True, gen, cout=4),       # UNet out
+                  check_conv3x3((1, 128, 512, 512), True, gen, cout=3)])    # VAE conv_out
     k7b_rows = [check_matmul(m, k, n, gen) for m, k, n in
                 [(8192, 320, 2560), (8192, 1280, 320), (4096, 1280, 1280)]]
 
@@ -815,7 +868,7 @@ def main() -> int:
                 "pfd_tpu/ops/flash_attention.py:277", k1_rows, launches["flash_attention"]),
         summary("cross_attention", "pfd_tpu_torch/csrc/cross_attention.cu",
                 "pfd_tpu/ops/flash_attention.py:465", k2_rows, launches["cross_attention"]),
-        summary("flash_attention_pv8", "pfd_tpu_torch/csrc/flash_attention_int8.cu",
+        summary("flash_attention_pv8", "pfd_tpu_torch/csrc/flash_attention_pv8.cu",
                 "pfd_tpu/ops/flash_attention.py:359", k4_rows,
                 launches_d["flash_attention_pv8"]),
         summary("flash_attention_int8", "pfd_tpu_torch/csrc/flash_attention_int8.cu",

@@ -1,23 +1,18 @@
-// K4 and K5: flash self-attention with an int8 P.V product (K4) or with both
-// products in int8 (K5), one template with a mode flag.
+// K5: flash self-attention with both products in int8 (the int8 serving
+// mode's "full" attention). K4, the int8 P.V with a bf16 QK^T, is
+// flash_attention_pv8.cu on the Hopper design of flash_sm90.cuh.
 //
-// K4 replaces pfd_tpu/ops/flash_attention.py flash_attention(quant="pv") ->
-// _flash_kernel_pv8 (set-up :347-357, pallas_call :359, body :167-215);
-// K5 replaces flash_attention(quant=True) -> _flash_kernel_int8 (:333-346,
-// :359, body :218-267). One
-// block of 4 warps owns 64 query rows of one (batch*head) and loops over
-// 64-key tiles; the TPU's sequential key grid axis becomes that loop. Per key tile:
+// K5 replaces pfd_tpu/ops/flash_attention.py flash_attention(quant=True) ->
+// _flash_kernel_int8 (:333-346, :359, body :218-267). One block of 4 warps
+// owns 64 query rows of one (batch*head) and loops over 64-key tiles; the
+// TPU's sequential key grid axis becomes that loop. Per key tile:
 //
-//   K4: S = Q K^T in bf16 WMMA tiles (fp32 accumulate) on a q pre-scaled by
-//       scale*log2(e) rounded to bf16; m_new = max(m, rowmax S);
-//       p8 = int8(exp2(S - (m_new - log2 127)) + 0.5), so p8 in [0, 127];
-//       alpha = exp2(m - m_new).
-//   K5: S = Q8 K8^T in int8 WMMA tiles (int32 accumulate); m is int32 and
-//       starts at -2^30; with c = sq*sk*scale*log2(e) read from device memory,
-//       alpha = exp2(float(m - m_new) * c) and
-//       p8 = int8(exp2(float(S - m_new) * c + log2 127) + 0.5).
-//   both: PV = p8 V8 in int8 WMMA tiles (int32, exact);
-//         acc = acc * alpha + float(PV); l = l * alpha + float(sum p8).
+//   S = Q8 K8^T in int8 WMMA tiles (int32 accumulate); m is int32 and
+//   starts at -2^30; with c = sq*sk*scale*log2(e) read from device memory,
+//   alpha = exp2(float(m - m_new) * c) and
+//   p8 = int8(exp2(float(S - m_new) * c + log2 127) + 0.5);
+//   PV = p8 V8 in int8 WMMA tiles (int32, exact);
+//   acc = acc * alpha + float(PV); l = l * alpha + float(sum p8).
 //
 // l sums the rounded p8, as the TPU kernel's ones-column does (the column
 // itself, a TPU lane trick, is dropped), so the 127 scale and the rounding
@@ -27,14 +22,13 @@
 // contraction), as the plain PyTorch version computes them.
 //
 // What bounds it on an H100: S^2 * D operations per product and S^2 exp2s for
-// S * D bytes, as for K1: the tensor cores (bf16 QK^T at 989 TFLOP/s, int8 PV at
-// 1979 TOP/s) and the MUFU's exp2 rate, which is the larger bound at the
-// UNet's head dims. The design keeps the logits out of device memory, runs
-// the products on tensor-core tiles, and spends one ex2.approx per logit.
-// It uses WMMA through shared memory, not wgmma/TMA (K1's Hopper design,
-// csrc/flash_sm90.cuh, is not yet carried over); the int32 PV
-// tile goes through shared memory too, where the per-row alpha is applied.
-// Making it fast is later work.
+// S * D bytes: the int8 tensor cores (1979 TOP/s) and the MUFU's exp2 rate,
+// which is the larger bound at the UNet's head dims. The design keeps the
+// logits out of device memory, runs the products on tensor-core tiles, and
+// spends one ex2.approx per logit. It uses WMMA through shared memory, not
+// wgmma/TMA (K4's s8 wgmma P.V on K1's kernel is the start for that); the
+// int32 PV tile goes through shared memory too, where the per-row alpha is
+// applied. Making it fast is later work.
 //
 // Int8 tiles are stored in 16-byte column chunks ([depth/16][rows][16]), so
 // that every int8 WMMA fragment starts 256-bit aligned with a 16-byte leading
@@ -53,14 +47,13 @@ constexpr int NW = 4, BQ = 16 * NW, BK = 64, NT = 32 * NW;
 constexpr float kLog2_127 = 6.988684686772166f;
 constexpr int kIntNeg = -(1 << 30);
 
-template <int DP, bool FULL>
+template <int DP>
 struct Layout {
   static_assert(DP % 16 == 0, "int8 WMMA tiles are 16 deep");
-  static constexpr int LDQ = DP + 8;  // bf16 rows of Q, K (K4)
-  static constexpr int LDS = BK + 4;  // fp32 (K4) or int32 (K5) logits
+  static constexpr int LDS = BK + 4;  // int32 logits
   static constexpr int LDO = DP + 4;  // int32 PV tile, fp32 accumulator
-  static constexpr size_t q_bytes = FULL ? size_t(DP) * BQ : size_t(BQ) * LDQ * 2;
-  static constexpr size_t k_bytes = FULL ? size_t(DP) * BK : size_t(BK) * LDQ * 2;
+  static constexpr size_t q_bytes = size_t(DP) * BQ;
+  static constexpr size_t k_bytes = size_t(DP) * BK;
   static constexpr size_t v_bytes = size_t(DP) * BK;
   static constexpr size_t s_bytes = size_t(BQ) * LDS * 4;
   static constexpr size_t p_bytes = size_t(BQ) * BK;
@@ -84,24 +77,24 @@ __device__ __forceinline__ void load_rows_i8(int8_t* dst, const int8_t* src, int
   }
 }
 
-template <int DP, bool FULL>
+template <int DP>
 __global__ void __launch_bounds__(NT)
-flash_int8_kernel(const void* __restrict__ q, const void* __restrict__ k,
+flash_int8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
                   const int8_t* __restrict__ v8, bf16* __restrict__ o,
-                  const float* __restrict__ cptr, int S, int D, float qscale) {
-  using L = Layout<DP, FULL>;
-  constexpr int LDQ = L::LDQ, LDS = L::LDS, LDO = L::LDO;
+                  const float* __restrict__ cptr, int S, int D) {
+  using L = Layout<DP>;
+  constexpr int LDS = L::LDS, LDO = L::LDO;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* ptr = smem;
-  unsigned char* sQ = ptr;                           ptr += L::q_bytes;
-  unsigned char* sK = ptr;                           ptr += L::k_bytes;
+  int8_t* sQ = reinterpret_cast<int8_t*>(ptr);       ptr += L::q_bytes;
+  int8_t* sK = reinterpret_cast<int8_t*>(ptr);       ptr += L::k_bytes;
   int8_t* sV = reinterpret_cast<int8_t*>(ptr);       ptr += L::v_bytes;
-  unsigned char* sS = ptr;                           ptr += L::s_bytes;
+  int* sS = reinterpret_cast<int*>(ptr);             ptr += L::s_bytes;
   int8_t* sP = reinterpret_cast<int8_t*>(ptr);       ptr += L::p_bytes;
   int* sPV = reinterpret_cast<int*>(ptr);            ptr += L::o_bytes;
   float* sO = reinterpret_cast<float*>(ptr);         ptr += L::o_bytes;
-  float* sM = reinterpret_cast<float*>(ptr);         // K5 keeps int32 here
-  float* sL = sM + BQ;
+  int* sM = reinterpret_cast<int*>(ptr);
+  float* sL = reinterpret_cast<float*>(sM + BQ);
   float* sA = sL + BQ;
 
   const size_t off = (size_t)blockIdx.y * S * D;
@@ -109,70 +102,37 @@ flash_int8_kernel(const void* __restrict__ q, const void* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r0 = warp * 16;
   const int row = r0 + (lane >> 1), half = lane & 1;
-  const float c_scale = FULL ? *cptr : 0.f;
+  const float c_scale = *cptr;
 
-  if (FULL)
-    load_rows_i8<DP, BQ>(reinterpret_cast<int8_t*>(sQ),
-                         static_cast<const int8_t*>(q) + off, q0, S, D);
-  else
-    pfd::load_rows<DP, LDQ, BQ, NT>(reinterpret_cast<bf16*>(sQ),
-                                    static_cast<const bf16*>(q) + off, q0, S, D,
-                                    qscale, true);
+  load_rows_i8<DP, BQ>(sQ, q8 + off, q0, S, D);
   for (int i = threadIdx.x; i < BQ * LDO; i += NT) sO[i] = 0.f;
   for (int i = threadIdx.x; i < BQ; i += NT) {
-    if (FULL)
-      reinterpret_cast<int*>(sM)[i] = kIntNeg;
-    else
-      sM[i] = pfd::kNegInf;
+    sM[i] = kIntNeg;
     sL[i] = 0.f;
   }
 
   for (int kv0 = 0; kv0 < S; kv0 += BK) {
     __syncthreads();  // the previous tile is consumed (first pass: Q, O staged)
-    if (FULL)
-      load_rows_i8<DP, BK>(reinterpret_cast<int8_t*>(sK),
-                           static_cast<const int8_t*>(k) + off, kv0, S, D);
-    else
-      pfd::load_rows<DP, LDQ, BK, NT>(reinterpret_cast<bf16*>(sK),
-                                      static_cast<const bf16*>(k) + off, kv0, S, D,
-                                      1.f, false);
+    load_rows_i8<DP, BK>(sK, k8 + off, kv0, S, D);
     load_rows_i8<DP, BK>(sV, v8 + off, kv0, S, D);
     __syncthreads();
 
     // 1. S = Q K^T for the warp's 16 rows
 #pragma unroll 1
     for (int n = 0; n < BK / 16; ++n) {
-      if (FULL) {
-        const signed char* q8 = reinterpret_cast<const signed char*>(sQ);
-        const signed char* k8 = reinterpret_cast<const signed char*>(sK);
-        wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc;
-        wmma::fill_fragment(acc, 0);
+      const signed char* qs = reinterpret_cast<const signed char*>(sQ);
+      const signed char* ks = reinterpret_cast<const signed char*>(sK);
+      wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc;
+      wmma::fill_fragment(acc, 0);
 #pragma unroll
-        for (int kk = 0; kk < DP / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> b;
-          wmma::load_matrix_sync(a, q8 + kk * BQ * 16 + r0 * 16, 16);
-          wmma::load_matrix_sync(b, k8 + kk * BK * 16 + n * 16 * 16, 16);
-          wmma::mma_sync(acc, a, b, acc);
-        }
-        wmma::store_matrix_sync(reinterpret_cast<int*>(sS) + r0 * LDS + n * 16, acc, LDS,
-                                wmma::mem_row_major);
-      } else {
-        const bf16* qb = reinterpret_cast<const bf16*>(sQ);
-        const bf16* kb = reinterpret_cast<const bf16*>(sK);
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < DP / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-          wmma::load_matrix_sync(a, qb + r0 * LDQ + kk * 16, LDQ);
-          wmma::load_matrix_sync(b, kb + n * 16 * LDQ + kk * 16, LDQ);
-          wmma::mma_sync(acc, a, b, acc);
-        }
-        wmma::store_matrix_sync(reinterpret_cast<float*>(sS) + r0 * LDS + n * 16, acc,
-                                LDS, wmma::mem_row_major);
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> b;
+        wmma::load_matrix_sync(a, qs + kk * BQ * 16 + r0 * 16, 16);
+        wmma::load_matrix_sync(b, ks + kk * BK * 16 + n * 16 * 16, 16);
+        wmma::mma_sync(acc, a, b, acc);
       }
+      wmma::store_matrix_sync(sS + r0 * LDS + n * 16, acc, LDS, wmma::mem_row_major);
     }
     __syncwarp();
 
@@ -180,48 +140,26 @@ flash_int8_kernel(const void* __restrict__ q, const void* __restrict__ k,
     {
       const int c0 = half * (BK / 2), c1 = c0 + BK / 2;
       const int nvalid = S - kv0;
+      const int* srow = sS + row * LDS;
+      int mx = kIntNeg;
+      for (int c = c0; c < c1; ++c)
+        if (c < nvalid) mx = max(mx, srow[c]);
+      mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      const int m_old = sM[row];
+      const int m_new = max(m_old, mx);
       int psum = 0;
-      float alpha;
-      if (FULL) {
-        const int* srow = reinterpret_cast<const int*>(sS) + row * LDS;
-        int* mrow = reinterpret_cast<int*>(sM) + row;
-        int mx = kIntNeg;
-        for (int c = c0; c < c1; ++c)
-          if (c < nvalid) mx = max(mx, srow[c]);
-        mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        const int m_old = *mrow;
-        const int m_new = max(m_old, mx);
-        for (int c = c0; c < c1; ++c) {
-          int p8 = 0;
-          if (c < nvalid) {
-            const float pf = __fadd_rn(__fmul_rn((float)(srow[c] - m_new), c_scale), kLog2_127);
-            p8 = (int)(pfd::fast_exp2(pf) + 0.5f);
-          }
-          sP[(c / 16) * BQ * 16 + row * 16 + (c % 16)] = (int8_t)p8;
-          psum += p8;
+      for (int c = c0; c < c1; ++c) {
+        int p8 = 0;
+        if (c < nvalid) {
+          const float pf = __fadd_rn(__fmul_rn((float)(srow[c] - m_new), c_scale), kLog2_127);
+          p8 = (int)(pfd::fast_exp2(pf) + 0.5f);
         }
-        alpha = pfd::fast_exp2(__fmul_rn((float)(m_old - m_new), c_scale));
-        __syncwarp();  // both lanes of the row have read m_old
-        if (half == 0) *mrow = m_new;
-      } else {
-        const float* srow = reinterpret_cast<const float*>(sS) + row * LDS;
-        float mx = pfd::kNegInf;
-        for (int c = c0; c < c1; ++c)
-          if (c < nvalid) mx = fmaxf(mx, srow[c]);
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        const float m_old = sM[row];
-        const float m_new = fmaxf(m_old, mx);
-        const float shift = m_new - kLog2_127;
-        for (int c = c0; c < c1; ++c) {
-          int p8 = 0;
-          if (c < nvalid) p8 = (int)(pfd::fast_exp2(srow[c] - shift) + 0.5f);
-          sP[(c / 16) * BQ * 16 + row * 16 + (c % 16)] = (int8_t)p8;
-          psum += p8;
-        }
-        alpha = pfd::fast_exp2(m_old - m_new);
-        __syncwarp();  // both lanes of the row have read m_old
-        if (half == 0) sM[row] = m_new;
+        sP[(c / 16) * BQ * 16 + row * 16 + (c % 16)] = (int8_t)p8;
+        psum += p8;
       }
+      const float alpha = pfd::fast_exp2(__fmul_rn((float)(m_old - m_new), c_scale));
+      __syncwarp();  // both lanes of the row have read m_old
+      if (half == 0) sM[row] = m_new;
       psum += __shfl_xor_sync(0xffffffffu, psum, 1);
       if (half == 0) {
         sL[row] = __fadd_rn(__fmul_rn(sL[row], alpha), (float)psum);
@@ -264,44 +202,35 @@ flash_int8_kernel(const void* __restrict__ q, const void* __restrict__ k,
   }
 }
 
-template <int DP, bool FULL>
-cudaError_t launch(const void* q, const void* k, const void* v8, void* o, const void* c,
-                   int BH, int S, int D, float qscale, cudaStream_t stream) {
+template <int DP>
+cudaError_t launch(const void* q8, const void* k8, const void* v8, void* o, const void* c,
+                   int BH, int S, int D, cudaStream_t stream) {
   static unsigned long long smem_set = 0;
-  const size_t bytes = Layout<DP, FULL>::smem;
-  cudaError_t err = pfd::opt_in_smem(flash_int8_kernel<DP, FULL>, bytes, smem_set);
+  const size_t bytes = Layout<DP>::smem;
+  cudaError_t err = pfd::opt_in_smem(flash_int8_kernel<DP>, bytes, smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid((S + BQ - 1) / BQ, BH);
-  flash_int8_kernel<DP, FULL><<<grid, NT, bytes, stream>>>(
-      q, k, static_cast<const int8_t*>(v8), static_cast<bf16*>(o),
-      static_cast<const float*>(c), S, D, qscale);
+  flash_int8_kernel<DP><<<grid, NT, bytes, stream>>>(
+      static_cast<const int8_t*>(q8), static_cast<const int8_t*>(k8),
+      static_cast<const int8_t*>(v8), static_cast<bf16*>(o), static_cast<const float*>(c), S,
+      D);
   return cudaGetLastError();
-}
-
-template <bool FULL>
-cudaError_t dispatch(const void* q, const void* k, const void* v8, void* o, const void* c,
-                     int BH, int S, int D, float qscale, cudaStream_t st) {
-  switch (pfd::head_bucket(D)) {
-    case 48: return launch<48, FULL>(q, k, v8, o, c, BH, S, D, qscale, st);
-    case 80: return launch<80, FULL>(q, k, v8, o, c, BH, S, D, qscale, st);
-    case 160: return launch<160, FULL>(q, k, v8, o, c, BH, S, D, qscale, st);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
-// All tensors contiguous (BH, S, D), 16-byte aligned, D % 8 == 0, D <= 160.
-// full == 0 (K4): q, k bf16, qscale = scale*log2(e) applied to q in fp32 and
-// rounded to bf16 as it is staged; c unused. full != 0 (K5): q, k int8 and c
-// points to the fp32 scalar sq*sk*scale*log2(e) in device memory. v8 int8,
-// o bf16 (acc / l, before the V scale). Returns a cudaError_t.
-extern "C" int pfd_flash_attention_int8(const void* q, const void* k, const void* v8,
+// q8, k8, v8: contiguous (BH, S, D) int8; o: (BH, S, D) bf16 (acc / l, before
+// the V scale); c points to the fp32 scalar sq*sk*scale*log2(e) in device
+// memory. All 16-byte aligned, D % 8 == 0, D <= 160. Returns a cudaError_t.
+extern "C" int pfd_flash_attention_int8(const void* q8, const void* k8, const void* v8,
                                         void* o, const void* c, int BH, int S, int D,
-                                        float qscale, int full, void* stream) {
-  if (BH <= 0 || S <= 0 || BH > 65535 || (full && c == nullptr))
-    return (int)cudaErrorInvalidValue;
+                                        void* stream) {
+  if (BH <= 0 || S <= 0 || BH > 65535 || c == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(full ? dispatch<true>(q, k, v8, o, c, BH, S, D, qscale, st)
-                    : dispatch<false>(q, k, v8, o, c, BH, S, D, qscale, st));
+  switch (pfd::head_bucket(D)) {
+    case 48: return (int)launch<48>(q8, k8, v8, o, c, BH, S, D, st);
+    case 80: return (int)launch<80>(q8, k8, v8, o, c, BH, S, D, st);
+    case 160: return (int)launch<160>(q8, k8, v8, o, c, BH, S, D, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

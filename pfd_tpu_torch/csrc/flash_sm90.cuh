@@ -5,7 +5,12 @@
 // - K3, the same with pipelined=True -> _flash_kernel_pipe (:108-160): K1's
 //   function on the pipelined schedule (flash_attention_pipe.cu, PIPE);
 // - K2, cross_attention -> _cross_kernel (:465, call :491): long q over a
-//   short K/V (cross_attention.cu, RESIDENT for K/V up to 160 keys).
+//   short K/V (cross_attention.cu, RESIDENT for K/V up to 160 keys);
+// - K4, flash_attention(quant="pv") -> _flash_kernel_pv8 (:167-215, call
+//   :359): K1's QK^T and softmax with p rounded to int8 and an int8 P.V
+//   (flash_attention_pv8.cu, PV8).
+// It also holds the s8 wgmma wrappers that K4 and the int8 matmul
+// (matmul_int8.cu) share.
 //
 // Function (as ops/flash_attention.py attention_plain): q pre-scaled by
 // qscale = scale * log2(e) and rounded to bf16, fp32 logits, m and l, the
@@ -57,6 +62,22 @@
 // swizzled layout) and stores it with a TMA store, which clips rows past Sq
 // and columns >= D; the slot is released once the store has read it.
 //
+// PV8 (K4) keeps K1's loop and tiles and changes the P.V (pv8_fold): p8 =
+// int(exp2(s - (m_new - log2 127)) + 0.5) in [0, 127] packed four to a
+// register as the A operand of an s8 wgmma m64n64k32 (RS form), against V8^T
+// tiles: the wrapper stores V8 as (D, keys), K-major as 8-bit wgmma operands
+// must be, with the keys of each 32-key group permuted so that a thread's
+// own logits, in the order the accumulator layout gives them, are its A
+// fragment (ops/flash_attention.py PV8_KEY_ORDER). That was taken over
+// byte permutes and quad shuffles of P (several instructions a logit on top
+// of the exp2) and over P through shared memory (a store, a fence and a
+// barrier a tile): the permutation is free at run time, since the wrapper
+// writes V8^T anyway. O is folded in one 64-column s32 chunk at a time (acc
+// = acc * alpha + float(PV), each rounded, as the plain version does), so
+// one chunk of 32 registers is live beside O; l sums the integer p8 of the
+// row. Tiles of 128 keys load V8^T in 128-byte rows (128-byte swizzle),
+// tiles of 64 keys (D > 128) in 64-byte rows (64-byte swizzle).
+//
 // PIPE keeps pfd_tpu's pipelined schedule (flash_attention.py:108-160): nk + 1
 // steps; step j starts the logits of key tile min(j, nk - 1) into register
 // slot j % 2 as an async wgmma, runs the softmax of slot (j + 1) % 2 and the
@@ -80,6 +101,7 @@ namespace sm90 {
 constexpr float kNegInf = -1e30f;  // masked keys; K1's initial m
 constexpr float kSEmpty = -1e30f;  // pfd_tpu S_EMPTY (flash_attention.py:104)
 constexpr float kMEmpty = -1e29f;  // pfd_tpu M_EMPTY (flash_attention.py:105)
+constexpr float kLog2_127 = 6.988684686772166f;  // K4: p8 = 127 exp2(s - m)
 
 // ---- PTX helpers ------------------------------------------------------------
 
@@ -201,6 +223,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // Shared-memory matrix descriptor, 128-byte swizzle: 8-row groups 1024 bytes
 // apart (SBO); `lbo` is the byte distance between 64-column atoms of an
 // MN-major operand (unused for K-major).
@@ -208,6 +236,13 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
          (1ull << 62);
+}
+
+// The same for 64-byte rows (64-byte swizzle: 8-row groups 512 bytes apart),
+// K-major
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -285,6 +320,47 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
 }
 
+// ---- s8 wgmma (K4's P.V, the int8 matmul) -----------------------------------------
+// 8-bit operands must be K-major (PTX gives the transpose bits to 16-bit
+// types only); the depth of one wgmma is 32 bytes. D is s32, exact.
+
+// D (64 x N, s32, R = N / 2 registers) (+)= A (64 x 32) . B (N x 32)^T, s8,
+// both K-major in shared memory (descriptors a, b); scale_d == 0 overwrites
+// D (the first k-step of a tile) instead of adding to it.
+#define PFD_WGMMA_S8_SS(N, R, RA, RB, RS)                                           \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #RS ", 0;\n"                    \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k32.s32.s8.s8 " PFD_REGS##R \
+               ", %" #RA ", %" #RB ", p;\n}\n"                                      \
+               : PFD_ACC##R("+r")                                                   \
+               : "l"(a), "l"(b), "r"(scale_d))
+
+template <int N>
+__device__ __forceinline__ void wgmma_s8_ss(int (&d)[N / 2], uint64_t a, uint64_t b,
+                                            int scale_d) {
+  if constexpr (N == 128) PFD_WGMMA_S8_SS(128, 64, 64, 65, 66);
+  else PFD_WGMMA_S8_SS(160, 80, 80, 81, 82);
+}
+
+// D (64 x 64, s32) (+)= A (64 x 32, s8 in registers: four to a register,
+// a[0] rows r0 and a[1] rows r0 + 8 at depth 4 (t % 4) .. + 3, a[2] and a[3]
+// the same 16 deeper) . B (64 x 32)^T, B K-major in shared memory
+#define PFD_WGMMA_S8_RS_N64(C, SCALE_D)                                     \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                \
+               "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " PFD_REGS32 \
+               ", {%32, %33, %34, %35}, %36, p;\n}\n"                       \
+               : PFD_ACC32(C)                                               \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(SCALE_D))
+
+__device__ __forceinline__ void wgmma_s8_rs_n64(int (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t b) {
+  PFD_WGMMA_S8_RS_N64("+r", 1);
+}
+
+__device__ __forceinline__ void wgmma_s8_rs_n64_first(int (&d)[32], const uint32_t (&a)[4],
+                                                      uint64_t b) {
+  PFD_WGMMA_S8_RS_N64("=r", 0);
+}
+
 // ---- tiles -------------------------------------------------------------------
 
 // NB 64-column boxes of the head; PIPE: K3's tiles. Key tiles (BK) are chosen
@@ -293,9 +369,12 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
 // one key tile of 160 rows holds the whole K/V of the head, loaded once per
 // block into a single stage. QSLOTS: Q tiles in flight (2 where a block
 // walks several q-tiles, so the next one loads under this one's math).
-template <int NB, bool PIPE, bool RESIDENT = false, int QSLOTS = 1>
+// PV8 (K4): K1's tiles; a V stage is a V8^T tile of NB * 64 rows (head
+// columns; rows past D zero-filled) by BK bytes (keys).
+template <int NB, bool PIPE, bool RESIDENT = false, int QSLOTS = 1, bool PV8 = false>
 struct Cfg {
   static_assert(!(RESIDENT && (PIPE || NB > 3)), "a resident K/V serves K2 (D <= 192)");
+  static_assert(!(PV8 && (PIPE || RESIDENT || NB > 3)), "K4 runs K1's loop at D <= 192");
   static constexpr bool SPLIT = NB >= 4;
   static constexpr int BK =
       RESIDENT ? 160
@@ -306,11 +385,13 @@ struct Cfg {
   static constexpr uint32_t QBOX = 64 * 128;      // 64 rows of one 128-byte box
   static constexpr uint32_t KBOX = BK * 128;
   static constexpr uint32_t KV_STAGE = NB * KBOX;
+  static constexpr uint32_t V_STAGE = PV8 ? NB * 64 * BK : KV_STAGE;
   __host__ __device__ static constexpr uint32_t q_bytes(int nwg) {
     return (SPLIT ? 1 : nwg) * NB * QBOX;
   }
   __host__ __device__ static constexpr size_t smem(int nwg) {  // + 1024 aligns the base
-    return 1024 + QSLOTS * q_bytes(nwg) + 2 * STAGES * KV_STAGE + 8 * (2 * QSLOTS + 4 * STAGES);
+    return 1024 + QSLOTS * q_bytes(nwg) + STAGES * (KV_STAGE + V_STAGE) +
+           8 * (2 * QSLOTS + 4 * STAGES);
   }
 };
 
@@ -398,6 +479,77 @@ __device__ __forceinline__ void rescale(float (&o)[OC][32], const float (&alpha)
       o[c][4 * i + 2] *= alpha[1];
       o[c][4 * i + 3] *= alpha[1];
     }
+}
+
+// K4's softmax after softmax_max: p8 = int(exp2(s - (m - log2 127)) + 0.5)
+// in [0, 127], as the plain version rounds it (the add of 0.5 rounded to
+// nearest, then truncated: an add of 2^23 rounded toward zero leaves the
+// integer in the low mantissa bits), packed four to a register in the s8 A
+// layout: per 32-key group g, p[g][0] holds row r0's keys 32 g + {2q, 2q+1,
+// 8+2q, 9+2q} (q = t % 4), p[g][1] row r0 + 8's, p[g][2] and p[g][3] the
+// same 16 keys on: the thread's own logits in their order, which V8^T's key
+// permutation matches. l = l * alpha + the row's sum of p8 (an integer,
+// summed over the quad first, so l is the row's whole sum in every thread).
+template <int BK>
+__device__ __forceinline__ void softmax_p8(const float (&s)[BK / 2], const float (&m)[2],
+                                           const float (&alpha)[2], float (&l)[2],
+                                           uint32_t (&p)[BK / 32][4]) {
+  const float sh0 = m[0] - kLog2_127, sh1 = m[1] - kLog2_127;
+  int sum0 = 0, sum1 = 0;
+#pragma unroll
+  for (int g = 0; g < BK / 32; ++g) {
+    uint32_t b[16];  // the p8 of s[16 g + h] in the low byte
+#pragma unroll
+    for (int h = 0; h < 16; ++h) {
+      const float e = ex2(s[16 * g + h] - ((h & 2) ? sh1 : sh0));
+      b[h] = __float_as_uint(__fadd_rz(__fadd_rn(e, 0.5f), 8388608.f));
+    }
+    auto pack4 = [](uint32_t x0, uint32_t x1, uint32_t x2, uint32_t x3) {
+      return __byte_perm(__byte_perm(x0, x1, 0x0040), __byte_perm(x2, x3, 0x0040), 0x5410);
+    };
+    p[g][0] = pack4(b[0], b[1], b[4], b[5]);
+    p[g][1] = pack4(b[2], b[3], b[6], b[7]);
+    p[g][2] = pack4(b[8], b[9], b[12], b[13]);
+    p[g][3] = pack4(b[10], b[11], b[14], b[15]);
+    sum0 = __dp4a(int(p[g][2]), 0x01010101, __dp4a(int(p[g][0]), 0x01010101, sum0));
+    sum1 = __dp4a(int(p[g][3]), 0x01010101, __dp4a(int(p[g][1]), 0x01010101, sum1));
+  }
+  sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
+  sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
+  sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
+  sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
+  l[0] = __fadd_rn(__fmul_rn(l[0], alpha[0]), float(sum0));
+  l[1] = __fadd_rn(__fmul_rn(l[1], alpha[1]), float(sum1));
+}
+
+// K4's P.V: O = O * alpha + P8 V8 over this warpgroup's OC 64-column chunks
+// of O, one s32 chunk live at a time: its BK / 32 s8 wgmmas (A = P8 from
+// registers, B = rows 64 c .. 64 c + 63 of the V8^T tile at `v`, K-major,
+// BK-byte rows) start at zero, are waited for, and the chunk is folded in,
+// the multiply and the add each rounded, as the plain version computes
+// them. |PV| <= 127^2 * 128 < 2^22, so adding the int32 to the bits of
+// 1.5 * 2^23 and subtracting that converts it to fp32 exactly.
+template <int BK, int OC>
+__device__ __forceinline__ void pv8_fold(float (&o)[OC][32], const uint32_t (&p)[BK / 32][4],
+                                         const float (&alpha)[2], uint32_t v) {
+  auto desc = [](uint32_t addr) { return BK == 128 ? desc_sw128(addr, 16) : desc_sw64(addr); };
+#pragma unroll
+  for (int c = 0; c < OC; ++c) {
+    const uint32_t vc = v + c * 64 * BK;
+    int pv[32];
+    wgmma_fence();
+    wgmma_s8_rs_n64_first(pv, p[0], desc(vc));
+#pragma unroll
+    for (int kk = 1; kk < BK / 32; ++kk) wgmma_s8_rs_n64(pv, p[kk], desc(vc + kk * 32));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(pv);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const float f = __fsub_rn(__int_as_float(pv[e] + 0x4B400000), 12582912.f);
+      o[c][e] = __fadd_rn(__fmul_rn(o[c][e], alpha[(e >> 1) & 1]), f);
+    }
+  }
 }
 
 // S = Q K^T over ksteps 16-column steps (async; committed, not waited). The
@@ -495,17 +647,19 @@ __device__ __forceinline__ void pipe_step(int j, float (&s_new)[BK / 2], float (
 // slots, each with a full (TMA bytes) and an empty (one arrival per consumer
 // warpgroup, once its O store has read the slot) barrier. K/V: with RESIDENT
 // one tile, loaded once per block and never released; otherwise the ring,
-// whose step count runs on across the block's q-tiles.
-template <int NB, int NWG, bool PIPE, bool RESIDENT, int QSLOTS>
+// whose step count runs on across the block's q-tiles. PV8 (K4): mv maps
+// V8^T and the P.V is int8 (pv8_fold).
+template <int NB, int NWG, bool PIPE, bool RESIDENT, int QSLOTS, bool PV8 = false>
 __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 flash_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                   const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mo,
                   int Sq, int Skv, int D, float qscale) {
-  using C = Cfg<NB, PIPE, RESIDENT, QSLOTS>;
+  using C = Cfg<NB, PIPE, RESIDENT, QSLOTS, PV8>;
   constexpr int BK = C::BK, ST = C::STAGES, OC = C::OC;
   constexpr bool SPLIT = C::SPLIT;
   static_assert(!SPLIT || NWG == 2, "a split head takes two consumer warpgroups");
   constexpr uint32_t QBOX = C::QBOX, KBOX = C::KBOX, KV_STAGE = C::KV_STAGE;
+  constexpr uint32_t V_STAGE = C::V_STAGE;
   constexpr uint32_t QBYTES = C::q_bytes(NWG);
   constexpr int ROWS = SPLIT ? 64 : 64 * NWG;
 
@@ -516,7 +670,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant_
   const uint32_t sq = base;  // QSLOTS slots of QBYTES
   const uint32_t sk = sq + QSLOTS * QBYTES;
   const uint32_t sv = sk + ST * KV_STAGE;
-  const Bars<ST, QSLOTS> bar{sv + ST * KV_STAGE};
+  const Bars<ST, QSLOTS> bar{sv + ST * V_STAGE};
 
   const int bh = blockIdx.y;
   const int ntq = (Sq + ROWS - 1) / ROWS;
@@ -569,9 +723,13 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant_
             for (int b = 0; b < NB; ++b)
               tma_load_3d(sk + st * KV_STAGE + b * KBOX, &mk, bar.full_k(st), b * 64, kt * BK, bh);
             mbar_wait(bar.empty_v(st), ph ^ 1);
-            mbar_expect_tx(bar.full_v(st), KV_STAGE);
-            for (int b = 0; b < NB; ++b)
-              tma_load_3d(sv + st * KV_STAGE + b * KBOX, &mv, bar.full_v(st), b * 64, vt * BK, bh);
+            mbar_expect_tx(bar.full_v(st), V_STAGE);
+            if constexpr (PV8)  // one box: all NB * 64 rows of V8^T, BK keys
+              tma_load_3d(sv + st * V_STAGE, &mv, bar.full_v(st), vt * BK, 0, bh);
+            else
+              for (int b = 0; b < NB; ++b)
+                tma_load_3d(sv + st * KV_STAGE + b * KBOX, &mv, bar.full_v(st), b * 64, vt * BK,
+                            bh);
           }
         }
         if constexpr (QSLOTS == 1) break;  // K1, K3: one q-tile a block, no loop
@@ -637,16 +795,23 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant_
           if (!RESIDENT) mbar_arrive(bar.empty_k(st));
           if (j == nk - 1 && nvalid_last < BK) mask_tail<BK>(s, nvalid_last, cq);
           softmax_max<BK>(s, m, alpha);
-          softmax_shift<BK>(s, m, d);
-          softmax_exp<BK>(d, alpha, l, p);
-          rescale<OC>(o, alpha);
+          if constexpr (PV8) {
+            uint32_t p8[BK / 32][4];
+            softmax_p8<BK>(s, m, alpha, l, p8);
+            mbar_wait(bar.full_v(st), ph);
+            pv8_fold<BK, OC>(o, p8, alpha, sv + st * V_STAGE);
+          } else {
+            softmax_shift<BK>(s, m, d);
+            softmax_exp<BK>(d, alpha, l, p);
+            rescale<OC>(o, alpha);
 #pragma unroll
-          for (int c = 0; c < OC; ++c) fence_regs(o[c]);
-          mbar_wait(bar.full_v(st), ph);
-          start_pv<BK, OC>(o, p, sv + st * KV_STAGE + vcol, KBOX);
-          wgmma_wait_all();
+            for (int c = 0; c < OC; ++c) fence_regs(o[c]);
+            mbar_wait(bar.full_v(st), ph);
+            start_pv<BK, OC>(o, p, sv + st * KV_STAGE + vcol, KBOX);
+            wgmma_wait_all();
 #pragma unroll
-          for (int c = 0; c < OC; ++c) fence_regs(o[c]);
+            for (int c = 0; c < OC; ++c) fence_regs(o[c]);
+          }
           if (!RESIDENT) mbar_arrive(bar.empty_v(st));
         }
       } else {
@@ -665,11 +830,18 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant_
       }
 
       // ---- epilogue: O / l -> bf16 into Q's slot (swizzled), TMA store ----------
-      l[0] += __shfl_xor_sync(0xffffffffu, l[0], 1);
-      l[0] += __shfl_xor_sync(0xffffffffu, l[0], 2);
-      l[1] += __shfl_xor_sync(0xffffffffu, l[1], 1);
-      l[1] += __shfl_xor_sync(0xffffffffu, l[1], 2);
+      // (K4's l is the row's sum already; it divides, as its plain version)
+      if constexpr (!PV8) {
+        l[0] += __shfl_xor_sync(0xffffffffu, l[0], 1);
+        l[0] += __shfl_xor_sync(0xffffffffu, l[0], 2);
+        l[1] += __shfl_xor_sync(0xffffffffu, l[1], 1);
+        l[1] += __shfl_xor_sync(0xffffffffu, l[1], 2);
+      }
       const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
+      auto out = [&](float x, int r) {
+        if constexpr (PV8) return __fdiv_rn(x, l[r]);
+        else return x * (r ? inv1 : inv0);
+      };
       if (SPLIT) named_bar_sync(1, 256);  // both warpgroups are done reading the shared Q
       const int box0 = SPLIT ? wg * OC : 0;
       unsigned char* qg = gbase + (qreg - base);
@@ -680,9 +852,9 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant_
         for (int e = 0; e < 8; ++e) {
           const int sw = (e ^ (r0 & 7)) * 16 + cq * 2;  // rows r0 and r0 + 8 share r % 8
           *reinterpret_cast<uint32_t*>(box + r0 * 128 + sw) =
-              pack_bf16(o[c][4 * e] * inv0, o[c][4 * e + 1] * inv0);
+              pack_bf16(out(o[c][4 * e], 0), out(o[c][4 * e + 1], 0));
           *reinterpret_cast<uint32_t*>(box + (r0 + 8) * 128 + sw) =
-              pack_bf16(o[c][4 * e + 2] * inv1, o[c][4 * e + 3] * inv1);
+              pack_bf16(out(o[c][4 * e + 2], 1), out(o[c][4 * e + 3], 1));
         }
       }
       fence_proxy_async();
@@ -733,56 +905,80 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// 3-D map over a contiguous (BH, S, D) bf16 tensor: boxes of 64 columns x
-// `rows` rows of one head, 128-byte swizzle, zero fill out of bounds. A map
-// is a function of these arguments alone, so each host thread keeps the last
-// 64 it encoded and reuses one whose arguments match (the caching allocator
-// hands the same addresses back call after call).
-inline bool make_map(CUtensorMap* map, const void* ptr, int BH, int S, int D, int rows) {
+// A 3-D tiled map over a contiguous tensor of (dims[2], dims[1], dims[0])
+// elements of `esize` bytes: boxes `box`, the given swizzle, zero fill out
+// of bounds. A map is a function of these arguments alone, so each host
+// thread keeps the last 64 it encoded and reuses one whose arguments match
+// (the caching allocator hands the same addresses back call after call).
+inline bool make_map_3d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int esize,
+                        const int (&dims)[3], const int (&box)[3], CUtensorMapSwizzle swizzle) {
   struct Entry {
     CUtensorMap map;
     const void* ptr;
-    int BH, S, D, rows;
+    CUtensorMapDataType type;
+    CUtensorMapSwizzle swizzle;
+    int dims[3], box[3];
   };
   thread_local Entry cache[64] = {};
   const uintptr_t key = reinterpret_cast<uintptr_t>(ptr);
-  Entry& e = cache[((key >> 8) ^ (key >> 20) ^ uintptr_t(S) * 7 ^ uintptr_t(rows)) % 64];
-  if (e.ptr != ptr || e.BH != BH || e.S != S || e.D != D || e.rows != rows) {
+  Entry& e = cache[((key >> 8) ^ (key >> 20) ^ uintptr_t(dims[1]) * 7 ^ uintptr_t(box[1]) ^
+                    uintptr_t(type)) % 64];
+  bool same = e.ptr == ptr && e.type == type && e.swizzle == swizzle;
+  for (int i = 0; i < 3; ++i) same = same && e.dims[i] == dims[i] && e.box[i] == box[i];
+  if (!same) {
     EncodeTiled fn = encode_tiled();
     if (fn == nullptr) return false;
-    const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(S), cuuint64_t(BH)};
-    const cuuint64_t strides[2] = {cuuint64_t(D) * 2, cuuint64_t(S) * D * 2};
-    const cuuint32_t box[3] = {64, cuuint32_t(rows), 1};
+    const cuuint64_t gdims[3] = {cuuint64_t(dims[0]), cuuint64_t(dims[1]), cuuint64_t(dims[2])};
+    const cuuint64_t strides[2] = {cuuint64_t(dims[0]) * esize,
+                                   cuuint64_t(dims[0]) * dims[1] * esize};
+    const cuuint32_t gbox[3] = {cuuint32_t(box[0]), cuuint32_t(box[1]), cuuint32_t(box[2])};
     const cuuint32_t elem[3] = {1, 1, 1};
     e.ptr = nullptr;
-    if (fn(&e.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-           box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-           CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+    if (fn(&e.map, type, 3, const_cast<void*>(ptr), gdims, strides, gbox, elem,
+           CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
       return false;
-    e = Entry{e.map, ptr, BH, S, D, rows};
+    e = Entry{e.map, ptr, type, swizzle, {dims[0], dims[1], dims[2]}, {box[0], box[1], box[2]}};
   }
   *map = e.map;
   return true;
 }
 
-// blocks_x: blocks per head (0: one per q-tile)
-template <int NB, int NWG, bool PIPE, bool RESIDENT = false, int QSLOTS = 1>
+// A contiguous (BH, S, D) bf16 tensor: boxes of 64 columns x `rows` rows of
+// one head, 128-byte swizzle
+inline bool make_map(CUtensorMap* map, const void* ptr, int BH, int S, int D, int rows) {
+  return make_map_3d(map, ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, {D, S, BH}, {64, rows, 1},
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// K4's V8^T, a contiguous (BH, D, S32) int8 tensor: boxes of `bk` keys (one
+// row of bk bytes, swizzled to match) x `rows` head columns of one head
+inline bool make_map_v8t(CUtensorMap* map, const void* ptr, int BH, int D, int S32, int bk,
+                         int rows) {
+  return make_map_3d(map, ptr, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, {S32, D, BH}, {bk, rows, 1},
+                     bk == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+// blocks_x: blocks per head (0: one per q-tile). PV8: v is V8^T, (BH, D,
+// Skv rounded up to 32) int8.
+template <int NB, int NWG, bool PIPE, bool RESIDENT = false, int QSLOTS = 1, bool PV8 = false>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int BH, int Sq, int Skv,
                    int D, float qscale, cudaStream_t stream, int blocks_x = 0) {
-  using C = Cfg<NB, PIPE, RESIDENT, QSLOTS>;
+  using C = Cfg<NB, PIPE, RESIDENT, QSLOTS, PV8>;
   static unsigned long long smem_set = 0;
-  cudaError_t err = opt_in_smem(flash_sm90_kernel<NB, NWG, PIPE, RESIDENT, QSLOTS>,
+  cudaError_t err = opt_in_smem(flash_sm90_kernel<NB, NWG, PIPE, RESIDENT, QSLOTS, PV8>,
                                 C::smem(NWG), smem_set);
   if (err != cudaSuccess) return err;
   CUtensorMap mq, mk, mv, mo;
-  if (!make_map(&mq, q, BH, Sq, D, 64) || !make_map(&mk, k, BH, Skv, D, C::BK) ||
-      !make_map(&mv, v, BH, Skv, D, C::BK) || !make_map(&mo, o, BH, Sq, D, 64))
+  const bool vmap = PV8 ? make_map_v8t(&mv, v, BH, D, (Skv + 31) / 32 * 32, C::BK, NB * 64)
+                        : make_map(&mv, v, BH, Skv, D, C::BK);
+  if (!make_map(&mq, q, BH, Sq, D, 64) || !make_map(&mk, k, BH, Skv, D, C::BK) || !vmap ||
+      !make_map(&mo, o, BH, Sq, D, 64))
     return cudaErrorInvalidValue;
   const int rows = C::SPLIT ? 64 : 64 * NWG;
   const int ntq = (Sq + rows - 1) / rows;
   dim3 grid(blocks_x > 0 && blocks_x < ntq ? blocks_x : ntq, BH);
-  flash_sm90_kernel<NB, NWG, PIPE, RESIDENT, QSLOTS>
+  flash_sm90_kernel<NB, NWG, PIPE, RESIDENT, QSLOTS, PV8>
       <<<grid, (NWG + 1) * 128, C::smem(NWG), stream>>>(mq, mk, mv, mo, Sq, Skv, D, qscale);
   return cudaGetLastError();
 }

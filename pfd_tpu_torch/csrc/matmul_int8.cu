@@ -5,146 +5,212 @@
 // The TPU kernel keeps the whole K depth of a (bm, K) x (K, bn) block pair
 // resident in VMEM; that is a VMEM pick and is not carried over. Here the
 // weight is (N, K), the port's linear layout (the lab passes pfd_tpu's
-// (K, N) transposed), so each output column's depth run is contiguous, as
-// each row's is in x.
+// (K, N) transposed), so both operands are K-major, as 8-bit wgmma operands
+// must be.
 //
 // What bounds it on an H100: at the int8 lab's shapes (M = 8192 or 4096, K =
 // 320 or 1280) the int32 output is the largest tensor: 8192 x 2560 x 4 bytes
 // against 2*M*N*K = 1.3e10 operations, 0.026 ms of bytes vs 0.007 ms at the
-// 1979 TOP/s int8 rate, so the bytes bound it. The design reads x and w once
-// per output tile through a 3-stage cp.async ring of 64-byte depth slices,
-// multiplies on int8 WMMA tiles (m16n16k16, s8 x s8 -> s32), and writes y
-// once, coalesced, through shared memory. The M and N edges are masked; a
-// depth that is not a multiple of 64 is zero-filled per 16-byte chunk. No
-// wgmma or TMA yet.
+// 1979 TOP/s int8 rate, so the bytes bound it, and most of them are the
+// output's store.
 //
-// Tiles: 128 x 128 outputs per block of 8 warps (2 x 4, 64 x 32 per warp),
-// stored in 16-byte column chunks ([depth/16][rows][16]) as in conv_int8.cu.
+// The design, for sm_90a (the helpers of flash_sm90.cuh):
+// - Tiles of 128 rows by BN = 128 or 160 columns, the depth in blocks of 128
+//   (four k32 steps). Two consumer warpgroups own 64 rows each and run
+//   wgmma m64nBNk32 .s32.s8.s8 (both operands K-major from shared memory)
+//   with the s32 accumulator in registers (64 or 80 a thread); a producer
+//   warpgroup, one thread of it, starts every TMA load into a 4-stage ring
+//   of mbarriers (x box 128 x 128 bytes, w box BN x 128 bytes, 128-byte
+//   swizzle). The TMA zero-fills the depth past K and the rows past M and N.
+// - Persistent blocks: min(tiles, SMs) blocks walk the tiles (row-major, so
+//   neighbouring blocks share x's rows in L2), and the ring's step count runs
+//   on across a block's tiles, so the producer loads the next tile's depth
+//   while the consumers finish this one.
+// - Epilogue: each warpgroup writes its 64 x BN int32 into its own staging
+//   buffer in shared memory (32-column boxes of 128-byte rows, swizzled as
+//   the TMA store reads them: two-way bank conflicts at most, the least for
+//   256 bytes a warp) and starts TMA stores, which clip the M and N edges.
+//   It waits for them to have read the buffer only before writing the next
+//   tile's, so the store of one tile runs under the next tile's main loop.
+// - BN per shape (pick_bn; ops/int8_matmul.matmul_int8_plan mirrors it):
+//   the one of 160 and 128 with the fewer waves of tiles times BN, 160 on a
+//   tie. On 132 SMs: 8192x320x2560 160 (1,024 tiles, 7.8 a block),
+//   8192x1280x320 160 (128 tiles, one wave), 4096x1280x1280 160 (256 tiles,
+//   1.9 waves). A 128 x 256 tile was not taken: its int32 staging (128 KB)
+//   and a 4-stage ring (192 KB) exceed shared memory, and the lab's N all
+//   divide by 160 or 128.
+//
+// y's rows are padded to a multiple of 4 int32 (16 bytes, a TMA stride);
+// the wrapper allocates them and slices.
 
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-#include "launch_util.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
-namespace wmma = nvcuda::wmma;
+using namespace pfd::sm90;
 
-constexpr int BM = 128, BN = 128, BK = 64, NT = 256, STAGES = 3;
-constexpr int CHUNKS = BK / 16;
-constexpr int ROWS_PER_PASS = NT / CHUNKS;
-constexpr int A_BYTES = BM * BK;
-constexpr int B_BYTES = BN * BK;
-constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
-constexpr int LDC = BN + 4;  // int32 epilogue tile, row-major
-constexpr size_t EPI_BYTES = size_t(BM) * LDC * 4;
-constexpr size_t SMEM_BYTES =
-    EPI_BYTES > size_t(STAGES) * STAGE_BYTES ? EPI_BYTES : size_t(STAGES) * STAGE_BYTES;
-static_assert(BM == BN && BM % ROWS_PER_PASS == 0, "one load map serves A and B");
-constexpr int PASSES = BM / ROWS_PER_PASS;
+constexpr int BM = 128, STAGES = 4, NWG = 2;
+constexpr uint32_t DEPTH = 128;               // bytes of depth a stage
+constexpr uint32_t A_BYTES = BM * DEPTH;      // 128 rows of x
+constexpr uint32_t OUT_BOX = 64 * 128;        // 64 rows x 32 int32 columns
 
-using pfd::cp_async16;
-using pfd::cp_async_commit;
-using pfd::cp_async_wait;
+template <int BN>
+struct MmCfg {
+  static constexpr uint32_t B_BYTES = BN * DEPTH;
+  static constexpr uint32_t STAGE = A_BYTES + B_BYTES;  // a multiple of 1024
+  static constexpr uint32_t OUT_WG = (BN / 32) * OUT_BOX;
+  static constexpr size_t SMEM = 1024 + STAGES * STAGE + NWG * OUT_WG + 8 * 2 * STAGES;
+};
 
-__global__ void __launch_bounds__(NT)
-matmul_int8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                   int32_t* __restrict__ y, int M, int N, int K) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp % 2, wn = warp / 2;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int nk = (K + BK - 1) / BK;
-  const int lrow = tid / CHUNKS, lchunk = tid % CHUNKS;
+template <int BN>
+__global__ void __launch_bounds__((NWG + 1) * 128, 1)
+matmul_int8_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mw,
+                   const __grid_constant__ CUtensorMap my, int M, int N, int K) {
+  using C = MmCfg<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // the swizzle atoms are 1024 bytes
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t sout = base + STAGES * C::STAGE;
+  const uint32_t bars = sout + NWG * C::OUT_WG;
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (STAGES + st); };
 
-  auto load_slice = [&](int it, int stage) {
-    const int c = it * BK + lchunk * 16;
-    unsigned char* sa = smem + stage * STAGE_BYTES;
-    unsigned char* sb = sa + A_BYTES;
-#pragma unroll
-    for (int p = 0; p < PASSES; ++p) {
-      const int row = lrow + p * ROWS_PER_PASS;
-      const bool av = m0 + row < M && c < K;
-      cp_async16(sa + lchunk * BM * 16 + row * 16,
-                 av ? x + size_t(m0 + row) * K + c : x, av ? 16 : 0);
-      const bool bv = n0 + row < N && c < K;
-      cp_async16(sb + lchunk * BN * 16 + row * 16,
-                 bv ? w + size_t(n0 + row) * K + c : w, bv ? 16 : 0);
+  const int tn = (N + BN - 1) / BN;
+  const int ntiles = (M + BM - 1) / BM * tn;
+  const int nkb = (K + DEPTH - 1) / DEPTH;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), NWG * 128);
     }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0);
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load_slice(s, s);
-    cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int i = 0; i < nk; ++i) {
-    cp_async_wait<STAGES - 2>();  // slice i has landed
-    __syncthreads();              // ... for every thread, and slice i-1's stage is free
-    if (i + STAGES - 1 < nk) load_slice(i + STAGES - 1, (i + STAGES - 1) % STAGES);
-    cp_async_commit();
-    const signed char* sa =
-        reinterpret_cast<const signed char*>(smem + (i % STAGES) * STAGE_BYTES);
-    const signed char* sb = sa + A_BYTES;
-#pragma unroll
-    for (int kk = 0; kk < CHUNKS; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> b[2];
-#pragma unroll
-      for (int i2 = 0; i2 < 4; ++i2)
-        wmma::load_matrix_sync(a[i2], sa + kk * BM * 16 + (wm * 64 + i2 * 16) * 16, 16);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], sb + kk * BN * 16 + (wn * 32 + j * 16) * 16, 16);
-#pragma unroll
-      for (int i2 = 0; i2 < 4; ++i2)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i2][j], a[i2], b[j], acc[i2][j]);
-    }
-  }
-  cp_async_wait<0>();
   __syncthreads();
 
-  // epilogue: through shared memory (row-major) to y, consecutive threads
-  // writing consecutive columns of one row
-  int* sc = reinterpret_cast<int*>(smem);
+  if (wg == NWG) {
+    // ---- producer: one thread starts every load --------------------------------
+    reg_dealloc<24>();
+    if (threadIdx.x == NWG * 128) {
+      int g = 0;  // ring steps so far
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        const int m0 = tile / tn * BM, n0 = tile % tn * BN;
+        for (int kb = 0; kb < nkb; ++kb, ++g) {
+          const int st = g % STAGES;
+          mbar_wait(empty(st), ((g / STAGES) & 1) ^ 1);
+          mbar_expect_tx(full(st), C::STAGE);
+          const uint32_t sa = base + st * C::STAGE;
+          tma_load_3d(sa, &mx, full(st), kb * DEPTH, m0, 0);
+          tma_load_3d(sa + A_BYTES, &mw, full(st), kb * DEPTH, n0, 0);
+        }
+      }
+    }
+  } else {
+    // ---- consumers ---------------------------------------------------------------
+    reg_alloc<240>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int r0 = 16 * warp + lane / 4;  // this thread's rows: r0 and r0 + 8
+    const int cq = 2 * (lane % 4);        // and its columns in each 8-column group
+    unsigned char* out = gbase + (sout - base) + wg * C::OUT_WG;
+    const uint32_t outs = sout + wg * C::OUT_WG;
+    int acc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;  // defined once; each tile overwrites
+    int g = 0;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const int m0 = tile / tn * BM, n0 = tile % tn * BN;
+#pragma unroll 1
+      for (int kb = 0; kb < nkb; ++kb, ++g) {
+        const int st = g % STAGES;
+        const uint32_t sa = base + st * C::STAGE + wg * 64 * DEPTH;  // this warpgroup's rows
+        const uint32_t sb = base + st * C::STAGE + A_BYTES;
+        mbar_wait(full(st), (g / STAGES) & 1);
+        wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(sc + (wm * 64 + i * 16) * LDC + wn * 32 + j * 16, acc[i][j],
-                              LDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = tid; idx < BM * BN; idx += NT) {
-    const int ml = idx / BN, cl = idx - ml * BN;
-    const int m = m0 + ml, n = n0 + cl;
-    if (m < M && n < N) y[size_t(m) * N + n] = sc[ml * LDC + cl];
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_s8_ss<BN>(acc, desc_sw128(sa + kk * 32, 16), desc_sw128(sb + kk * 32, 16),
+                          kb > 0 || kk > 0);
+        wgmma_commit();
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // k-block kb-1 done
+        if (kb > 0) mbar_arrive(empty((g - 1) % STAGES));
+      }
+      wgmma_wait_all();
+      fence_regs(acc);
+      mbar_arrive(empty((g - 1) % STAGES));
+
+      // ---- epilogue: int32 -> this warpgroup's staging buffer -> TMA store ----
+      if (t == 0) tma_store_wait_read();  // the last tile's stores have read it
+      named_bar_sync(2 + wg, 128);
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+        const int col = 8 * i + cq;  // column in the tile
+        const int chunk = (col % 32) / 4;
+        unsigned char* row = out + (col / 32) * OUT_BOX + r0 * 128 + (col % 4) * 4;
+        const int sw = (chunk ^ (r0 & 7)) << 4;  // rows r0 and r0 + 8 share r % 8
+        *reinterpret_cast<int2*>(row + sw) = make_int2(acc[4 * i], acc[4 * i + 1]);
+        *reinterpret_cast<int2*>(row + 8 * 128 + sw) = make_int2(acc[4 * i + 2], acc[4 * i + 3]);
+      }
+      fence_proxy_async();
+      named_bar_sync(2 + wg, 128);
+      if (t == 0) {
+        const int row0 = m0 + 64 * wg;
+        if (row0 < M) {
+          for (int b = 0; b < BN / 32; ++b)
+            if (n0 + 32 * b < N) tma_store_3d(&my, outs + b * OUT_BOX, n0 + 32 * b, row0, 0);
+          tma_store_commit();
+        }
+      }
+    }
+    if (t == 0) tma_store_wait();  // the block's stores have landed
   }
+}
+
+// The tile width with the fewer waves of tiles times the width (160 on a
+// tie), ops/int8_matmul.matmul_int8_plan's rule
+int pick_bn(int M, int N, int sms) {
+  const long long tm = (M + BM - 1) / BM;
+  auto cost = [&](int bn) { return (tm * ((N + bn - 1) / bn) + sms - 1) / sms * bn; };
+  return cost(160) <= cost(128) ? 160 : 128;
+}
+
+template <int BN>
+cudaError_t launch(const void* x, const void* w, void* y, int M, int N, int K, int ldy,
+                   cudaStream_t stream) {
+  using C = MmCfg<BN>;
+  static unsigned long long smem_set = 0;
+  cudaError_t err = pfd::opt_in_smem(matmul_int8_kernel<BN>, C::SMEM, smem_set);
+  if (err != cudaSuccess) return err;
+  CUtensorMap mx, mw, my;
+  if (!make_map_3d(&mx, x, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, {K, M, 1}, {int(DEPTH), BM, 1},
+                   CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map_3d(&mw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, {K, N, 1}, {int(DEPTH), BN, 1},
+                   CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map_3d(&my, y, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, {ldy, M, 1}, {32, 64, 1},
+                   CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  const long long tiles = (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  const int grid = (int)(tiles < sm_count() ? tiles : sm_count());
+  matmul_int8_kernel<BN><<<grid, (NWG + 1) * 128, C::SMEM, stream>>>(mx, mw, my, M, N, K);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// x: (M, K) int8, w: (N, K) int8, y: (M, N) int32, all contiguous; K % 16
-// == 0 and x, w 16-byte aligned (16-byte loads). Exact: |y| <= 127^2 * K <
+// x: (M, K) int8, w: (N, K) int8, y: (M, N rounded up to a multiple of 4)
+// int32 (the columns from N on are written as zeros), all contiguous and
+// 16-byte aligned; K % 16 == 0 (16-byte rows). Exact: |y| <= 127^2 * K <
 // 2^31 for K < 133,000. Returns a cudaError_t.
 extern "C" int pfd_matmul_int8(const void* x, const void* w, void* y, int M, int N, int K,
                                void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 16 || K > 131072) return (int)cudaErrorInvalidValue;
-  const long long grid_y = (N + BN - 1) / BN;
-  if ((long long)M > (1ll << 31) - BM || grid_y > 65535) return (int)cudaErrorInvalidValue;
-  static unsigned long long smem_set = 0;
-  cudaError_t err = pfd::opt_in_smem(matmul_int8_kernel, SMEM_BYTES, smem_set);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)grid_y);
-  matmul_int8_kernel<<<grid, NT, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), static_cast<int32_t*>(y),
-      M, N, K);
-  return (int)cudaGetLastError();
+  if (M <= 0 || N <= 0 || K <= 0 || K % 16 || K > 131072 || N > (1 << 30) ||
+      (long long)M * N >= (1ll << 40))
+    return (int)cudaErrorInvalidValue;
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  const int ldy = (N + 3) / 4 * 4;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return pick_bn(M, N, sms) == 160 ? (int)launch<160>(x, w, y, M, N, K, ldy, st)
+                                   : (int)launch<128>(x, w, y, M, N, K, ldy, st);
 }

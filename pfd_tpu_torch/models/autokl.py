@@ -5,9 +5,10 @@ decode = post_quant_conv -> Decoder -> (x+1)/2 -> clamp [0, 1]
 (lib/model_zoo/autokl.py:14-139, blocks in autokl_modules.py). NCHW.
 
 The mid-block attention is one head of d = 512 channels over the latent grid
-(4096 tokens at 512^2). On a CUDA tensor with at least 1024 tokens it runs K1
-(``ops.flash_attention.flash_attention``); on the CPU it runs plain attention,
-as ``pfd_tpu`` switches on its backend (autokl.py:49-52).
+(4096 tokens at 512^2). On a CUDA tensor with at least 1024 tokens that K1
+takes (bf16: ``ops.flash_attention.kernel_takes``) it runs K1
+(``ops.flash_attention.flash_attention``); on the CPU, and in fp32, it runs
+plain attention, as ``pfd_tpu`` switches on its backend (autokl.py:49-52).
 """
 
 from __future__ import annotations
@@ -65,8 +66,8 @@ class AttnBlock(nn.Module):
             return F.conv2d(h, m).flatten(2).transpose(1, 2)[:, None]
 
         q, k, v = tokens(self.q), tokens(self.k), tokens(self.v)
-        if hh * ww >= 1024 and x.is_cuda:
-            o = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+        if hh * ww >= 1024 and x.is_cuda and fa.kernel_takes(q, fa.K1_MAX_D):
+            o = fa.with_padded_head(fa.flash_attention, q, k, v)
         else:
             o = F.dot_product_attention(q, k, v, softmax_dtype=self.policy.softmax_dtype)
         o = o[:, 0].transpose(1, 2).reshape(b, c, hh, ww)

@@ -32,7 +32,9 @@ SIGNATURES = {
     "cross_attention": ("pfd_cross_attention_bf16",
                         (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _VP)),
     "flash_attention_int8": ("pfd_flash_attention_int8",
-                             (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _I, _VP)),
+                             (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP)),
+    "flash_attention_pv8": ("pfd_flash_attention_pv8",
+                            (_VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP)),
     "conv_int8": ("pfd_conv_int8",
                   (_VP, _VP, _VP) + (_I,) * 13 + (_VP,)),
     "flash_attention_pipe": ("pfd_flash_attention_pipe_bf16",

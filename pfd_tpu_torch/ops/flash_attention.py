@@ -18,12 +18,15 @@ log2(e)`` rounded to q's dtype, as ``pfd_tpu`` scales q before its kernel
 self-attention (``pfd_tpu`` :274-380): V is quantized per tensor over the
 whole (B, H, S, D) v, and with ``quant=True`` q and k too; the kernels are
 ``flash_attention_pv8`` (K4, replaces ``_flash_kernel_pv8``, :347-359, body
-:167-215) and ``flash_attention_int8`` (K5, replaces ``_flash_kernel_int8``,
-:333-359, body :218-267), one CUDA C++ template with a mode flag
-(``csrc/flash_attention_int8.cu``). Both round p to int8 per 64-key tile
+:167-215: K1's Hopper kernel with an s8 ``wgmma`` P.V, ``csrc/
+flash_attention_pv8.cu``, fed V8 K-major with its keys permuted,
+``v8_keys_major``) and ``flash_attention_int8`` (K5, replaces
+``_flash_kernel_int8``, :333-359, body :218-267: a WMMA kernel,
+``csrc/flash_attention_int8.cu``). Both round p to int8 per key tile
 against the running row max, so their plain versions walk the same tiles
-(``block_k``); the TPU kernel's tiles are up to 2048 keys, and the tests
-pass its block size to hold the plain versions against it.
+(``block_k``: K4's is K1's, ``int8_block_k``; K5's 64 keys); the TPU
+kernel's tiles are up to 2048 keys, and the tests pass its block size to
+hold the plain versions against it.
 
 ``flash_attention(..., pipelined=True)`` is K3, K1's function computed with
 ``pfd_tpu``'s software-pipelined schedule (``_flash_kernel_pipe``, :108-160,
@@ -38,9 +41,15 @@ and P.V of step j-1 run); its plain version ``attention_pipe_plain`` walks
 the same steps over the kernel's key tiles. ``pfd_tpu`` has no int8
 pipelined kernel, so ``quant`` with ``pipelined=True`` raises.
 
+The dispatchers ``self_attn_fn``, ``cross_attn_fn`` and
+``self_attn_fn_int8`` pick a wrapper by sequence length (``pfd_tpu``'s
+thresholds), zero-pad heads to a multiple of 8 (``with_padded_head``) and
+send what no kernel takes on the card (a dtype other than bf16, a head
+wider than the kernel's limit) to plain attention (``kernel_takes``).
+
 Each wrapper
-- on a CPU tensor computes ``attention_plain``, the plain PyTorch version of
-  the same function (the tests' path, and the oracle on the card);
+- on a CPU tensor computes its plain PyTorch version of the same function
+  (the tests' path, and the oracle on the card);
 - on a CUDA tensor checks device, dtype, shape, contiguity and alignment,
   launches its kernel on the current stream and counts the launch in
   ``<wrapper>.launches``, or raises. It never falls back to the plain version.
@@ -73,6 +82,17 @@ PIPE_BLOCK_K_NARROW = 128
 PIPE_BLOCK_K = 64
 PIPE_BLOCK_K_WIDE = 32
 
+# The dispatchers' routes. The kernels read heads in 16-byte rows (D % 8 ==
+# 0) up to a width each: K1 (and K3) 512, K2, K4 and K5 160. The
+# dispatchers zero-pad D up to a multiple of 8, as pfd_tpu pads heads to its
+# lanes (flash_attention.py:277-300), and send what no kernel takes (a dtype
+# other than bf16, a wider head) on the card to plain attention. Both are
+# decided from dtype and shape before any launch. On the CPU every wrapper
+# computes its plain version, so every dtype and width goes to the wrapper.
+HEAD_ALIGN = 8
+K1_MAX_D = 512
+CROSS_MAX_D = INT8_MAX_D = 160
+
 
 def pipe_block_k(d):
     """The key tile K3 walks for head dim ``d``."""
@@ -101,7 +121,42 @@ def cross_variant(bh, sq, skv, d, sms):
 
 
 INT_NEG = -(2 ** 30)
-INT8_BLOCK_K = 64  # the key tile of the int8 kernels
+INT8_BLOCK_K = 64  # K5's key tile (csrc/flash_attention_int8.cu)
+
+
+def int8_block_k(d):
+    """K4's key tile for head dim ``d``: K1's (csrc/flash_sm90.cuh Cfg),
+    128 keys for D <= 128 and 64 above. p is rounded to int8 against the
+    running max of each key tile, so the tile is part of K4's function."""
+    return 128 if d <= 128 else 64
+
+
+# K4's P.V takes P from the logits' registers as the int8 A operand of an
+# s8 wgmma (csrc/flash_sm90.cuh pv8_fold). Within each group of 32 keys a
+# thread holds the logits of keys {2q, 2q+1, 8+2q, 9+2q, 16+2q, ...} (q =
+# lane % 4, the accumulator layout), while the A fragment wants 4
+# consecutive depth positions a register ({4q..4q+3}, {16+4q..19+4q}). So
+# the kernel packs a thread's own logits in the order they come, and V8's
+# rows are permuted the same way: depth position k of a 32-key group holds
+# key PV8_KEY_ORDER[k]. The products sum over keys, so P and V permuted
+# alike give the same P.V.
+PV8_KEY_GROUP = 32
+PV8_KEY_ORDER = tuple(16 * (k // 16) + 8 * ((k % 4) // 2) + 2 * ((k % 16) // 4) + k % 2
+                      for k in range(PV8_KEY_GROUP))
+
+
+def v8_keys_major(v8):
+    """K4's V operand: int8 v8 (B, H, S, D) -> (B, H, D, S32), S padded with
+    zero keys up to S32, a multiple of 32, and the keys of each 32-key group
+    in ``PV8_KEY_ORDER``. A pure relabelling: column 32 g + k holds key
+    32 g + PV8_KEY_ORDER[k] (zero past S)."""
+    b, h, s, d = v8.shape
+    s32 = -(-s // PV8_KEY_GROUP) * PV8_KEY_GROUP
+    if s32 != s:
+        v8 = torch.nn.functional.pad(v8, (0, 0, 0, s32 - s))
+    # key = 16 hi + 8 a + 2 q + lo sits at depth position 16 hi + 4 q + 2 a + lo
+    g = v8.view(b, h, s32 // 32, 2, 2, 4, 2, d)  # (.., group, hi, a, q, lo, d)
+    return g.permute(0, 1, 7, 2, 3, 5, 4, 6).reshape(b, h, d, s32)
 
 
 def _qscale(q, scale):
@@ -208,7 +263,7 @@ def _launch_self_attention(name, q, k, v, scale):
     """Launch K1 or K3 (``csrc/<name>.cu``, one C signature) on CUDA q, k, v."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
-    _check_cuda(q, k, v, max_d=512)
+    _check_cuda(q, k, v, max_d=K1_MAX_D)
     b, h, s, d = q.shape
     o = torch.empty_like(q)
     fn = cuda_build.entry(name)
@@ -293,7 +348,7 @@ def cross_attention(q, k, v, *, scale=None):
         return attention_plain(q, k, v, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"cross_attention runs on cpu or cuda, not {q.device}")
-    _check_cuda(q, k, v, max_d=160)
+    _check_cuda(q, k, v, max_d=CROSS_MAX_D)
     b, h, sq, d = q.shape
     o = torch.empty_like(q)
     fn = cuda_build.entry("cross_attention")
@@ -336,12 +391,15 @@ def attention_int8_plain(q, k, v, *, quant="pv", scale=None):
     return _flash_quant(q, k, v, scale, "full" if quant is True else quant, plain=True)
 
 
-def pv8_plain(q, k, v8, *, qscale, block_k=INT8_BLOCK_K):
+def pv8_plain(q, k, v8, *, qscale, block_k=None):
     """The plain version of K4: bf16 (q's dtype) QK^T on q pre-scaled by
     ``qscale`` (rounded to q's dtype), online softmax over key tiles of
-    ``block_k`` with int8 p = round(127 exp2(s - m)), int32 P.V against the
-    int8 v8, l summing the rounded p. Returns acc / l in q's dtype (before
-    the V scale). The int8 products are exact in fp32 (|sums| < 2^24)."""
+    ``block_k`` (by default the kernel's, ``int8_block_k(D)``) with int8
+    p = round(127 exp2(s - m)), int32 P.V against the int8 v8, l summing
+    the rounded p. Returns acc / l in q's dtype (before the V scale). The
+    int8 products are exact in fp32 (|sums| < 2^24)."""
+    if block_k is None:
+        block_k = int8_block_k(q.shape[3])
     qf = (q * qscale).float()
     kf = k.float()
 
@@ -399,36 +457,49 @@ def _check_int8(t, name):
                          "16-byte aligned tensors")
 
 
-def _launch_int8(q, k, v8, c, qscale, out_dtype, full):
+def _check_int8_launch(q, out_dtype, tensors):
     b, h, s, d = q.shape
-    if out_dtype != torch.bfloat16 or (not full and q.dtype != torch.bfloat16):
-        raise TypeError("the int8 attention kernels take and return bfloat16")
-    if d % 8 or d > 160:
-        raise ValueError(f"the int8 attention kernels take D % 8 == 0 and D <= 160, got {d}")
+    if out_dtype != torch.bfloat16:
+        raise TypeError("the int8 attention kernels return bfloat16")
+    if d % 8 or d > INT8_MAX_D:
+        raise ValueError(f"the int8 attention kernels take D % 8 == 0 and D <= {INT8_MAX_D}, "
+                         f"got {d}")
     if b * h > 65535:
         raise ValueError("B * H must be at most 65535")
-    for t, name in ((q, "q"), (k, "k"), (v8, "v8")):
+    for t, name in tensors:
         _check_int8(t, name)
-    o = torch.empty(q.shape, dtype=out_dtype, device=q.device)
-    fn = cuda_build.entry("flash_attention_int8")
-    err = fn(q.data_ptr(), k.data_ptr(), v8.data_ptr(), o.data_ptr(),
-             c.data_ptr() if full else None, b * h, s, d, float(qscale), int(full),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    _launch_check(err, "flash_attention_int8" if full else "flash_attention_pv8")
-    return o
 
 
 def flash_attention_pv8(q, k, v8, *, qscale):
     """K4: q, k (B, H, S, D) bf16, v8 int8 -> acc / l (B, H, S, D) bf16;
-    ``qscale`` = scale*log2(e) rounded to q's dtype."""
+    ``qscale`` = scale*log2(e) rounded to q's dtype. On the card the
+    wrapper hands the kernel ``v8_keys_major(v8)``."""
     if q.shape != k.shape or q.shape != v8.shape or v8.dtype != torch.int8:
         raise ValueError("flash_attention_pv8 takes q, k and int8 v8 of one shape")
     if q.device.type == "cpu":
         return pv8_plain(q, k, v8, qscale=qscale)
     if q.device.type != "cuda" or k.device != q.device or v8.device != q.device:
         raise ValueError(f"flash_attention_pv8 runs on cpu or cuda, got {q.device}")
-    o = _launch_int8(q, k, v8, None, qscale, q.dtype, full=False)
+    if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention_pv8 takes bfloat16 q and k, got {q.dtype}")
+    o = launch_pv8(q, k, v8_keys_major(v8), qscale)
     flash_attention_pv8.launches += 1
+    return o
+
+
+def launch_pv8(q, k, v8t, qscale):
+    """K4's kernel alone on CUDA q, k and ``v8t = v8_keys_major(v8)`` (what
+    ``flash_attention_pv8`` launches, uncounted; ``chip_smoke.py`` times it
+    apart from the layout's copy)."""
+    _check_int8_launch(q, q.dtype, ((q, "q"), (k, "k"), (v8t, "v8t")))
+    b, h, s, d = q.shape
+    if v8t.shape != (b, h, d, -(-s // PV8_KEY_GROUP) * PV8_KEY_GROUP):
+        raise ValueError(f"v8t is v8_keys_major(v8), got {tuple(v8t.shape)}")
+    o = torch.empty_like(q)
+    fn = cuda_build.entry("flash_attention_pv8")
+    err = fn(q.data_ptr(), k.data_ptr(), v8t.data_ptr(), o.data_ptr(), b * h, s, d,
+             float(qscale), torch.cuda.current_stream(q.device).cuda_stream)
+    _launch_check(err, "flash_attention_pv8")
     return o
 
 
@@ -444,7 +515,13 @@ def flash_attention_int8(q8, k8, v8, c, *, out_dtype):
         raise ValueError(f"flash_attention_int8 runs on cpu or cuda, got {q8.device}")
     if c.dtype != torch.float32 or c.numel() != 1:
         raise ValueError("c is one fp32 value")
-    o = _launch_int8(q8, k8, v8, c, 0.0, out_dtype, full=True)
+    _check_int8_launch(q8, out_dtype, ((q8, "q8"), (k8, "k8"), (v8, "v8")))
+    b, h, s, d = q8.shape
+    o = torch.empty(q8.shape, dtype=out_dtype, device=q8.device)
+    fn = cuda_build.entry("flash_attention_int8")
+    err = fn(q8.data_ptr(), k8.data_ptr(), v8.data_ptr(), o.data_ptr(), c.data_ptr(), b * h,
+             s, d, torch.cuda.current_stream(q8.device).cuda_stream)
+    _launch_check(err, "flash_attention_int8")
     flash_attention_int8.launches += 1
     return o
 
@@ -461,27 +538,71 @@ def reset_launch_counts():
     flash_attention_int8.launches = 0
 
 
+def padded_head(d, quant=False):
+    """The head width the dispatchers hand a kernel for width ``d``: the
+    next multiple of 8, and for an int8 kernel 8 more where that would be a
+    multiple of 128 (such heads run K1, ``flash_attention``'s rule)."""
+    dp = -(-d // HEAD_ALIGN) * HEAD_ALIGN
+    return dp + HEAD_ALIGN if quant and dp % 128 == 0 and d % 128 else dp
+
+
+def _on_card(t):
+    return t.device.type == "cuda"
+
+
+def kernel_takes(q, max_d, quant=False):
+    """Whether a dispatcher hands ``q`` to a kernel's wrapper: on the CPU
+    always; on the card when q is bf16 and its padded head at most
+    ``max_d`` wide."""
+    if not _on_card(q):
+        return True
+    return q.dtype == torch.bfloat16 and padded_head(q.shape[3], quant) <= max_d
+
+
+def with_padded_head(fn, q, k, v, quant=False):
+    """``fn(q, k, v)`` on heads zero-padded to ``padded_head`` (with the
+    real D's scale), O sliced back to D. Zero columns add nothing to QK^T
+    and give zero output columns, and the int8 modes' per-tensor scales
+    are maxima the zeros do not change, so the padding is exact."""
+    d = q.shape[3]
+    dp = padded_head(d, quant)
+    if dp == d:
+        return fn(q.contiguous(), k.contiguous(), v.contiguous())
+
+    def pad(t):
+        return torch.nn.functional.pad(t, (0, dp - d))
+
+    return fn(pad(q), pad(k), pad(v), scale=d ** -0.5)[..., :d]
+
+
 def cross_attn_fn(q, k, v, *, min_seq=1024, max_kv=512):
     """K2 for long q over a short K/V, plain attention otherwise (the
-    thresholds of ``pfd_tpu`` flash_attention.py:514-521)."""
-    if q.shape[2] >= min_seq and k.shape[2] <= max_kv:
-        return cross_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    thresholds of ``pfd_tpu`` flash_attention.py:514-521), or where K2
+    does not take q (``kernel_takes``)."""
+    if q.shape[2] >= min_seq and k.shape[2] <= max_kv and kernel_takes(q, CROSS_MAX_D):
+        return with_padded_head(cross_attention, q, k, v)
     return nn.dot_product_attention(q, k, v)
 
 
 def self_attn_fn(q, k, v, *, min_seq=1024):
     """K1 for long self-attention, plain attention for short sequences (the
     threshold of ``pfd_tpu`` flash_attention.py:524-544; its TPU block and
-    lane-padding picks are not carried over)."""
-    if q.shape[2] >= min_seq and q.shape[2] == k.shape[2]:
-        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    lane-padding picks are not carried over), or where K1 does not take q
+    (``kernel_takes``)."""
+    if q.shape[2] >= min_seq and q.shape[2] == k.shape[2] and kernel_takes(q, K1_MAX_D):
+        return with_padded_head(flash_attention, q, k, v)
     return nn.dot_product_attention(q, k, v)
 
 
 def self_attn_fn_int8(q, k, v, *, min_seq=1024, mode="pv"):
     """The int8 serving mode's self-attention: K4 (``mode="pv"``) or K5
-    (``mode="full"``) for long self-attention, plain attention for short
-    sequences (``pfd_tpu`` flash_attention.py:547-557)."""
+    (``mode="full"``) for long self-attention (K1 for heads a multiple of
+    128 wide), plain attention for short sequences (``pfd_tpu``
+    flash_attention.py:547-557) or where the kernel does not take q
+    (``kernel_takes``)."""
     if q.shape[2] >= min_seq and q.shape[2] == k.shape[2]:
-        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), quant=mode)
+        quant = bool(mode) and q.shape[3] % 128 != 0
+        if kernel_takes(q, INT8_MAX_D if quant else K1_MAX_D, quant):
+            return with_padded_head(functools.partial(flash_attention, quant=mode), q, k, v,
+                                    quant)
     return nn.dot_product_attention(q, k, v)

@@ -22,9 +22,12 @@ wired into the UNet: ``tools/perf_audit`` (``AUDIT_SECTIONS=fused``) and
 
 ``conv3x3_fused``
 - on a CPU tensor computes ``conv3x3_fused_plain``, the plain version;
-- on a CUDA tensor checks its arguments, launches the kernel on the current
-  stream and counts the launch in ``conv3x3_fused.launches``, or raises. It
-  never falls back to the plain version.
+- on a CUDA tensor checks its arguments, zero-pads C and Cout up to
+  multiples of 8 where they are not (``pad_channels``; the kernel's TMA rows
+  are 16-byte channel runs, so the UNet's 320 -> 4 and the VAE's 128 -> 3
+  output convs take the padding), launches the kernel on the current stream,
+  counts the launch in ``conv3x3_fused.launches`` and slices the output
+  back to Cout, or raises. It never falls back to the plain version.
 
 Layouts: x NCHW (made channels-last on CUDA), the weight OIHW (made
 channels-last, i.e. stored (cout, 3, 3, cin) as ``conv_int8`` stores it), a
@@ -78,10 +81,11 @@ def conv3x3_fused_plain(x, weight, a, c, bias, residual=None):
 
 
 def fused_available(x):
-    """Whether the CUDA kernel takes an activation of x's shape: NCHW with
-    C % 8 == 0 (16-byte channel chunks) and N*H*W within int32 row indices.
-    Any H and W; stride 1, padding 1 only. The output width must be a
-    multiple of 8 too (``conv3x3_fused`` checks it)."""
+    """Whether the CUDA kernel takes an activation of x's shape as it is:
+    NCHW with C % 8 == 0 (16-byte channel chunks) and N*H*W within int32 row
+    indices. Any H and W; stride 1, padding 1 only. The output width must be
+    a multiple of 8 too. ``conv3x3_fused`` pads C and Cout to get there
+    (``pad_channels``)."""
     return (x.ndim == 4 and x.shape[1] % 8 == 0 and min(x.shape) > 0
             and x.shape[0] * x.shape[2] * x.shape[3] < 2 ** 31 - 128)
 
@@ -116,6 +120,31 @@ def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+CHANNEL_ALIGN = 8  # the kernel's channel runs: 16 bytes of bf16
+
+
+def pad_channels(x, weight, a, c, bias, residual):
+    """``conv3x3_fused``'s arguments with C and Cout zero-padded up to
+    multiples of ``CHANNEL_ALIGN``: x gets zero channels, the weight zero
+    input and output slices, a and c zeros (so a padded channel activates
+    to silu(0 x + 0) = 0 and its zero weights add nothing), bias and
+    residual zeros (the padded outputs are zero and sliced off). Exact."""
+    pc = -x.shape[1] % CHANNEL_ALIGN
+    pk = -weight.shape[0] % CHANNEL_ALIGN
+    if pc:
+        x = F.pad(x, (0, 0, 0, 0, 0, pc))
+        weight = F.pad(weight, (0, 0, 0, 0, 0, pc))
+        if a is not None:
+            a, c = F.pad(a, (0, pc)), F.pad(c, (0, pc))
+    if pk:
+        weight = F.pad(weight, (0, 0, 0, 0, 0, 0, 0, pk))
+        if bias is not None:
+            bias = F.pad(bias, (0, pk))
+        if residual is not None:
+            residual = F.pad(residual, (0, 0, 0, 0, 0, pk))
+    return x, weight, a, c, bias, residual
+
+
 def _check(x, weight, a, c, bias, residual):
     if x.ndim != 4 or weight.ndim != 4 or tuple(weight.shape[2:]) != (3, 3):
         raise ValueError(f"conv3x3_fused takes NCHW x and (K, C, 3, 3) w, got "
@@ -139,7 +168,7 @@ def _check(x, weight, a, c, bias, residual):
 def conv3x3_fused(x, weight, a, c, bias, residual=None):
     """``conv3x3(silu(x*a + c), weight) + bias [+ residual]`` (module
     docstring); ``a = c = None``: no prologue. On CUDA x and residual are
-    bf16 and C % 8 == 0."""
+    bf16."""
     _check(x, weight, a, c, bias, residual)
     if x.device.type == "cpu":
         return conv3x3_fused_plain(x, weight, a, c, bias, residual)
@@ -147,12 +176,13 @@ def conv3x3_fused(x, weight, a, c, bias, residual=None):
         raise ValueError(f"conv3x3_fused runs on cpu or cuda, not {x.device}")
     if x.dtype != torch.bfloat16 or (residual is not None and residual.dtype != torch.bfloat16):
         raise TypeError(f"the CUDA conv3x3 kernel takes bfloat16, got {x.dtype}")
+    cout = weight.shape[0]
+    x, weight, a, c, bias, residual = pad_channels(x, weight, a, c, bias, residual)
     if not fused_available(x):
-        raise ValueError(f"the CUDA conv3x3 kernel takes C % 8 == 0, got {tuple(x.shape)}")
+        raise ValueError(f"the CUDA conv3x3 kernel takes N*H*W < 2^31 - 128, got "
+                         f"{tuple(x.shape)}")
     n, cin, h, w = x.shape
     k = weight.shape[0]
-    if k % 8:
-        raise ValueError(f"the CUDA conv3x3 kernel takes Cout % 8 == 0, got {k}")
     cl = torch.channels_last
     xc = x.contiguous(memory_format=cl)
     wc = weight.to(torch.bfloat16).contiguous(memory_format=cl)
@@ -177,7 +207,7 @@ def conv3x3_fused(x, weight, a, c, bias, residual=None):
     if err != 0:
         raise RuntimeError(f"conv3x3_bf16 kernel launch failed with cudaError {err}")
     conv3x3_fused.launches += 1
-    return y
+    return y if k == cout else y[:, :cout]
 
 
 conv3x3_fused.launches = 0

@@ -1,10 +1,11 @@
 """``matmul_int8``: the exact int8 x int8 -> int32 matmul of the int8 linears
 (K7b), the Hopper form of ``pfd_tpu/tools/int8_lab.py:192``
 ``pallas_matmul_int8`` -> ``_mm_kernel``. One hand-written CUDA C++ kernel
-for ``sm_90a`` (``csrc/matmul_int8.cu``, int8 WMMA tiles; its design notes
-are at the top of the source) takes x (M, K) and the weight in the port's
-linear layout, (N, K); ``pfd_tpu``'s lab passes its (K, N) weight, so the
-tools hand over its transpose.
+for ``sm_90a`` (``csrc/matmul_int8.cu``: s8 ``wgmma`` fed by TMA, persistent
+blocks, a TMA-store epilogue; its design notes are at the top of the
+source) takes x (M, K) and the weight in the port's linear layout, (N, K),
+both K-major as 8-bit ``wgmma`` operands must be; ``pfd_tpu``'s lab passes
+its (K, N) weight, so the tools hand over its transpose.
 
 ``matmul_int8``
 - on a CPU tensor computes ``matmul_int8_plain``: a float64 product of the
@@ -14,7 +15,10 @@ tools hand over its transpose.
   zero columns in both operands (``pad_depth``: zero codes add nothing to
   the int32 sums, so the result stays exact), launches the kernel on the
   current stream and counts the launch in ``matmul_int8.launches``, or
-  raises. It never falls back to the plain version.
+  raises. It never falls back to the plain version. The kernel writes rows
+  of y padded to a multiple of 4 int32 (16 bytes, a TMA stride); where N
+  is not a multiple of 4 the wrapper returns a view of the first N
+  columns.
 
 ``ops/nn.py``'s int8 ``linear`` and ``fused_linear`` run their product
 through it.
@@ -41,6 +45,25 @@ def pad_depth(t, dim):
     cl = t.ndim == 4 and t.is_contiguous(memory_format=torch.channels_last)
     out = F.pad(t, pad)
     return out.contiguous(memory_format=torch.channels_last) if cl else out.contiguous()
+
+
+# The kernel's tiles (csrc/matmul_int8.cu): 128 rows by 128 or 160 columns
+BLOCK_M = 128
+BLOCK_NS = (160, 128)
+
+
+def matmul_int8_plan(m, n, sms):
+    """The tile width the kernel's launcher picks for an (m, n) output on
+    ``sms`` SMs (a mirror of ``pick_bn`` in ``csrc/matmul_int8.cu``): the
+    one of 160 and 128 with the fewer waves of tiles times the width, 160
+    on a tie. Returns {"block_n", "tiles", "blocks", "waves"}; ``blocks``
+    is the persistent grid, min(tiles, sms)."""
+    def cost(bn):
+        return -(-(-(-m // BLOCK_M) * -(-n // bn)) // sms) * bn
+
+    bn = min(BLOCK_NS, key=cost)  # 160 first: it wins a tie
+    tiles = -(-m // BLOCK_M) * -(-n // bn)
+    return {"block_n": bn, "tiles": tiles, "blocks": min(tiles, sms), "waves": tiles / sms}
 
 
 def matmul_int8_plain(x8, w8):
@@ -72,14 +95,14 @@ def matmul_int8(x8, w8):
                          f"got M={m}, N={n}, K={k}")
     x8, w8 = pad_depth(x8, 1), pad_depth(w8, 1)
     k = x8.shape[1]
-    y = torch.empty((m, n), dtype=torch.int32, device=x8.device)
+    y = torch.empty((m, -(-n // 4) * 4), dtype=torch.int32, device=x8.device)
     fn = cuda_build.entry("matmul_int8")
     err = fn(x8.data_ptr(), w8.data_ptr(), y.data_ptr(), m, n, k,
              torch.cuda.current_stream(x8.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"matmul_int8 kernel launch failed with cudaError {err}")
     matmul_int8.launches += 1
-    return y
+    return y if y.shape[1] == n else y[:, :n]
 
 
 matmul_int8.launches = 0

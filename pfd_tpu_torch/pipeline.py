@@ -9,7 +9,9 @@ in and out are (H, W, 3) float arrays in [0, 1], as in ``pfd_tpu``.
 The serving path passes ``self_attn_fn=ops.flash_attention.self_attn_fn``
 (as ``pfd_tpu``'s ``serve.py --flash`` does), which routes the UNet's long
 self-attention to K1 and its cross-attention to K2; the VAE's mid-block
-attention takes K1 on CUDA by itself.
+attention takes K1 on CUDA by itself. Under the FP32 policy
+(``fp16=False``) no kernel takes the fp32 q, k, v, and all of them run
+plain attention (``ops.flash_attention.kernel_takes``).
 
 ``quantized=True`` is the int8 serving mode (as ``pfd_tpu``'s
 ``quantized=True``, pipeline.py:85-105): after the build, every spatial conv

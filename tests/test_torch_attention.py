@@ -125,3 +125,80 @@ def test_cross_variant(bh, sq, skv, d, rows, key_tile, blocks):
     assert (v["rows"], v["key_tile"], v["blocks_per_head"]) == (rows, key_tile, blocks)
     assert v["resident"] == (skv <= tfa.CROSS_RESIDENT_KEYS)
     assert v["blocks_per_head"] * bh <= max(132, bh)
+
+
+def _route_spy(monkeypatch):
+    """The dispatchers as on the card (``kernel_takes`` sees a CUDA q), with
+    every route replaced by a recorder: (route, head width handed over)."""
+    calls = []
+    monkeypatch.setattr(tfa, "_on_card", lambda t: True)
+    monkeypatch.setattr(tfa, "flash_attention", lambda q, k, v, quant=False, scale=None: (
+        calls.append(("flash" if not quant else f"flash-{quant}", q.shape[3])) or q))
+    monkeypatch.setattr(tfa, "cross_attention", lambda q, k, v, scale=None: calls.append(
+        ("cross", q.shape[3])) or q)
+    monkeypatch.setattr(tfa.nn, "dot_product_attention", lambda q, k, v, **kw: calls.append(
+        ("plain", q.shape[3])) or q)
+    return calls
+
+
+@pytest.mark.parametrize("fn,dtype,d,expect", [
+    ("self", torch.float32, 40, ("plain", 40)),        # fp32: no kernel takes it
+    ("self", torch.bfloat16, 40, ("flash", 40)),
+    ("self", torch.bfloat16, 36, ("flash", 40)),       # padded to a multiple of 8
+    ("self", torch.bfloat16, 512, ("flash", 512)),     # the VAE's head: K1's limit
+    ("self", torch.bfloat16, 514, ("plain", 514)),     # padded to 520 > 512
+    ("cross", torch.float32, 40, ("plain", 40)),
+    ("cross", torch.bfloat16, 160, ("cross", 160)),
+    ("cross", torch.bfloat16, 155, ("cross", 160)),
+    ("cross", torch.bfloat16, 168, ("plain", 168)),    # K2 takes D <= 160
+    ("int8", torch.float16, 40, ("plain", 40)),
+    ("int8", torch.bfloat16, 80, ("flash-pv", 80)),
+    ("int8", torch.bfloat16, 76, ("flash-pv", 80)),
+    ("int8", torch.bfloat16, 124, ("flash-pv", 136)),  # not 128: that would run K1
+    ("int8", torch.bfloat16, 168, ("plain", 168)),     # K4 takes D <= 160
+    ("int8", torch.bfloat16, 256, ("flash-pv", 256)),  # a multiple of 128: K1's limit
+])
+def test_dispatch_routes_on_the_card(monkeypatch, fn, dtype, d, expect):
+    """fp32 (any dtype but bf16) and heads wider than a kernel takes go to
+    plain attention, other heads to the kernel's wrapper padded up to a
+    multiple of 8; decided from dtype and shape, before any launch."""
+    calls = _route_spy(monkeypatch)
+    q = torch.zeros(1, 1, 1024, d, dtype=dtype)
+    kv = q[:, :, :148] if fn == "cross" else q
+    {"self": tfa.self_attn_fn, "cross": tfa.cross_attn_fn, "int8": tfa.self_attn_fn_int8}[fn](
+        q, kv, kv)
+    assert calls == [expect]
+
+
+@pytest.mark.parametrize("fn", ["flash", "cross", "pv"])
+def test_padded_head_matches_unpadded_and_pfd_tpu(fn):
+    """A head of 36, zero-padded to 40 by the dispatchers' helper, against
+    the unpadded plain version and pfd_tpu's kernels (interpret mode) on
+    the same numpy inputs; fp32, atol 1e-4 (the int8 mode: its own test's
+    bounds, a rounding flip of one p8 allowed)."""
+    skv = 148 if fn == "cross" else 256
+    q, k, v = _qkv(1, 2, 256, skv, 36, seed=36)
+    qt, kt, vt = _t(q, k, v)
+    if fn == "flash":
+        kern, want = tfa.flash_attention, jfa.flash_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=128, block_k=128)
+    elif fn == "cross":
+        kern, want = tfa.cross_attention, jfa.cross_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=256)
+    else:
+        def kern(q, k, v, **kw):
+            return tfa.flash_attention(q, k, v, quant="pv", **kw)
+        want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), quant="pv",
+                                   block_q=128, block_k=128)
+    got = tfa.with_padded_head(kern, qt, kt, vt, quant=fn == "pv")
+    assert got.shape == qt.shape
+    ref = kern(qt, kt, vt)
+    want = np.asarray(want)
+    if fn == "pv":
+        top = np.abs(want).max()
+        for other in (ref.numpy(), want):
+            err = np.abs(got.numpy() - other)
+            assert err.max() <= 1e-2 * top and err.mean() <= 1e-4 * top
+    else:
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)

@@ -5,7 +5,8 @@ The port's wrappers compute their plain versions here; pfd_tpu's
 ``flash_attention(quant="pv" | True)`` runs its Pallas kernel in interpret
 mode, at tests/test_flash_attention.py:80-103's shapes, fp32. Both round p
 to int8 per key tile against the running row max, so the port's plain
-versions walk pfd_tpu's tiles here (the kernel's own tile is 64 keys).
+versions walk pfd_tpu's tiles here, or pfd_tpu walks the port's: K4's own
+tile is K1's (``int8_block_k``: 128 keys at D <= 128, 64 above), K5's 64.
 Limits: max-abs <= 1e-2 * max|want| and mean-abs <= 1e-4 * max|want|: an
 exp2 that lands on a rounding boundary in one framework and not the other
 flips one p8 by one. The kernel-versus-plain cases need the card:
@@ -60,7 +61,7 @@ def test_int8_plain_matches_pallas(tile, s, d, mode, block):
 @pytest.mark.parametrize("s,d", [(256, 40), (520, 80)])
 def test_int8_tracks_float_attention(s, d, mode):
     """pfd_tpu's own bounds against float attention (test_flash_attention.py
-    :95-98), on the port's 64-key tiles."""
+    :95-98), on the port's key tiles (K4 128 keys here, K5 64)."""
     q, k, v = _qkv(2, 3, s, s, d, seed=s * d)
     want = np.asarray(jnn.dot_product_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
     got = tfa.flash_attention(*_t(q, k, v), quant=mode).numpy()
@@ -77,7 +78,8 @@ def test_int8_at_serving_length_tracks_pfd_tpu(mode):
     (p8 = round(127 exp2(s - m)) is coarse where the softmax is flat): hold
     the port's 64-key tiles to pfd_tpu's own error there, and both to the
     mean bound. Observed max-abs / max|ref|: pfd_tpu 0.311 (pv) and 0.380
-    (full), the port 0.191 and 0.232; mean-abs / max|ref| about 0.003."""
+    (full), the port 0.191 and 0.232 on 64-key tiles (K4 now walks 128-key
+    tiles); mean-abs / max|ref| about 0.003."""
     q, k, v = _qkv(1, 2, 4096, 4096, 40, seed=9)
     ref = np.asarray(jnn.dot_product_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
     want = np.asarray(jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
@@ -134,3 +136,69 @@ def test_plain_l_sums_rounded_p():
     o = tfa.pv8_plain(q, q, v8, qscale=1.0, block_k=3)
     np.testing.assert_allclose(o[0, 0].numpy(), v8[0, 0].float().mean(0).expand(8, 16).numpy(),
                                rtol=1e-6)
+
+
+@pytest.mark.parametrize("d,tile", [(8, 128), (40, 128), (64, 128), (80, 128), (128, 128),
+                                    (136, 64), (160, 64)])
+def test_int8_block_k_is_the_kernels_key_tile(d, tile):
+    """K4's key tile is K1's (csrc/flash_sm90.cuh Cfg: 128 keys for heads
+    of one or two 64-column boxes, 64 for three), and ``pv8_plain`` walks it
+    by default."""
+    assert tfa.int8_block_k(d) == tile
+    q, k, v = _t(*_qkv(1, 2, 300, 300, d, seed=d))
+    v8 = torch.randint(-127, 128, v.shape, generator=torch.Generator().manual_seed(d),
+                       dtype=torch.int8)
+    torch.testing.assert_close(tfa.pv8_plain(q, k, v8, qscale=0.3),
+                               tfa.pv8_plain(q, k, v8, qscale=0.3, block_k=tile),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("s,d", [(256, 40), (520, 80)])
+def test_pv8_plain_on_the_kernels_tile_tracks_pallas(s, d):
+    """pfd_tpu's Pallas K4 on the kernel's tile (128 keys here) against the
+    port's K4 with its default tile, within the bounds of
+    ``test_int8_plain_matches_pallas``."""
+    q, k, v = _qkv(2, 3, s, s, d, seed=s + d + 1)
+    want = np.asarray(jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                          quant="pv", block_q=128, block_k=tfa.int8_block_k(d)))
+    got = tfa.flash_attention(*_t(q, k, v), quant="pv").numpy()
+    scale = np.abs(want).max()
+    err = np.abs(got - want)
+    assert err.max() <= 1e-2 * scale, (err.max(), scale)
+    assert err.mean() <= 1e-4 * scale, (err.mean(), scale)
+
+
+def test_pv8_key_order_is_the_fragment_layouts():
+    """The kernel packs a thread's own logits as its s8 A fragment
+    (csrc/flash_sm90.cuh softmax_p8): register 0 holds row r0's keys {2q,
+    2q+1, 8+2q, 9+2q} of each 32-key group (q = lane % 4; the accumulator
+    layout: column 8 i + 2 q + j in s[4 i + j]), register 2 the same 16 keys
+    on. The s8 A layout (PTX wgmma m64nNk32, CuTe ALayout_64x32) puts depth
+    4 q .. 4 q + 3 in register 0 and 16 + 4 q .. in register 2. So depth
+    position k carries key PV8_KEY_ORDER[k]."""
+    for q in range(4):
+        acc_cols = [8 * i + 2 * q + j for i in range(4) for j in range(2)]  # s[4i + j], row r0
+        reg0, reg2 = acc_cols[0:4], acc_cols[4:8]
+        assert [tfa.PV8_KEY_ORDER[4 * q + v] for v in range(4)] == reg0
+        assert [tfa.PV8_KEY_ORDER[16 + 4 * q + v] for v in range(4)] == reg2
+    assert sorted(tfa.PV8_KEY_ORDER) == list(range(32))
+
+
+@pytest.mark.parametrize("s", [100, 128, 257])
+def test_v8_keys_major_is_a_relabelling(s):
+    """V8^T holds key 32 g + PV8_KEY_ORDER[k] at column 32 g + k, zeros past
+    S, and P with its columns in the same order times V8^T is P V8 bit for
+    bit (integer products in float64), so the kernel's P.V through the
+    layout is ``pv8_plain``'s."""
+    g = torch.Generator().manual_seed(s)
+    v8 = torch.randint(-127, 128, (2, 3, s, 40), generator=g, dtype=torch.int8)
+    v8t = tfa.v8_keys_major(v8)
+    s32 = -(-s // 32) * 32
+    assert v8t.shape == (2, 3, 40, s32) and v8t.dtype == torch.int8 and v8t.is_contiguous()
+    keys = torch.arange(s32) // 32 * 32 + torch.tensor(tfa.PV8_KEY_ORDER).repeat(s32 // 32)
+    vpad = torch.nn.functional.pad(v8, (0, 0, 0, s32 - s))
+    assert torch.equal(v8t, vpad[:, :, keys].transpose(-1, -2))
+    p8 = torch.randint(0, 128, (2, 3, 64, s), generator=g, dtype=torch.int8)
+    ppad = torch.nn.functional.pad(p8, (0, s32 - s))
+    assert torch.equal(ppad[..., keys].double() @ v8t.double().transpose(-1, -2),
+                       p8.double() @ v8.double())

@@ -167,3 +167,30 @@ def test_conv3x3_plan(shape, cout, box, tiles, split):
     per = -(-plan["depth_blocks"] // split)
     assert (split - 1) * per < plan["depth_blocks"]
     assert plan["split"] == 1 or plan["tiles"] * 2 <= 132
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_channel_padding_matches_pallas(fused):
+    """C = 12 -> Cout = 4, which the CUDA kernel's 16-byte channel rows do
+    not take: ``pad_channels`` (what ``conv3x3_fused`` does on the card)
+    zero-pads C and Cout to 16 and 8, and the padded arithmetic, sliced back
+    to Cout, matches pfd_tpu's kernel in interpret mode (its own padding of
+    cin to 128) and the unpadded plain version."""
+    x, norm_p, conv_p, res = _case((2, 8, 8, 12), 4, seed=12)
+    m = _modules(norm_p, conv_p, 4)
+    xt, rt = _nchw(x), _nchw(res)
+    if fused:
+        want = jfc.gn_silu_conv3x3(jnp.asarray(x), _jax(norm_p), _jax(conv_p), groups=4,
+                                   eps=1e-5, residual=jnp.asarray(res), interpret=True)
+        a, c = tnn.group_norm_affine(xt, m["norm"].weight, m["norm"].bias, groups=4, eps=1e-5)
+        args = (xt, m["conv"].weight, a, c, m["conv"].bias, rt)
+    else:
+        want = jnn.conv2d(jnp.asarray(x), {"kernel": jnp.asarray(conv_p["kernel"])}, padding=1)
+        args = (xt, m["conv"].weight, None, None, None, None)
+    padded = tfc.pad_channels(*args)
+    assert padded[0].shape[1] == 16 and padded[1].shape[:2] == (8, 16)
+    got = tfc.conv3x3_fused_plain(*padded)[:, :4]
+    np.testing.assert_allclose(_nhwc(got), np.asarray(want), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got.numpy(), tfc.conv3x3_fused_plain(*args).numpy(), rtol=0,
+                               atol=1e-5)
+    assert not padded[0][:, 12:].any() and not padded[1][4:].any()

@@ -119,3 +119,19 @@ def test_depth_padding_leaves_the_plain_results_unchanged(depth):
     assert pxc.shape[1] % 16 == 0 and pxc.is_contiguous(memory_format=cl)
     assert torch.equal(tconv.conv_int8_plain(pxc, pwc, stride=1, padding=1),
                        tconv.conv_int8_plain(xc, wc, stride=1, padding=1))
+
+
+@pytest.mark.parametrize("m,n,block_n,tiles", [
+    (8192, 2560, 160, 1024),   # 7.8 tiles a block; a tie with 128 goes to 160
+    (8192, 320, 160, 128),     # one wave (128 wide would be 192 tiles, 1.5 waves)
+    (4096, 1280, 160, 256),    # 1.9 waves (128 wide: 320 tiles, 2.4)
+    (300, 200, 128, 6),
+    (1, 5, 128, 1),
+])
+def test_matmul_int8_plan(m, n, block_n, tiles):
+    """K7b's tile width on 132 SMs (a mirror of csrc/matmul_int8.cu
+    pick_bn): the one of 160 and 128 with the fewer waves of tiles times
+    the width; persistent blocks, at most one per SM."""
+    plan = tmm.matmul_int8_plan(m, n, sms=132)
+    assert (plan["block_n"], plan["tiles"]) == (block_n, tiles)
+    assert plan["blocks"] == min(tiles, 132)

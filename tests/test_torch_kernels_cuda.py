@@ -1,14 +1,18 @@
 """K1, K2, K3, K4 and K5 on the card against their plain PyTorch versions,
 bf16, at the serving path's and the labs' shapes and at every head-dim
-bucket of K1, K2 and K3 with ragged S on narrow and wide grids (K2 also at
+bucket of K1, K2, K3 and K4 with ragged S on narrow and wide grids (K2 also at
 every key-tile variant: its K/V resident, or through K1's key loop), on unit-normal
 inputs, within ``kernel_tolerance``: max-abs a tenth of the output's RMS,
 at most 2e-2; the int8 conv and int8 matmul kernels against their plain versions,
-bit for bit, depths that are not a multiple of 16 included; and the bf16
+bit for bit (the matmul also against ``torch._int_mm`` where that takes the
+shape), depths that are not a multiple of 16 included; the bf16
 conv3x3 kernel (K6 fused, and conv only) against its plain version within
 relative L2 2e-3 and max-abs one bf16 ulp of the largest output, at boxes
-that span images or leave rows unused, C and Cout not multiples of 64, and
-with and without the depth split.
+that span images or leave rows unused, C and Cout not multiples of 64 (nor
+of 8: the wrapper pads them), and with and without the depth split; the
+attention dispatchers' routes on the card (fp32 and wide heads to plain
+attention, heads not a multiple of 8 padded); and a tiny fp32 pipeline
+through the dispatchers to a finite image.
 
 Needs a CUDA device and ``nvcc``; skips where there is none. Imports neither
 JAX nor pfd_tpu, so it also runs on a machine without them:
@@ -20,6 +24,8 @@ import torch
 
 from pfd_tpu_torch.ops import flash_attention as fa
 from pfd_tpu_torch.ops import fused_conv, int8_conv, int8_matmul
+from pfd_tpu_torch.ops import nn as tnn
+from pfd_tpu_torch.ops import quant as tq
 
 
 def _need_cuda():
@@ -149,6 +155,71 @@ def test_int8_flash_kernels_match_plain(shape, quant):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 40, 80, 160])
+@pytest.mark.parametrize("bh,s", [((1, 2), 1000), ((1, 2), 4097), ((1, 2), 50), ((2, 8), 5184)])
+def test_pv8_kernel_every_head_dim_and_ragged_s(d, bh, s):
+    """K4 against ``pv8_plain`` on the kernel's key tile (``int8_block_k``:
+    128 keys at D <= 128, 64 at D = 160) at every head-dim bucket: S ragged
+    against the key tile and the 32-key groups of V8^T (1000, 4097), S
+    inside one key tile (50), and B*H = 16 at S = 5184, where 128-row blocks
+    run and the last block's second warpgroup has no row inside S."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(d + s + bh[1])
+    shape = bh + (s, d)
+    q, k, v = (_randn(shape, g) for _ in range(3))
+    v8, _ = tq.quantize_act(v, amax_dims=(1, 2))
+    qs = fa._qscale(q, d ** -0.5)
+    before = fa.flash_attention_pv8.launches
+    got = fa.flash_attention_pv8(q, k, v8, qscale=qs)
+    want = fa.pv8_plain(q, k, v8, qscale=qs)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_pv8.launches == before + 1
+    assert (got.float() - want.float()).abs().max().item() <= fa.kernel_tolerance(want)
+
+
+@pytest.mark.cuda
+def test_attention_dispatch_on_the_card():
+    """fp32 and heads wider than a kernel takes go to plain attention with
+    no launch; a bf16 head of 36 is padded to 40, runs K1 (K2, K4) once and
+    matches unpadded plain attention; the raw wrappers still refuse both."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(8)
+    q32 = torch.randn((1, 2, 1024, 40), generator=g, device="cuda")
+    counts = (fa.flash_attention.launches, fa.cross_attention.launches,
+              fa.flash_attention_pv8.launches)
+    want = tnn.dot_product_attention(q32, q32, q32)
+    for fn in (fa.self_attn_fn, fa.self_attn_fn_int8):
+        torch.testing.assert_close(fn(q32, q32, q32), want, rtol=0, atol=0)
+    torch.testing.assert_close(fa.cross_attn_fn(q32, q32[:, :, :148], q32[:, :, :148]),
+                               tnn.dot_product_attention(q32, q32[:, :, :148], q32[:, :, :148]),
+                               rtol=0, atol=0)
+    wide = _randn((1, 1, 1024, 168), g)
+    fa.self_attn_fn_int8(wide, wide, wide)
+    fa.cross_attn_fn(wide, wide[:, :, :148], wide[:, :, :148])
+    assert (fa.flash_attention.launches, fa.cross_attention.launches,
+            fa.flash_attention_pv8.launches) == counts
+    q, k, v = (_randn((1, 2, 1024, 36), g) for _ in range(3))
+    for fn, counter in ((fa.self_attn_fn, fa.flash_attention),
+                        (fa.self_attn_fn_int8, fa.flash_attention_pv8)):
+        before = counter.launches
+        got = fn(q, k, v)
+        assert counter.launches == before + 1 and got.shape == q.shape
+    ref = fa.attention_plain(q, k, v)
+    got = fa.self_attn_fn(q, k, v)
+    assert (got.float() - ref.float()).abs().max().item() <= fa.kernel_tolerance(ref)
+    kv = _randn((1, 2, 148, 36), g)
+    before = fa.cross_attention.launches
+    got = fa.cross_attn_fn(q, kv, kv)
+    ref = fa.attention_plain(q, kv, kv)
+    assert fa.cross_attention.launches == before + 1
+    assert (got.float() - ref.float()).abs().max().item() <= fa.kernel_tolerance(ref)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q32, q32, q32)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, v)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("xshape,cout,ksize,stride,padding", [
     ((2, 320, 64, 64), 320, 3, 1, 1),          # ResBlock conv
     ((2, 1280, 8, 8), 1280, 3, 1, 1),          # late UNet: depth split over 11 blocks
@@ -245,22 +316,62 @@ def test_conv3x3_bf16_kernel_matches_plain(xshape, cout, fused):
 
 @pytest.mark.cuda
 def test_conv3x3_kernel_refuses_what_it_does_not_take():
+    """fp32 is refused; C = 12 and Cout = 12, which the kernel's 16-byte TMA
+    rows do not take, are zero-padded to 16 by the wrapper and match the
+    plain version."""
     _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(9)
     w = torch.zeros(16, 16, 3, 3, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(TypeError):
         fused_conv.conv3x3_bf16(torch.zeros(1, 16, 8, 8, device="cuda"), w)  # fp32
-    with pytest.raises(ValueError):
-        fused_conv.conv3x3_bf16(torch.zeros(1, 12, 8, 8, device="cuda", dtype=torch.bfloat16),
-                                torch.zeros(16, 12, 3, 3, device="cuda", dtype=torch.bfloat16))
-    with pytest.raises(ValueError):  # Cout % 8 != 0: no 16-byte output rows for TMA
-        fused_conv.conv3x3_bf16(torch.zeros(1, 16, 8, 8, device="cuda", dtype=torch.bfloat16),
-                                torch.zeros(12, 16, 3, 3, device="cuda", dtype=torch.bfloat16))
+    for cin, cout in ((12, 16), (16, 12)):
+        x = _randn((1, cin, 8, 8), g)
+        wc = (torch.randn((cout, cin, 3, 3), generator=g, device="cuda") / 6).bfloat16()
+        before = fused_conv.conv3x3_fused.launches
+        got = fused_conv.conv3x3_bf16(x, wc)
+        want = fused_conv.conv3x3_fused_plain(x, wc, None, None, None)
+        torch.cuda.synchronize()
+        assert fused_conv.conv3x3_fused.launches == before + 1 and got.shape == want.shape
+        ok, detail = conv_close(got, want)
+        assert ok, detail
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,hw", [(320, 4, 64), (128, 3, 128)])
+def test_gn_silu_conv3x3_at_the_models_output_convs(cin, cout, hw):
+    """The model's own GroupNorm -> SiLU -> conv3x3 sites whose Cout is not
+    a multiple of 8: the UNet's out (320 -> 4) and the VAE's conv_out
+    (128 -> 3), through ``gn_silu_conv3x3`` against its plain version."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(cin + cout)
+    norm = torch.nn.GroupNorm(32, cin, device="cuda").requires_grad_(False)
+    conv = torch.nn.Conv2d(cin, cout, 3, padding=1, device="cuda").requires_grad_(False)
+    norm.weight.copy_(1 + 0.2 * torch.randn(cin, generator=g, device="cuda"))
+    norm.bias.copy_(0.2 * torch.randn(cin, generator=g, device="cuda"))
+    conv.weight.copy_(torch.randn(conv.weight.shape, generator=g, device="cuda") / (9 * cin) ** 0.5)
+    conv.bias.copy_(0.1 * torch.randn(cout, generator=g, device="cuda"))
+    norm, conv = norm.bfloat16(), conv.bfloat16()
+    x = _randn((1, cin, hw, hw), g)
+    before = fused_conv.conv3x3_fused.launches
+    got = fused_conv.gn_silu_conv3x3(x, norm, conv, eps=1e-5)
+    a, c = tnn.group_norm_affine(x, norm.weight, norm.bias, eps=1e-5)
+    want = fused_conv.conv3x3_fused_plain(x, conv.weight, a, c, conv.bias)
+    torch.cuda.synchronize()
+    assert fused_conv.conv3x3_fused.launches == before + 1 and got.shape == want.shape
+    ok, detail = conv_close(got, want)
+    assert ok, detail
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(8192, 320, 2560), (8192, 1280, 320), (4096, 1280, 1280),
-                                   (300, 64, 200), (1, 48, 5)])
+                                   (300, 64, 200), (1, 48, 5), (4097, 200, 40),
+                                   (129, 1296, 161)])
 def test_matmul_int8_kernel_is_bit_exact(m, k, n):
+    """Against the plain version at the lab's shapes and at ragged M, N and
+    K (K = 200 is padded to 208: 1.6 depth blocks; N = 5 and 161 leave
+    padded y columns; M = 129 leaves a 64-row half tile with no row), and
+    against ``torch._int_mm`` where it takes the shape (M > 16, K and N
+    multiples of 8)."""
     _need_cuda()
     g = torch.Generator(device="cuda").manual_seed(6)
     x8 = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
@@ -271,6 +382,8 @@ def test_matmul_int8_kernel_is_bit_exact(m, k, n):
     torch.cuda.synchronize()
     assert int8_matmul.matmul_int8.launches == before + 1
     assert torch.equal(got, want)
+    if m > 16 and k % 8 == 0 and n % 8 == 0:
+        assert torch.equal(got, torch._int_mm(x8, w8.t()))
     x8, w8 = x8[:, :8].contiguous(), w8[:, :8].contiguous()  # K % 16 != 0: zero-padded
     assert torch.equal(int8_matmul.matmul_int8(x8, w8), int8_matmul.matmul_int8_plain(x8, w8))
 
@@ -296,3 +409,50 @@ def test_int8_kernels_take_a_depth_that_is_not_a_multiple_of_16():
     torch.cuda.synchronize()
     assert int8_conv.conv_int8.launches == before + 1
     assert got.shape == want.shape and torch.equal(got, want)
+
+
+# tests/test_e2e_parity.py's tiny configs (not imported: that module needs JAX)
+_TINY_PFD = {"type": "pfd", "args": dict(
+    vae_cfg_list=[["image", {"type": "autoencoderkl", "args": {
+        "embed_dim": 4, "lossconfig": None,
+        "ddconfig": {"double_z": True, "z_channels": 4, "resolution": 64, "in_channels": 3,
+                     "out_ch": 3, "ch": 32, "ch_mult": [1, 2, 4], "num_res_blocks": 1,
+                     "attn_resolutions": [], "dropout": 0.0}}}]],
+    ctx_cfg_list=[["image", {"type": "seecoder", "args": {
+        "imencoder_cfg": {"type": "swin", "args": dict(
+            embed_dim=24, depths=[1, 1, 2, 1], num_heads=[2, 2, 4, 4], window_size=4,
+            ape=False, drop_path_rate=0.0, patch_norm=True)},
+        "imdecoder_cfg": {"type": "seecoder_decoder", "args": dict(
+            inchannels={"res3": 48, "res4": 96, "res5": 192},
+            trans_input_tags=["res3", "res4", "res5"], trans_num_layers=2, trans_dim=128,
+            trans_dropout=0.0, trans_nheads=4, trans_feedforward_dim=64)},
+        "qtransformer_cfg": {"type": "seecoder_query_transformer", "args": dict(
+            in_channels=128, hidden_dim=128, num_queries=[4, 12], nheads=4, num_layers=3,
+            feedforward_dim=64, pre_norm=False, num_feature_levels=3,
+            enforce_input_project=False, with_fea2d_pos=False)}}}]],
+    diffuser_cfg_list=[["image", {"type": "openai_unet_2d_next", "args": dict(
+        in_channels=4, out_channels=4, model_channels=32, attention_resolutions=[1, 2],
+        num_res_blocks=[1, 1], channel_mult=[1, 2], num_heads=4, context_dim=128)}]],
+    latent_scale_factor={"image": 0.18215}, beta_linear_start=0.00085,
+    beta_linear_end=0.012, timesteps=1000)}
+
+
+@pytest.mark.cuda
+def test_fp32_pipeline_runs_on_the_card():
+    """``PromptFreeDiffusionPipeline(fp16=False, device="cuda")`` with the
+    kernel-backed ``self_attn_fn``: the UNet's 1,024-token self- and
+    cross-attention and the VAE's 1,024-token mid-block attention get fp32
+    q, k, v, which the dispatchers send to plain attention, so the request
+    gives a finite image in [0, 1] and launches no attention kernel."""
+    _need_cuda()
+    import numpy as np
+    from pfd_tpu_torch.pipeline import PromptFreeDiffusionPipeline
+
+    pipe = PromptFreeDiffusionPipeline(fp16=False, config_override=_TINY_PFD, device="cuda",
+                                       self_attn_fn=fa.self_attn_fn)
+    ref = np.random.default_rng(0).random((64, 64, 3), dtype=np.float32)
+    counts = (fa.flash_attention.launches, fa.cross_attention.launches)
+    img = pipe.action_inference(ref, h=128, w=128, ugscale=2.0, seed=1, steps=4)[0]
+    assert img.shape == (128, 128, 3) and np.isfinite(img).all()
+    assert img.min() >= 0.0 and img.max() <= 1.0
+    assert (fa.flash_attention.launches, fa.cross_attention.launches) == counts
