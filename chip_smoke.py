@@ -16,7 +16,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    all at once. The compiler's report is printed: registers and spills, any C7515
    (serialised wgmma) or C7517 (injected wait) line, and one count of C7519
    (injected ``warpgroup.arrive``) per kernel instantiation; a spill, C7515
-   or C7517 in K4 or K7b fails the run;
+   or C7517 in K4, K5, the int8 conv or K7b fails the run;
 3. K1 against its plain PyTorch version in bf16 at the serving shapes, at
    D = 8, at a ragged S = 4097, and at ragged S on grids wide enough for
    128-row blocks (B*H = 16, S = 5184 and 1296: the last block's second
@@ -42,10 +42,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    bounds (max-abs / max|want| < 0.08, mean-abs / max|want| < 0.01; where the
    plain version itself is further off in max-abs, as at S = 4096, within
    its error plus ``kernel_tolerance``), at the serving shapes and at
-   ``pfd_tpu``'s own test shapes; K4's rows time its kernel alone, its
-   wrapper (with the V8^T layout copy) and that copy;
+   ``pfd_tpu``'s own test shapes; K4's and K5's rows time the kernel alone,
+   the wrapper (with the V8^T layout copy, and K5's q8 / k8 row padding) and
+   the V8^T copy;
 7. the int8 conv against its plain version, bit for bit, at every int8 conv
-   geometry of a 512^2 request;
+   geometry of a 512^2 request, each row with its plan (box, tile width,
+   tiles, depth split);
 8. the int8 serving mode at full width (``quantized=True``,
    ``self_attn_fn_int8``): request D (as A) must give a finite image in
    [0, 1] and launch K4 500, K2 500, K1 1 and the int8 conv the number of
@@ -97,6 +99,9 @@ PEAK_INT8_OPS = 1979e12    # H100 SXM dense int8
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 MUFU_PER_SM_CLK = 16       # exp2 (MUFU.EX2) results per SM per clock on Hopper
 SLEEP_CYCLES_PER_CALL = 400_000  # 0.2 ms at 1,980 MHz: ahead of a timed call's enqueue
+# the s8 wgmma kernels whose build fails on a spill, C7515 or C7517 (a spill
+# of the accumulator, or wgmmas that ptxas serialised or waits on)
+GUARDED = ("flash_attention_pv8", "flash_attention_int8", "conv_int8", "matmul_int8")
 
 
 def sh(cmd):
@@ -220,6 +225,7 @@ def check_int8_attention(name, quant, shape, mufu_rate, gen):
     from pfd_tpu_torch.ops import flash_attention as fa
     from pfd_tpu_torch.ops import nn as tnn
     from pfd_tpu_torch.ops import quant as tq
+    from pfd_tpu_torch.ops.int8_matmul import pad_depth
 
     b, h, s, d = shape
     q, k, v = (torch.randn(shape, generator=gen, device="cuda").bfloat16() for _ in range(3))
@@ -251,13 +257,16 @@ def check_int8_attention(name, quant, shape, mufu_rate, gen):
         q8, sq = tq.quantize_act(q, amax_dims=(1, 2))
         k8, sk = tq.quantize_act(k, amax_dims=(1, 2))
         c = (sq * sk * (scale * fa.LOG2E)).reshape(1)
-        kern = lambda: fa.flash_attention_int8(q8, k8, v8, c, out_dtype=q.dtype)  # noqa: E731
+        q8p, k8p, v8t = pad_depth(q8, 3), pad_depth(k8, 3), fa.v8_keys_major(v8)
+        kern = lambda: fa.launch_int8(q8p, k8p, v8t, c)  # noqa: E731
         plain = lambda: fa.int8_plain(q8, k8, v8, c, out_dtype=q.dtype)  # noqa: E731
+        wrapper = lambda: fa.flash_attention_int8(q8, k8, v8, c, out_dtype=q.dtype)  # noqa: E731
     else:
         qs = fa._qscale(q, scale)
         v8t = fa.v8_keys_major(v8)
         kern = lambda: fa.launch_pv8(q, k, v8t, qs)  # noqa: E731
         plain = lambda: fa.pv8_plain(q, k, v8, qscale=qs)  # noqa: E731
+        wrapper = lambda: fa.flash_attention_pv8(q, k, v8, qscale=qs)  # noqa: E731
     big = b * h * s * s > 2 ** 28
     row = {
         "shape": [b, h, s, s, d],
@@ -272,9 +281,8 @@ def check_int8_attention(name, quant, shape, mufu_rate, gen):
             lambda: F.scaled_dot_product_attention(q, k, v), 20),
         "library_ms": None,
     }
-    if quant == "pv":
-        row["wrapper_ms"] = cuda_ms(lambda: fa.flash_attention_pv8(q, k, v8, qscale=qs), 20)
-        row["v8_layout_ms"] = cuda_ms(lambda: fa.v8_keys_major(v8), 20)
+    row["wrapper_ms"] = cuda_ms(wrapper, 20)
+    row["v8_layout_ms"] = cuda_ms(lambda: fa.v8_keys_major(v8), 20)
     row["bound_ms"], row["bound_by"] = int8_attention_bound_ms(b, h, s, d, mufu_rate,
                                                                quant is True)
     print(f"{name} {json.dumps(row)}  bound_us={row['bound_ms'] * 1e3:.1f}", flush=True)
@@ -313,7 +321,9 @@ def check_conv(label, xshape, cout, ksize, stride, padding, gen):
     wb = w8.to(torch.bfloat16)
     n, c, h, w = xshape
     ho, wo = got.shape[2:]
-    row = {"shape": label, "max_abs_err": 0.0,
+    plan = int8_conv.conv_int8_plan(n, ho, wo, -(-c // 16) * 16, cout, ksize * ksize, stride,
+                                    torch.cuda.get_device_properties(0).multi_processor_count)
+    row = {"shape": label, "plan": plan, "max_abs_err": 0.0,
            "kernel_ms": cuda_ms(lambda: int8_conv.conv_int8(x8, w8, stride=stride,
                                                             padding=padding), 20),
            "plain_ms": cuda_ms(lambda: int8_conv.conv_int8_plain(
@@ -674,10 +684,10 @@ def main() -> int:
                                                  entry["ptxas"]))
         for fn, n in sorted(arrives.items()):
             print(f"  ptxas {name}: C7519 (warpgroup.arrive injected) x{n} in {fn}", flush=True)
-        if name in ("flash_attention_pv8", "matmul_int8"):  # this slice's kernels
+        if name in GUARDED:
             spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", entry["ptxas"])]
-            print(f"  ptxas {name}: {len(spills)} instantiations, spill stores {spills}",
-                  flush=True)
+            print(f"  ptxas {name}: {len(spills)} instantiations, spill stores {spills}, "
+                  f"C7519 x{sum(arrives.values())} in all", flush=True)
             if any(spills) or "C7515" in entry["ptxas"] or "C7517" in entry["ptxas"]:
                 raise AssertionError(f"build {name}: ptxas reports spills, C7515 or C7517")
 

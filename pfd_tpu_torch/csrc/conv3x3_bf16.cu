@@ -89,15 +89,6 @@ struct Geometry {
   int per_split, nkb, cslices;
 };
 
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0,
                                              int c1, int c2, int c3) {
   asm volatile(
@@ -105,10 +96,6 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t sr
           "l"(reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_one() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
 // D (64 x 160, fp32) += A (64 x 16, bf16 pairs in registers) . B (160 x 16)^T,
@@ -428,19 +415,8 @@ __global__ void reduce_kernel(const float* __restrict__ ws, int split, long long
 // `box`, 128-byte swizzle (swizzle = true) or none, zero fill out of bounds
 bool nhwc_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
               const cuuint32_t* box, bool swizzle) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  cuuint64_t strides[3];
-  cuuint64_t s = dims[0] * 2;
-  for (int i = 1; i < rank; ++i) {
-    strides[i - 1] = s;
-    s *= dims[i];
-  }
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return make_map_nd(map, ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, rank, dims, box, nullptr,
+                     swizzle);
 }
 
 }  // namespace

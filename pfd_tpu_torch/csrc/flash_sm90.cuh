@@ -1,4 +1,4 @@
-// Attention for Hopper (sm_90a): the one kernel behind three TPU kernels of
+// Attention for Hopper (sm_90a): the one kernel behind five TPU kernels of
 // pfd_tpu/ops/flash_attention.py:
 // - K1, flash_attention -> _flash_kernel (:277, call :421): non-causal flash
 //   self-attention (flash_attention.cu);
@@ -8,9 +8,13 @@
 //   short K/V (cross_attention.cu, RESIDENT for K/V up to 160 keys);
 // - K4, flash_attention(quant="pv") -> _flash_kernel_pv8 (:167-215, call
 //   :359): K1's QK^T and softmax with p rounded to int8 and an int8 P.V
-//   (flash_attention_pv8.cu, PV8).
-// It also holds the s8 wgmma wrappers that K4 and the int8 matmul
-// (matmul_int8.cu) share.
+//   (flash_attention_pv8.cu, PV8);
+// - K5, flash_attention(quant=True) -> _flash_kernel_int8 (:218-267, call
+//   :359): K4 with an int8 QK^T and the softmax on int32 logits
+//   (flash_attention_int8.cu, PV8 and QK8).
+// It also holds the TMA and s8 wgmma helpers that K4, K5, the int8 matmul
+// (matmul_int8.cu) and the convolutions (conv3x3_bf16.cu, conv_int8.cu)
+// share.
 //
 // Function (as ops/flash_attention.py attention_plain): q pre-scaled by
 // qscale = scale * log2(e) and rounded to bf16, fp32 logits, m and l, the
@@ -78,6 +82,19 @@
 // row. Tiles of 128 keys load V8^T in 128-byte rows (128-byte swizzle),
 // tiles of 64 keys (D > 128) in 64-byte rows (64-byte swizzle).
 //
+// QK8 (K5) keeps K4's loop, tiles, ring and P.V and changes the QK^T and the
+// softmax. Q8 and K8 are int8 tiles, K-major, in 128-byte boxes (128 head
+// columns; 128-byte swizzle, zero-filled past the head) loaded by TMA; the
+// wrapper pads their rows to a multiple of 16 bytes (a TMA stride). S = Q8
+// K8^T runs as s8 wgmma m64nBKk32 (SS form) over ceil(D / 32) k-steps into
+// int32 logits in registers. The softmax is pfd_tpu's on integers
+// (softmax_q8): an int32 running max from -2^30, keys past S at -2^30, alpha
+// = exp2(float(m_old - m) c) and p8 = int(exp2(float(s - m) c + log2 127) +
+// 0.5), c = sq sk scale log2(e) read once a block from the device pointer
+// the wrapper passes, each multiply and add rounded as the plain version
+// computes it; p8 is packed as K4 packs it. The Q slot stays sized for the
+// bf16 O tile that the epilogue stages in it.
+//
 // PIPE keeps pfd_tpu's pipelined schedule (flash_attention.py:108-160): nk + 1
 // steps; step j starts the logits of key tile min(j, nk - 1) into register
 // slot j % 2 as an async wgmma, runs the softmax of slot (j + 1) % 2 and the
@@ -102,6 +119,7 @@ constexpr float kNegInf = -1e30f;  // masked keys; K1's initial m
 constexpr float kSEmpty = -1e30f;  // pfd_tpu S_EMPTY (flash_attention.py:104)
 constexpr float kMEmpty = -1e29f;  // pfd_tpu M_EMPTY (flash_attention.py:105)
 constexpr float kLog2_127 = 6.988684686772166f;  // K4: p8 = 127 exp2(s - m)
+constexpr int kIntNeg = -(1 << 30);               // K5: masked keys, initial m (pfd_tpu INT_NEG)
 
 // ---- PTX helpers ------------------------------------------------------------
 
@@ -160,6 +178,15 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0,
                                              int c1, int c2) {
   asm volatile(
@@ -213,6 +240,11 @@ __device__ __forceinline__ void wgmma_commit() {
 
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// waits until at most one committed wgmma group is in flight
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
 // Pins an accumulator's registers at this point of the program, so that the
@@ -337,7 +369,8 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
 template <int N>
 __device__ __forceinline__ void wgmma_s8_ss(int (&d)[N / 2], uint64_t a, uint64_t b,
                                             int scale_d) {
-  if constexpr (N == 128) PFD_WGMMA_S8_SS(128, 64, 64, 65, 66);
+  if constexpr (N == 64) PFD_WGMMA_S8_SS(64, 32, 32, 33, 34);
+  else if constexpr (N == 128) PFD_WGMMA_S8_SS(128, 64, 64, 65, 66);
   else PFD_WGMMA_S8_SS(160, 80, 80, 81, 82);
 }
 
@@ -370,11 +403,15 @@ __device__ __forceinline__ void wgmma_s8_rs_n64_first(int (&d)[32], const uint32
 // block into a single stage. QSLOTS: Q tiles in flight (2 where a block
 // walks several q-tiles, so the next one loads under this one's math).
 // PV8 (K4): K1's tiles; a V stage is a V8^T tile of NB * 64 rows (head
-// columns; rows past D zero-filled) by BK bytes (keys).
-template <int NB, bool PIPE, bool RESIDENT = false, int QSLOTS = 1, bool PV8 = false>
+// columns; rows past D zero-filled) by BK bytes (keys). QK8 (K5): K4's
+// tiles with Q and K in NBQ boxes of 128 int8 columns; the Q slot keeps
+// NB boxes, where the epilogue stages the bf16 O.
+template <int NB, bool PIPE, bool RESIDENT = false, int QSLOTS = 1, bool PV8 = false,
+          bool QK8 = false>
 struct Cfg {
   static_assert(!(RESIDENT && (PIPE || NB > 3)), "a resident K/V serves K2 (D <= 192)");
   static_assert(!(PV8 && (PIPE || RESIDENT || NB > 3)), "K4 runs K1's loop at D <= 192");
+  static_assert(!QK8 || PV8, "K5's int8 QK^T comes with K4's int8 P.V");
   static constexpr bool SPLIT = NB >= 4;
   static constexpr int BK =
       RESIDENT ? 160
@@ -384,25 +421,30 @@ struct Cfg {
   static constexpr int OC = SPLIT ? NB / 2 : NB;  // 64-column chunks of O per warpgroup
   static constexpr uint32_t QBOX = 64 * 128;      // 64 rows of one 128-byte box
   static constexpr uint32_t KBOX = BK * 128;
-  static constexpr uint32_t KV_STAGE = NB * KBOX;
-  static constexpr uint32_t V_STAGE = PV8 ? NB * 64 * BK : KV_STAGE;
+  static constexpr int NBQ = QK8 ? (NB + 1) / 2 : NB;  // boxes of a Q or K row
+  static constexpr int BOX_COLS = QK8 ? 128 : 64;     // head columns a box
+  static constexpr uint32_t K_STAGE = NBQ * KBOX;
+  static constexpr uint32_t V_STAGE = PV8 ? NB * 64 * BK : NB * KBOX;
   __host__ __device__ static constexpr uint32_t q_bytes(int nwg) {
     return (SPLIT ? 1 : nwg) * NB * QBOX;
   }
+  __host__ __device__ static constexpr uint32_t q_load(int nwg) {  // the TMA bytes of a Q tile
+    return (SPLIT ? 1 : nwg) * NBQ * QBOX;
+  }
   __host__ __device__ static constexpr size_t smem(int nwg) {  // + 1024 aligns the base
-    return 1024 + QSLOTS * q_bytes(nwg) + STAGES * (KV_STAGE + V_STAGE) +
+    return 1024 + QSLOTS * q_bytes(nwg) + STAGES * (K_STAGE + V_STAGE) +
            8 * (2 * QSLOTS + 4 * STAGES);
   }
 };
 
-// keys past S in the last tile (only when S % BK != 0) -> -1e30
-template <int BK>
-__device__ __forceinline__ void mask_tail(float (&s)[BK / 2], int nvalid, int cq) {
+// keys past S in the last tile (only when S % BK != 0) -> `masked`
+template <int BK, typename T>
+__device__ __forceinline__ void mask_tail(T (&s)[BK / 2], int nvalid, int cq, T masked) {
 #pragma unroll
   for (int i = 0; i < BK / 8; ++i) {
     const int c = 8 * i + cq;
-    if (c >= nvalid) s[4 * i] = s[4 * i + 2] = kNegInf;
-    if (c + 1 >= nvalid) s[4 * i + 1] = s[4 * i + 3] = kNegInf;
+    if (c >= nvalid) s[4 * i] = s[4 * i + 2] = masked;
+    if (c + 1 >= nvalid) s[4 * i + 1] = s[4 * i + 3] = masked;
   }
 }
 
@@ -522,6 +564,59 @@ __device__ __forceinline__ void softmax_p8(const float (&s)[BK / 2], const float
   l[1] = __fadd_rn(__fmul_rn(l[1], alpha[1]), float(sum1));
 }
 
+// K5's softmax on int32 logits (pfd_tpu _flash_kernel_int8, :241-257): the
+// new running max m (int32, quad-reduced), alpha = exp2(float(m_old - m) *
+// c), p8 = int(exp2(float(s - m) * c + log2 127) + 0.5), the multiplies and
+// adds rounded one by one, as the plain version computes them; p8 packed and
+// l summed as softmax_p8 does. (The loop is softmax_p8's, repeated: sharing
+// it through one helper changed ptxas' register allocation of K4 at D = 160,
+// 3.5% slower on an H100.)
+template <int BK>
+__device__ __forceinline__ void softmax_q8(const int (&s)[BK / 2], int (&m)[2], float c,
+                                           float (&alpha)[2], float (&l)[2],
+                                           uint32_t (&p)[BK / 32][4]) {
+  int mx0 = m[0], mx1 = m[1];
+#pragma unroll
+  for (int i = 0; i < BK / 8; ++i) {
+    mx0 = max(mx0, max(s[4 * i], s[4 * i + 1]));
+    mx1 = max(mx1, max(s[4 * i + 2], s[4 * i + 3]));
+  }
+  mx0 = max(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = max(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = max(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = max(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  alpha[0] = ex2(__fmul_rn(float(m[0] - mx0), c));
+  alpha[1] = ex2(__fmul_rn(float(m[1] - mx1), c));
+  m[0] = mx0;
+  m[1] = mx1;
+  int sum0 = 0, sum1 = 0;
+#pragma unroll
+  for (int g = 0; g < BK / 32; ++g) {
+    uint32_t b[16];  // the p8 of s[16 g + h] in the low byte
+#pragma unroll
+    for (int h = 0; h < 16; ++h) {
+      const float x = __fmul_rn(float(s[16 * g + h] - ((h & 2) ? mx1 : mx0)), c);
+      const float e = ex2(__fadd_rn(x, kLog2_127));
+      b[h] = __float_as_uint(__fadd_rz(__fadd_rn(e, 0.5f), 8388608.f));
+    }
+    auto pack4 = [](uint32_t x0, uint32_t x1, uint32_t x2, uint32_t x3) {
+      return __byte_perm(__byte_perm(x0, x1, 0x0040), __byte_perm(x2, x3, 0x0040), 0x5410);
+    };
+    p[g][0] = pack4(b[0], b[1], b[4], b[5]);
+    p[g][1] = pack4(b[2], b[3], b[6], b[7]);
+    p[g][2] = pack4(b[8], b[9], b[12], b[13]);
+    p[g][3] = pack4(b[10], b[11], b[14], b[15]);
+    sum0 = __dp4a(int(p[g][2]), 0x01010101, __dp4a(int(p[g][0]), 0x01010101, sum0));
+    sum1 = __dp4a(int(p[g][3]), 0x01010101, __dp4a(int(p[g][1]), 0x01010101, sum1));
+  }
+  sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
+  sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
+  sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
+  sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
+  l[0] = __fadd_rn(__fmul_rn(l[0], alpha[0]), float(sum0));
+  l[1] = __fadd_rn(__fmul_rn(l[1], alpha[1]), float(sum1));
+}
+
 // K4's P.V: O = O * alpha + P8 V8 over this warpgroup's OC 64-column chunks
 // of O, one s32 chunk live at a time: its BK / 32 s8 wgmmas (A = P8 from
 // registers, B = rows 64 c .. 64 c + 63 of the V8^T tile at `v`, K-major,
@@ -564,6 +659,22 @@ __device__ __forceinline__ void start_qk(float (&s)[BK / 2], uint32_t q, uint32_
     const uint32_t off = (kk & 3) * 32;
     wgmma_ss<BK>(s, desc_sw128(q + (kk >> 2) * qbox + off, 16),
                  desc_sw128(k + (kk >> 2) * kbox + off, 16));
+  }
+  wgmma_commit();
+}
+
+// K5's S = Q8 K8^T over ksteps 32-column steps, int32 (async; committed, not
+// waited); 128-column boxes `qbox` / `kbox` bytes apart. The first step
+// overwrites S.
+template <int BK>
+__device__ __forceinline__ void start_qk8(int (&s)[BK / 2], uint32_t q, uint32_t k, int ksteps,
+                                          uint32_t qbox, uint32_t kbox) {
+  wgmma_fence();
+#pragma unroll 1
+  for (int kk = 0; kk < ksteps; ++kk) {
+    const uint32_t off = (kk & 3) * 32;
+    wgmma_s8_ss<BK>(s, desc_sw128(q + (kk >> 2) * qbox + off, 16),
+                    desc_sw128(k + (kk >> 2) * kbox + off, 16), kk > 0);
   }
   wgmma_commit();
 }
@@ -636,7 +747,7 @@ __device__ __forceinline__ void pipe_step(int j, float (&s_new)[BK / 2], float (
   mbar_arrive(bar.empty_k(st));
   mbar_arrive(bar.empty_v(st));
   if (min(j, tl.nk - 1) == tl.nk - 1 && tl.nvalid_last < BK)
-    mask_tail<BK>(s_new, tl.nvalid_last, tl.cq);
+    mask_tail<BK>(s_new, tl.nvalid_last, tl.cq, kNegInf);
 }
 
 // ---- the kernel ------------------------------------------------------------------
@@ -648,17 +759,19 @@ __device__ __forceinline__ void pipe_step(int j, float (&s_new)[BK / 2], float (
 // warpgroup, once its O store has read the slot) barrier. K/V: with RESIDENT
 // one tile, loaded once per block and never released; otherwise the ring,
 // whose step count runs on across the block's q-tiles. PV8 (K4): mv maps
-// V8^T and the P.V is int8 (pv8_fold).
-template <int NB, int NWG, bool PIPE, bool RESIDENT, int QSLOTS, bool PV8 = false>
+// V8^T and the P.V is int8 (pv8_fold). QK8 (K5): mq and mk map Q8 and K8,
+// the QK^T and the softmax are int8 / int32, and qk_scale points to c.
+template <int NB, int NWG, bool PIPE, bool RESIDENT, int QSLOTS, bool PV8 = false,
+          bool QK8 = false>
 __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 flash_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                   const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mo,
-                  int Sq, int Skv, int D, float qscale) {
-  using C = Cfg<NB, PIPE, RESIDENT, QSLOTS, PV8>;
-  constexpr int BK = C::BK, ST = C::STAGES, OC = C::OC;
+                  int Sq, int Skv, int D, float qscale, const float* __restrict__ qk_scale) {
+  using C = Cfg<NB, PIPE, RESIDENT, QSLOTS, PV8, QK8>;
+  constexpr int BK = C::BK, ST = C::STAGES, OC = C::OC, NBQ = C::NBQ;
   constexpr bool SPLIT = C::SPLIT;
   static_assert(!SPLIT || NWG == 2, "a split head takes two consumer warpgroups");
-  constexpr uint32_t QBOX = C::QBOX, KBOX = C::KBOX, KV_STAGE = C::KV_STAGE;
+  constexpr uint32_t QBOX = C::QBOX, KBOX = C::KBOX, K_STAGE = C::K_STAGE;
   constexpr uint32_t V_STAGE = C::V_STAGE;
   constexpr uint32_t QBYTES = C::q_bytes(NWG);
   constexpr int ROWS = SPLIT ? 64 : 64 * NWG;
@@ -669,7 +782,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant_
   unsigned char* gbase = smem_raw + (base - raw);
   const uint32_t sq = base;  // QSLOTS slots of QBYTES
   const uint32_t sk = sq + QSLOTS * QBYTES;
-  const uint32_t sv = sk + ST * KV_STAGE;
+  const uint32_t sv = sk + ST * K_STAGE;
   const Bars<ST, QSLOTS> bar{sv + ST * V_STAGE};
 
   const int bh = blockIdx.y;
@@ -698,20 +811,20 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant_
     reg_dealloc<24>();
     if (threadIdx.x == NWG * 128) {
       if constexpr (RESIDENT) {
-        mbar_expect_tx(bar.full_k(0), KV_STAGE);
+        mbar_expect_tx(bar.full_k(0), K_STAGE);
         for (int b = 0; b < NB; ++b) tma_load_3d(sk + b * KBOX, &mk, bar.full_k(0), b * 64, 0, bh);
-        mbar_expect_tx(bar.full_v(0), KV_STAGE);
+        mbar_expect_tx(bar.full_v(0), V_STAGE);
         for (int b = 0; b < NB; ++b) tma_load_3d(sv + b * KBOX, &mv, bar.full_v(0), b * 64, 0, bh);
       }
       int g = 0;  // ring steps so far
       for (int qt = blockIdx.x, i = 0; qt < ntq; qt += gridDim.x, ++i) {
         const int qs = i % QSLOTS;
         if constexpr (QSLOTS > 1) mbar_wait(bar.empty_q(qs), ((i / QSLOTS) & 1) ^ 1);
-        mbar_expect_tx(bar.full_q(qs), QBYTES);
+        mbar_expect_tx(bar.full_q(qs), C::q_load(NWG));
         for (int r = 0; r < (SPLIT ? 1 : NWG); ++r)
-          for (int b = 0; b < NB; ++b)
-            tma_load_3d(sq + qs * QBYTES + (r * NB + b) * QBOX, &mq, bar.full_q(qs), b * 64,
-                        qt * ROWS + 64 * r, bh);
+          for (int b = 0; b < NBQ; ++b)
+            tma_load_3d(sq + qs * QBYTES + (r * NB + b) * QBOX, &mq, bar.full_q(qs),
+                        b * C::BOX_COLS, qt * ROWS + 64 * r, bh);
         if constexpr (!RESIDENT) {
           for (int j = 0; j < nsteps; ++j, ++g) {
             const int st = g % ST;
@@ -719,16 +832,17 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant_
             const int kt = PIPE ? min(j, nk - 1) : j;
             const int vt = PIPE ? max(j - 1, 0) : j;
             mbar_wait(bar.empty_k(st), ph ^ 1);
-            mbar_expect_tx(bar.full_k(st), KV_STAGE);
-            for (int b = 0; b < NB; ++b)
-              tma_load_3d(sk + st * KV_STAGE + b * KBOX, &mk, bar.full_k(st), b * 64, kt * BK, bh);
+            mbar_expect_tx(bar.full_k(st), K_STAGE);
+            for (int b = 0; b < NBQ; ++b)
+              tma_load_3d(sk + st * K_STAGE + b * KBOX, &mk, bar.full_k(st), b * C::BOX_COLS,
+                          kt * BK, bh);
             mbar_wait(bar.empty_v(st), ph ^ 1);
             mbar_expect_tx(bar.full_v(st), V_STAGE);
             if constexpr (PV8)  // one box: all NB * 64 rows of V8^T, BK keys
               tma_load_3d(sv + st * V_STAGE, &mv, bar.full_v(st), vt * BK, 0, bh);
             else
               for (int b = 0; b < NB; ++b)
-                tma_load_3d(sv + st * KV_STAGE + b * KBOX, &mv, bar.full_v(st), b * 64, vt * BK,
+                tma_load_3d(sv + st * V_STAGE + b * KBOX, &mv, bar.full_v(st), b * 64, vt * BK,
                             bh);
           }
         }
@@ -755,7 +869,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant_
       // Q: scale by qscale in fp32, round to bf16, in place (elementwise, so
       // the swizzle does not matter); then make it visible to the async proxy
       mbar_wait(bar.full_q(qs), (i / QSLOTS) & 1);
-      {
+      if constexpr (!QK8) {
         const int nthr = SPLIT ? 256 : 128, tid = SPLIT ? threadIdx.x : t;
         uint4* qv = reinterpret_cast<uint4*>(gbase + (qreg - base));
         for (int e = tid; e < int(NB * QBOX / 16); e += nthr) {
@@ -779,7 +893,30 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant_
       for (int c = 0; c < OC; ++c)
 #pragma unroll
         for (int e = 0; e < 32; ++e) o[c][e] = 0.f;
-      if constexpr (!PIPE) {
+      if constexpr (QK8) {
+        const float c = *qk_scale;  // sq * sk * scale * log2(e)
+        const int ksteps8 = (D + 31) / 32;
+        int m8[2] = {kIntNeg, kIntNeg}, s[BK / 2];
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e) s[e] = 0;
+#pragma unroll 1
+        for (int j = 0; j < nk; ++j) {
+          const int st = (g + j) % ST;
+          const uint32_t ph = ((g + j) / ST) & 1;
+          mbar_wait(bar.full_k(st), ph);
+          start_qk8<BK>(s, qreg, sk + st * K_STAGE, ksteps8, QBOX, KBOX);
+          wgmma_wait_all();
+          fence_regs(s);
+          mbar_arrive(bar.empty_k(st));
+          if (j == nk - 1 && nvalid_last < BK) mask_tail<BK>(s, nvalid_last, cq, kIntNeg);
+          float alpha[2];
+          uint32_t p8[BK / 32][4];
+          softmax_q8<BK>(s, m8, c, alpha, l, p8);
+          mbar_wait(bar.full_v(st), ph);
+          pv8_fold<BK, OC>(o, p8, alpha, sv + st * V_STAGE);
+          mbar_arrive(bar.empty_v(st));
+        }
+      } else if constexpr (!PIPE) {
         uint32_t p[BK / 16][4];
         float alpha[2], s[BK / 2], d[BK / 2];
 #pragma unroll
@@ -789,11 +926,11 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant_
           const int st = RESIDENT ? 0 : (g + j) % ST;
           const uint32_t ph = RESIDENT ? 0 : ((g + j) / ST) & 1;
           mbar_wait(bar.full_k(st), ph);
-          start_qk<BK>(s, qreg, sk + st * KV_STAGE, ksteps, QBOX, KBOX);
+          start_qk<BK>(s, qreg, sk + st * K_STAGE, ksteps, QBOX, KBOX);
           wgmma_wait_all();
           fence_regs(s);
           if (!RESIDENT) mbar_arrive(bar.empty_k(st));
-          if (j == nk - 1 && nvalid_last < BK) mask_tail<BK>(s, nvalid_last, cq);
+          if (j == nk - 1 && nvalid_last < BK) mask_tail<BK>(s, nvalid_last, cq, kNegInf);
           softmax_max<BK>(s, m, alpha);
           if constexpr (PV8) {
             uint32_t p8[BK / 32][4];
@@ -807,7 +944,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant_
 #pragma unroll
             for (int c = 0; c < OC; ++c) fence_regs(o[c]);
             mbar_wait(bar.full_v(st), ph);
-            start_pv<BK, OC>(o, p, sv + st * KV_STAGE + vcol, KBOX);
+            start_pv<BK, OC>(o, p, sv + st * V_STAGE + vcol, KBOX);
             wgmma_wait_all();
 #pragma unroll
             for (int c = 0; c < OC; ++c) fence_regs(o[c]);
@@ -830,7 +967,8 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant_
       }
 
       // ---- epilogue: O / l -> bf16 into Q's slot (swizzled), TMA store ----------
-      // (K4's l is the row's sum already; it divides, as its plain version)
+      // (K4's and K5's l is the row's sum already; they divide, as their plain
+      // versions do)
       if constexpr (!PV8) {
         l[0] += __shfl_xor_sync(0xffffffffu, l[0], 1);
         l[0] += __shfl_xor_sync(0xffffffffu, l[0], 2);
@@ -944,11 +1082,40 @@ inline bool make_map_3d(CUtensorMap* map, const void* ptr, CUtensorMapDataType t
   return true;
 }
 
+// A contiguous tensor of `rank` (<= 5) dims, innermost first, of `esize`-byte
+// elements as a tiled map: boxes `box`, element strides `elem` (nullptr: all
+// 1), 128-byte swizzle (swizzle = true) or none, zero fill out of bounds.
+// Not cached (the convolutions encode their maps per launch).
+inline bool make_map_nd(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int esize,
+                        int rank, const cuuint64_t* dims, const cuuint32_t* box,
+                        const cuuint32_t* elem, bool swizzle) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || rank > 5) return false;
+  cuuint64_t strides[4];
+  cuuint64_t s = dims[0] * esize;
+  for (int i = 1; i < rank; ++i) {
+    strides[i - 1] = s;
+    s *= dims[i];
+  }
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  return fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box,
+            elem != nullptr ? elem : ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // A contiguous (BH, S, D) bf16 tensor: boxes of 64 columns x `rows` rows of
 // one head, 128-byte swizzle
 inline bool make_map(CUtensorMap* map, const void* ptr, int BH, int S, int D, int rows) {
   return make_map_3d(map, ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, {D, S, BH}, {64, rows, 1},
                      CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// K5's Q8 or K8, a contiguous (BH, S, D rounded up to 16) int8 tensor: boxes
+// of 128 columns (bytes) x `rows` rows of one head, 128-byte swizzle
+inline bool make_map_i8(CUtensorMap* map, const void* ptr, int BH, int S, int D, int rows) {
+  return make_map_3d(map, ptr, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, {(D + 15) / 16 * 16, S, BH},
+                     {128, rows, 1}, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // K4's V8^T, a contiguous (BH, D, S32) int8 tensor: boxes of `bk` keys (one
@@ -960,26 +1127,31 @@ inline bool make_map_v8t(CUtensorMap* map, const void* ptr, int BH, int D, int S
 }
 
 // blocks_x: blocks per head (0: one per q-tile). PV8: v is V8^T, (BH, D,
-// Skv rounded up to 32) int8.
-template <int NB, int NWG, bool PIPE, bool RESIDENT = false, int QSLOTS = 1, bool PV8 = false>
+// Skv rounded up to 32) int8. QK8: q and k are int8 (BH, S, D rounded up to
+// 16), qk_scale points to K5's c.
+template <int NB, int NWG, bool PIPE, bool RESIDENT = false, int QSLOTS = 1, bool PV8 = false,
+          bool QK8 = false>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int BH, int Sq, int Skv,
-                   int D, float qscale, cudaStream_t stream, int blocks_x = 0) {
-  using C = Cfg<NB, PIPE, RESIDENT, QSLOTS, PV8>;
+                   int D, float qscale, cudaStream_t stream, int blocks_x = 0,
+                   const float* qk_scale = nullptr) {
+  using C = Cfg<NB, PIPE, RESIDENT, QSLOTS, PV8, QK8>;
   static unsigned long long smem_set = 0;
-  cudaError_t err = opt_in_smem(flash_sm90_kernel<NB, NWG, PIPE, RESIDENT, QSLOTS, PV8>,
+  cudaError_t err = opt_in_smem(flash_sm90_kernel<NB, NWG, PIPE, RESIDENT, QSLOTS, PV8, QK8>,
                                 C::smem(NWG), smem_set);
   if (err != cudaSuccess) return err;
   CUtensorMap mq, mk, mv, mo;
   const bool vmap = PV8 ? make_map_v8t(&mv, v, BH, D, (Skv + 31) / 32 * 32, C::BK, NB * 64)
                         : make_map(&mv, v, BH, Skv, D, C::BK);
-  if (!make_map(&mq, q, BH, Sq, D, 64) || !make_map(&mk, k, BH, Skv, D, C::BK) || !vmap ||
-      !make_map(&mo, o, BH, Sq, D, 64))
-    return cudaErrorInvalidValue;
+  const bool qkmaps = QK8 ? make_map_i8(&mq, q, BH, Sq, D, 64) &&
+                                make_map_i8(&mk, k, BH, Skv, D, C::BK)
+                          : make_map(&mq, q, BH, Sq, D, 64) && make_map(&mk, k, BH, Skv, D, C::BK);
+  if (!qkmaps || !vmap || !make_map(&mo, o, BH, Sq, D, 64)) return cudaErrorInvalidValue;
   const int rows = C::SPLIT ? 64 : 64 * NWG;
   const int ntq = (Sq + rows - 1) / rows;
   dim3 grid(blocks_x > 0 && blocks_x < ntq ? blocks_x : ntq, BH);
-  flash_sm90_kernel<NB, NWG, PIPE, RESIDENT, QSLOTS, PV8>
-      <<<grid, (NWG + 1) * 128, C::smem(NWG), stream>>>(mq, mk, mv, mo, Sq, Skv, D, qscale);
+  flash_sm90_kernel<NB, NWG, PIPE, RESIDENT, QSLOTS, PV8, QK8>
+      <<<grid, (NWG + 1) * 128, C::smem(NWG), stream>>>(mq, mk, mv, mo, Sq, Skv, D, qscale,
+                                                         qk_scale);
   return cudaGetLastError();
 }
 

@@ -133,7 +133,7 @@ matmul_int8_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant
           wgmma_s8_ss<BN>(acc, desc_sw128(sa + kk * 32, 16), desc_sw128(sb + kk * 32, 16),
                           kb > 0 || kk > 0);
         wgmma_commit();
-        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // k-block kb-1 done
+        wgmma_wait_one();  // k-block kb-1 done
         if (kb > 0) mbar_arrive(empty((g - 1) % STAGES));
       }
       wgmma_wait_all();

@@ -21,12 +21,13 @@ whole (B, H, S, D) v, and with ``quant=True`` q and k too; the kernels are
 :167-215: K1's Hopper kernel with an s8 ``wgmma`` P.V, ``csrc/
 flash_attention_pv8.cu``, fed V8 K-major with its keys permuted,
 ``v8_keys_major``) and ``flash_attention_int8`` (K5, replaces
-``_flash_kernel_int8``, :333-359, body :218-267: a WMMA kernel,
-``csrc/flash_attention_int8.cu``). Both round p to int8 per key tile
-against the running row max, so their plain versions walk the same tiles
-(``block_k``: K4's is K1's, ``int8_block_k``; K5's 64 keys); the TPU
-kernel's tiles are up to 2048 keys, and the tests pass its block size to
-hold the plain versions against it.
+``_flash_kernel_int8``, :333-359, body :218-267: K4's kernel with an s8
+``wgmma`` QK^T and the softmax on int32 logits, ``csrc/
+flash_attention_int8.cu``, fed q8 and k8 with their rows padded to 16
+bytes). Both round p to int8 per key tile against the running row max, so
+their plain versions walk the same tiles (``block_k``: K1's,
+``int8_block_k``); the TPU kernel's tiles are up to 2048 keys, and the
+tests pass its block size to hold the plain versions against it.
 
 ``flash_attention(..., pipelined=True)`` is K3, K1's function computed with
 ``pfd_tpu``'s software-pipelined schedule (``_flash_kernel_pipe``, :108-160,
@@ -67,6 +68,7 @@ import torch
 from pfd_tpu_torch.ops import cuda_build
 from pfd_tpu_torch.ops import nn
 from pfd_tpu_torch.ops import quant as quant_lib
+from pfd_tpu_torch.ops.int8_matmul import pad_depth
 
 LOG2E = 1.4426950408889634
 LOG2_127 = 6.988684686772166  # log2(127)
@@ -121,13 +123,13 @@ def cross_variant(bh, sq, skv, d, sms):
 
 
 INT_NEG = -(2 ** 30)
-INT8_BLOCK_K = 64  # K5's key tile (csrc/flash_attention_int8.cu)
 
 
 def int8_block_k(d):
-    """K4's key tile for head dim ``d``: K1's (csrc/flash_sm90.cuh Cfg),
-    128 keys for D <= 128 and 64 above. p is rounded to int8 against the
-    running max of each key tile, so the tile is part of K4's function."""
+    """K4's and K5's key tile for head dim ``d``: K1's (csrc/flash_sm90.cuh
+    Cfg), 128 keys for D <= 128 and 64 above. p is rounded to int8 against
+    the running max of each key tile, so the tile is part of their
+    function."""
     return 128 if d <= 128 else 64
 
 
@@ -414,11 +416,14 @@ def pv8_plain(q, k, v8, *, qscale, block_k=None):
     return _online_int8(logits, p8_alpha, m0, v8, block_k).to(q.dtype)
 
 
-def int8_plain(q8, k8, v8, c, *, out_dtype, block_k=INT8_BLOCK_K):
+def int8_plain(q8, k8, v8, c, *, out_dtype, block_k=None):
     """The plain version of K5: int32 QK^T of int8 q8, k8, integer online
-    softmax (int32 m from -2^30) with ``c`` (the fp32 scalar
+    softmax (int32 m from -2^30) over key tiles of ``block_k`` (by default
+    the kernel's, ``int8_block_k(D)``) with ``c`` (the fp32 scalar
     sq*sk*scale*log2(e)) turning logit differences into base-2 exponents,
     int32 P.V against v8. Returns acc / l in ``out_dtype``."""
+    if block_k is None:
+        block_k = int8_block_k(q8.shape[3])
     qf, kf = q8.float(), k8.float()
 
     def logits(j0, j1):
@@ -457,8 +462,8 @@ def _check_int8(t, name):
                          "16-byte aligned tensors")
 
 
-def _check_int8_launch(q, out_dtype, tensors):
-    b, h, s, d = q.shape
+def _check_int8_launch(shape, out_dtype, tensors):
+    b, h, s, d = shape
     if out_dtype != torch.bfloat16:
         raise TypeError("the int8 attention kernels return bfloat16")
     if d % 8 or d > INT8_MAX_D:
@@ -491,7 +496,7 @@ def launch_pv8(q, k, v8t, qscale):
     """K4's kernel alone on CUDA q, k and ``v8t = v8_keys_major(v8)`` (what
     ``flash_attention_pv8`` launches, uncounted; ``chip_smoke.py`` times it
     apart from the layout's copy)."""
-    _check_int8_launch(q, q.dtype, ((q, "q"), (k, "k"), (v8t, "v8t")))
+    _check_int8_launch(q.shape, q.dtype, ((q, "q"), (k, "k"), (v8t, "v8t")))
     b, h, s, d = q.shape
     if v8t.shape != (b, h, d, -(-s // PV8_KEY_GROUP) * PV8_KEY_GROUP):
         raise ValueError(f"v8t is v8_keys_major(v8), got {tuple(v8t.shape)}")
@@ -505,7 +510,10 @@ def launch_pv8(q, k, v8t, qscale):
 
 def flash_attention_int8(q8, k8, v8, c, *, out_dtype):
     """K5: int8 q8, k8, v8 (B, H, S, D) and the fp32 scalar tensor ``c`` ->
-    acc / l (B, H, S, D) in ``out_dtype`` (bf16 on the card)."""
+    acc / l (B, H, S, D) in ``out_dtype`` (bf16 on the card). On the card
+    the wrapper hands the kernel q8 and k8 with D zero-padded to a multiple
+    of 16 (``pad_depth``: 16-byte rows, a TMA stride; zero columns add
+    nothing to QK^T) and ``v8_keys_major(v8)``."""
     if not (q8.shape == k8.shape == v8.shape) or not all(
             t.dtype == torch.int8 for t in (q8, k8, v8)):
         raise ValueError("flash_attention_int8 takes int8 q8, k8, v8 of one shape")
@@ -513,16 +521,34 @@ def flash_attention_int8(q8, k8, v8, c, *, out_dtype):
         return int8_plain(q8, k8, v8, c, out_dtype=out_dtype)
     if q8.device.type != "cuda" or not (k8.device == v8.device == c.device == q8.device):
         raise ValueError(f"flash_attention_int8 runs on cpu or cuda, got {q8.device}")
-    if c.dtype != torch.float32 or c.numel() != 1:
-        raise ValueError("c is one fp32 value")
-    _check_int8_launch(q8, out_dtype, ((q8, "q8"), (k8, "k8"), (v8, "v8")))
-    b, h, s, d = q8.shape
-    o = torch.empty(q8.shape, dtype=out_dtype, device=q8.device)
+    _check_int8_launch(q8.shape, out_dtype, ((q8, "q8"), (k8, "k8"), (v8, "v8")))
+    o = launch_int8(pad_depth(q8, 3), pad_depth(k8, 3), v8_keys_major(v8), c)
+    flash_attention_int8.launches += 1
+    return o
+
+
+def launch_int8(q8, k8, v8t, c):
+    """K5's kernel alone on CUDA ``q8``, ``k8`` (D zero-padded to a multiple
+    of 16), ``v8t = v8_keys_major(v8)`` and ``c`` (what
+    ``flash_attention_int8`` launches, uncounted; ``chip_smoke.py`` times
+    it apart from the layouts' copies). Returns acc / l in bf16."""
+    if q8.device.type != "cuda":
+        raise ValueError(f"launch_int8 runs on cuda, not {q8.device}")
+    b, h, d, s32 = v8t.shape
+    s = q8.shape[2]
+    dq = -(-d // 16) * 16
+    if q8.shape != (b, h, s, dq) or k8.shape != q8.shape or s32 != -(-s // PV8_KEY_GROUP) * 32:
+        raise ValueError(f"launch_int8 takes q8, k8 (B, H, S, D padded to 16) and v8t = "
+                         f"v8_keys_major(v8), got {tuple(q8.shape)}, {tuple(k8.shape)}, "
+                         f"{tuple(v8t.shape)}")
+    if c.dtype != torch.float32 or c.numel() != 1 or c.device != q8.device:
+        raise ValueError("c is one fp32 value on q8's device")
+    _check_int8_launch((b, h, s, d), torch.bfloat16, ((q8, "q8"), (k8, "k8"), (v8t, "v8t")))
+    o = torch.empty((b, h, s, d), dtype=torch.bfloat16, device=q8.device)
     fn = cuda_build.entry("flash_attention_int8")
-    err = fn(q8.data_ptr(), k8.data_ptr(), v8.data_ptr(), o.data_ptr(), c.data_ptr(), b * h,
+    err = fn(q8.data_ptr(), k8.data_ptr(), v8t.data_ptr(), o.data_ptr(), c.data_ptr(), b * h,
              s, d, torch.cuda.current_stream(q8.device).cuda_stream)
     _launch_check(err, "flash_attention_int8")
-    flash_attention_int8.launches += 1
     return o
 
 

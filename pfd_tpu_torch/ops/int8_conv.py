@@ -2,10 +2,13 @@
 mode, the Hopper form of ``pfd_tpu/tools/int8_lab.py:129`` ``_pallas_conv``
 -> ``_conv_kernel`` (K7a: a conv3x3 as nine shifted int8 dots with int32
 accumulation). ``pfd_tpu`` ran these convs on XLA; here one hand-written
-CUDA C++ kernel for ``sm_90a`` (``csrc/conv_int8.cu``, an implicit GEMM on
-int8 WMMA tiles; its design notes are at the top of the source) serves
-every int8 conv of the path: 3x3 s1 p1, 3x3 s2 p1, the 2x2 phase conv of
-the int8 upsample, and the VAE encoder's right/bottom-padded s2 conv.
+CUDA C++ kernel for ``sm_90a`` (``csrc/conv_int8.cu``: an implicit GEMM on
+s8 ``wgmma`` fed by TMA boxes of whole output rows, whose zero fill is the
+padding and whose element strides are the conv's stride; its design notes
+are at the top of the source) serves every int8 conv of the path: 3x3 s1
+p1, 3x3 s2 p1, the 2x2 phase conv of the int8 upsample, and the VAE
+encoder's right/bottom-padded s2 conv. ``conv_int8_plan`` mirrors how its
+launcher tiles a conv, and picks the depth split the wrapper hands it.
 
 ``conv_int8``
 - on a CPU tensor computes ``conv_int8_plain``: a float64 conv of the
@@ -16,7 +19,7 @@ the int8 upsample, and the VAE encoder's right/bottom-padded s2 conv.
   nothing to the int32 sums, so the result stays exact), launches the
   kernel on the current stream and counts the launch in
   ``conv_int8.launches``, or raises. It never falls back to the plain
-  version.
+  version. y is NCHW int32, as the plain version's.
 
 The dequantize and the bias stay in ``ops/nn.py``, in ``pfd_tpu``'s order.
 """
@@ -31,10 +34,15 @@ import torch.nn.functional as F
 from pfd_tpu_torch.ops import cuda_build
 from pfd_tpu_torch.ops.int8_matmul import pad_depth
 
-TILE = 128        # output rows (pixels) and columns (channels) of one block
-SLICE = 64        # bytes of cin in one depth slice
-RESIDENT = 2      # blocks an SM holds at once (registers: 256 threads x ~121)
-MIN_SLICES = 16   # depth slices a block keeps at least when the depth is split
+# The kernel's tiles (csrc/conv_int8.cu): 128 output pixels (whole output
+# rows of one TMA box) by 160 or 128 output channels, depth in blocks of 128
+# channels of one tap
+BLOCK_M, BLOCK_C = 128, 128
+BLOCK_NS = (160, 128)
+BOX_SPAN = 256          # a TMA box's largest extent, s * bw and s * bh at stride s
+MAX_STRIDE = 8          # the TMA's largest element stride
+MIN_DEPTH_BLOCKS = 4    # depth blocks a split keeps at least
+MAX_SPLIT = 16
 
 
 def pads(padding):
@@ -64,6 +72,8 @@ def _check(x8, w8, stride):
         raise ValueError("x and w must lie on one device")
     if int(stride) < 1:
         raise ValueError(f"stride must be positive, got {stride}")
+    if x8.device.type == "cuda" and int(stride) > MAX_STRIDE:
+        raise ValueError(f"the conv_int8 kernel takes stride <= {MAX_STRIDE}, got {stride}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,16 +81,30 @@ def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_depth(tiles, slices, sms):
-    """Blocks per output tile: as many as keep the grid inside one resident
-    wave (``RESIDENT`` blocks per SM), each with at least ``MIN_SLICES`` of
-    the ``slices`` depth slices, trimmed so that no part is empty. Grids
-    that fill the SMs on their own are not split."""
-    split = min(RESIDENT * sms // tiles, slices // MIN_SLICES)
-    if split <= 1:
-        return 1
-    per = -(-slices // split)
-    return -(-slices // per)
+def conv_int8_plan(n, ho, wo, cin, cout, taps, stride, sms):
+    """How the kernel tiles an int8 conv with an (n, cout, ho, wo) output,
+    ``cin`` input channels (a multiple of 16), ``taps = kh * kw`` and
+    ``stride`` on ``sms`` SMs (a mirror of ``pfd_conv_int8`` in
+    ``csrc/conv_int8.cu``). The box of one tile is whole output rows: ``bw =
+    min(wo, 128)``, ``bh = min(ho, 128 // bw)``, each at most ``256 //
+    stride`` (the input box is ``stride`` times as wide and high), and
+    where a box holds whole images, as many as fit (``bn``). The tile width
+    is the narrower padded width of cout of 160 and 128, 160 on a tie. Where
+    the tiles fill fewer than the SMs, the depth (taps x ceil(cin / 128)
+    blocks) is split over ``split`` blocks a tile, each keeping at least
+    ``MIN_DEPTH_BLOCKS`` blocks, at most ``MAX_SPLIT`` of them, and none
+    empty. Returns {"box", "block_n", "tiles", "depth_blocks", "split"}."""
+    span = BOX_SPAN // stride
+    bw = min(wo, BLOCK_M, span)
+    bh = min(ho, BLOCK_M // bw, span)
+    bn = min(n, BLOCK_M // (wo * ho)) if (bw, bh) == (wo, ho) else 1
+    block_n = min(BLOCK_NS, key=lambda w_: -(-cout // w_) * w_)  # 160 first: it wins a tie
+    tiles = -(-wo // bw) * -(-ho // bh) * -(-n // bn) * -(-cout // block_n)
+    depth = taps * -(-cin // BLOCK_C)
+    split = max(1, min(sms // tiles, depth // MIN_DEPTH_BLOCKS, MAX_SPLIT))
+    split = -(-depth // -(-depth // split))  # every block of the split gets depth
+    return {"box": (bw, bh, bn), "block_n": block_n, "tiles": tiles, "depth_blocks": depth,
+            "split": split}
 
 
 def conv_int8(x8, w8, *, stride=1, padding=0):
@@ -105,8 +129,8 @@ def conv_int8(x8, w8, *, stride=1, padding=0):
     wo = (w + left + right - kw) // stride + 1
     if ho < 1 or wo < 1:
         raise ValueError(f"empty output for input {h}x{w}, kernel {kh}x{kw}")
-    tiles = -(-n * ho * wo // TILE) * -(-k // TILE)
-    split = split_depth(tiles, kh * kw * -(-c // SLICE), _sm_count(x8.device.index))
+    split = conv_int8_plan(n, ho, wo, c, k, kh * kw, int(stride),
+                           _sm_count(x8.device.index))["split"]
     # a split depth adds its parts into y, which then starts at zero
     alloc = torch.zeros if split > 1 else torch.empty
     y = alloc((n, k, ho, wo), dtype=torch.int32, device=x8.device)

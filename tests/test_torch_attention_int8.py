@@ -5,8 +5,8 @@ The port's wrappers compute their plain versions here; pfd_tpu's
 ``flash_attention(quant="pv" | True)`` runs its Pallas kernel in interpret
 mode, at tests/test_flash_attention.py:80-103's shapes, fp32. Both round p
 to int8 per key tile against the running row max, so the port's plain
-versions walk pfd_tpu's tiles here, or pfd_tpu walks the port's: K4's own
-tile is K1's (``int8_block_k``: 128 keys at D <= 128, 64 above), K5's 64.
+versions walk pfd_tpu's tiles here, or pfd_tpu walks the port's: K4's and
+K5's own tile is K1's (``int8_block_k``: 128 keys at D <= 128, 64 above).
 Limits: max-abs <= 1e-2 * max|want| and mean-abs <= 1e-4 * max|want|: an
 exp2 that lands on a rounding boundary in one framework and not the other
 flips one p8 by one. The kernel-versus-plain cases need the card:
@@ -61,7 +61,7 @@ def test_int8_plain_matches_pallas(tile, s, d, mode, block):
 @pytest.mark.parametrize("s,d", [(256, 40), (520, 80)])
 def test_int8_tracks_float_attention(s, d, mode):
     """pfd_tpu's own bounds against float attention (test_flash_attention.py
-    :95-98), on the port's key tiles (K4 128 keys here, K5 64)."""
+    :95-98), on the port's key tiles (128 keys here)."""
     q, k, v = _qkv(2, 3, s, s, d, seed=s * d)
     want = np.asarray(jnn.dot_product_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
     got = tfa.flash_attention(*_t(q, k, v), quant=mode).numpy()
@@ -76,10 +76,9 @@ def test_int8_at_serving_length_tracks_pfd_tpu(mode):
     """At ds1's S = 4096 the int8 contract itself is further from float
     attention in max-abs than the 0.08 that pfd_tpu tests at S <= 520
     (p8 = round(127 exp2(s - m)) is coarse where the softmax is flat): hold
-    the port's 64-key tiles to pfd_tpu's own error there, and both to the
+    the port's 128-key tiles to pfd_tpu's own error there, and both to the
     mean bound. Observed max-abs / max|ref|: pfd_tpu 0.311 (pv) and 0.380
-    (full), the port 0.191 and 0.232 on 64-key tiles (K4 now walks 128-key
-    tiles); mean-abs / max|ref| about 0.003."""
+    (full), the port 0.191 and 0.233; mean-abs / max|ref| about 0.003."""
     q, k, v = _qkv(1, 2, 4096, 4096, 40, seed=9)
     ref = np.asarray(jnn.dot_product_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
     want = np.asarray(jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
@@ -141,16 +140,21 @@ def test_plain_l_sums_rounded_p():
 @pytest.mark.parametrize("d,tile", [(8, 128), (40, 128), (64, 128), (80, 128), (128, 128),
                                     (136, 64), (160, 64)])
 def test_int8_block_k_is_the_kernels_key_tile(d, tile):
-    """K4's key tile is K1's (csrc/flash_sm90.cuh Cfg: 128 keys for heads
-    of one or two 64-column boxes, 64 for three), and ``pv8_plain`` walks it
-    by default."""
+    """K4's and K5's key tile is K1's (csrc/flash_sm90.cuh Cfg: 128 keys for
+    heads of one or two 64-column boxes, 64 for three), and ``pv8_plain``
+    and ``int8_plain`` walk it by default."""
     assert tfa.int8_block_k(d) == tile
     q, k, v = _t(*_qkv(1, 2, 300, 300, d, seed=d))
-    v8 = torch.randint(-127, 128, v.shape, generator=torch.Generator().manual_seed(d),
-                       dtype=torch.int8)
+    g = torch.Generator().manual_seed(d)
+    q8, k8, v8 = (torch.randint(-127, 128, v.shape, generator=g, dtype=torch.int8)
+                  for _ in range(3))
     torch.testing.assert_close(tfa.pv8_plain(q, k, v8, qscale=0.3),
                                tfa.pv8_plain(q, k, v8, qscale=0.3, block_k=tile),
                                rtol=0, atol=0)
+    c = torch.tensor([2e-4])
+    torch.testing.assert_close(tfa.int8_plain(q8, k8, v8, c, out_dtype=torch.float32),
+                               tfa.int8_plain(q8, k8, v8, c, out_dtype=torch.float32,
+                                              block_k=tile), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("s,d", [(256, 40), (520, 80)])
@@ -162,6 +166,21 @@ def test_pv8_plain_on_the_kernels_tile_tracks_pallas(s, d):
     want = np.asarray(jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                           quant="pv", block_q=128, block_k=tfa.int8_block_k(d)))
     got = tfa.flash_attention(*_t(q, k, v), quant="pv").numpy()
+    scale = np.abs(want).max()
+    err = np.abs(got - want)
+    assert err.max() <= 1e-2 * scale, (err.max(), scale)
+    assert err.mean() <= 1e-4 * scale, (err.mean(), scale)
+
+
+@pytest.mark.parametrize("s,d", [(256, 40), (520, 80)])
+def test_int8_plain_on_the_kernels_tile_tracks_pallas(s, d):
+    """pfd_tpu's Pallas K5 (``quant=True``) on the kernel's tile (128 keys
+    here) against the port's K5 with its default tile, within the bounds of
+    ``test_int8_plain_matches_pallas``."""
+    q, k, v = _qkv(2, 3, s, s, d, seed=s + d + 2)
+    want = np.asarray(jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                          quant=True, block_q=128, block_k=tfa.int8_block_k(d)))
+    got = tfa.flash_attention(*_t(q, k, v), quant=True).numpy()
     scale = np.abs(want).max()
     err = np.abs(got - want)
     assert err.max() <= 1e-2 * scale, (err.max(), scale)

@@ -1,12 +1,13 @@
-"""K7b of the port (``ops/int8_matmul.matmul_int8``) and K7a's bf16 mode
-(``ops/fused_conv.conv3x3_bf16``) against pfd_tpu's int8 lab kernels, and
-the int8 linear through K7b.
+"""K7b of the port (``ops/int8_matmul.matmul_int8``), K7a's int8 mode
+(``ops/int8_conv.conv_int8``) and its bf16 mode (``ops/fused_conv.
+conv3x3_bf16``) against pfd_tpu's int8 lab kernels, and the int8 linear
+through K7b.
 
 pfd_tpu's ``pallas_matmul_int8`` and ``_pallas_conv`` take no ``interpret``
 argument, so the tests run them with ``pl.pallas_call`` patched to interpret
-mode. The int8 products are compared bit for bit (ragged M and N); the bf16
-conv on integer-valued inputs sums exactly in fp32 (|y| < 2^24), so both
-sides round the same sums to bf16 and agree bit for bit too.
+mode. The int8 products and the int8 conv are compared bit for bit (ragged M
+and N); the bf16 conv on integer-valued inputs sums exactly in fp32 (|y| <
+2^24), so both sides round the same sums to bf16 and agree bit for bit too.
 """
 
 import functools
@@ -25,6 +26,7 @@ from pfd_tpu.ops import quant as jquant  # noqa: E402
 from pfd_tpu.tools import int8_lab as jlab  # noqa: E402
 from pfd_tpu_torch.io.convert import params_from_jax  # noqa: E402
 from pfd_tpu_torch.ops import fused_conv as tfc  # noqa: E402
+from pfd_tpu_torch.ops import int8_conv as tconv  # noqa: E402
 from pfd_tpu_torch.ops import int8_matmul as tmm  # noqa: E402
 from pfd_tpu_torch.ops import nn as tn  # noqa: E402
 from pfd_tpu_torch.ops import quant as tquant  # noqa: E402
@@ -69,6 +71,24 @@ def test_bf16_conv_plain_matches_pallas_conv(interpret):
     np.testing.assert_array_equal(got.float().numpy().transpose(0, 2, 3, 1), want)
 
 
+@pytest.mark.parametrize("b,side,cin,cout,ht", [(2, 8, 32, 48, 4), (1, 12, 24, 40, 6)])
+def test_int8_conv_plain_matches_pallas_conv(interpret, b, side, cin, cout, ht):
+    """``_pallas_conv`` in int8 (int8 in, int32 accumulate and out: K7a's
+    int8 mode, int8_lab.py:160) against ``conv_int8``'s plain version,
+    the oracle of the int8 conv kernel, bit for bit: 3x3, stride 1, padding
+    1, C not a multiple of 16 in the second case."""
+    rng = np.random.default_rng(side + cin)
+    x8, k8 = _codes((b, side, side, cin), rng), _codes((3, 3, cin, cout), rng)
+    want = np.asarray(jlab._pallas_conv(jnp.asarray(x8), jnp.asarray(k8), jnp.int32,
+                                        jnp.int32, ht))
+    xt = torch.from_numpy(np.ascontiguousarray(x8.transpose(0, 3, 1, 2)))
+    wt = torch.from_numpy(np.ascontiguousarray(k8.transpose(3, 2, 0, 1)))
+    before = tconv.conv_int8.launches
+    got = tconv.conv_int8(xt, wt, stride=1, padding=1)
+    assert got.dtype == torch.int32 and tconv.conv_int8.launches == before
+    np.testing.assert_array_equal(got.numpy().transpose(0, 2, 3, 1), want)
+
+
 def test_int8_linear_runs_k7b_and_matches_pfd_tpu(monkeypatch):
     """A quantized ``nn.Linear`` through the port's ``nn.linear`` goes
     through ``matmul_int8`` and gives pfd_tpu's int8 ``nn.linear``: the same
@@ -100,8 +120,6 @@ def test_int8_linear_runs_k7b_and_matches_pfd_tpu(monkeypatch):
 def test_depth_padding_leaves_the_plain_results_unchanged(depth):
     """``pad_depth`` (the CUDA wrappers' zero padding of K and C up to a
     multiple of 16) changes neither the int8 matmul nor the int8 conv."""
-    from pfd_tpu_torch.ops import int8_conv as tconv
-
     g = torch.Generator().manual_seed(depth)
 
     def codes(shape):

@@ -1,11 +1,12 @@
 """K1, K2, K3, K4 and K5 on the card against their plain PyTorch versions,
 bf16, at the serving path's and the labs' shapes and at every head-dim
-bucket of K1, K2, K3 and K4 with ragged S on narrow and wide grids (K2 also at
+bucket of K1, K2, K3, K4 and K5 with ragged S on narrow and wide grids (K2 also at
 every key-tile variant: its K/V resident, or through K1's key loop), on unit-normal
 inputs, within ``kernel_tolerance``: max-abs a tenth of the output's RMS,
 at most 2e-2; the int8 conv and int8 matmul kernels against their plain versions,
 bit for bit (the matmul also against ``torch._int_mm`` where that takes the
-shape), depths that are not a multiple of 16 included; the bf16
+shape), depths that are not a multiple of 16 included, the int8 conv at every
+geometry of the path with and without the depth split; the wrappers' refusals; the bf16
 conv3x3 kernel (K6 fused, and conv only) against its plain version within
 relative L2 2e-3 and max-abs one bf16 ulp of the largest output, at boxes
 that span images or leave rows unused, C and Cout not multiples of 64 (nor
@@ -241,6 +242,108 @@ def test_conv_int8_kernel_is_bit_exact(xshape, cout, ksize, stride, padding):
     torch.cuda.synchronize()
     assert int8_conv.conv_int8.launches == before + 1
     assert got.shape == want.shape and torch.equal(got, want)
+
+
+# The int8 conv's geometries on the path: (kernel, stride, padding, outputs
+# per cout): the 3x3 s1 and s2 convs, the upsample's 2x2 phase conv with
+# 4 * cout outputs, the VAE encoder's right/bottom-padded s2 conv
+_CONV_GEOMETRIES = {"3x3s1": (3, 1, 1, 1), "3x3s2": (3, 2, 1, 1), "phase2x2": (2, 1, 1, 4),
+                    "vae_s2": (3, 2, (0, 1, 0, 1), 1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", ["plan", "forced"])
+@pytest.mark.parametrize("cin,cout", [(48, 320), (80, 128)])
+@pytest.mark.parametrize("hw", [(13, 13), (33, 47), (7, 7)])
+@pytest.mark.parametrize("geometry", sorted(_CONV_GEOMETRIES))
+def test_conv_int8_kernel_every_geometry(monkeypatch, geometry, hw, cin, cout, split):
+    """The int8 conv kernel bit for bit against its plain version at each
+    geometry of the path, at sizes whose boxes of whole output rows leave
+    rows unused (13: 9 rows of 13; 47: 2 rows; 7x7: two images a box), C not
+    a multiple of 32 (48 and 80: a depth block's last k-steps skipped), cout
+    on the 160- and the 128-wide tile (320 and 128; the phase conv's 1,280
+    and 512), with the plan's depth split and with a forced one (up to 3
+    parts, every one non-empty)."""
+    _need_cuda()
+    ksize, stride, padding, mult = _CONV_GEOMETRIES[geometry]
+    if split == "forced":
+        plan = int8_conv.conv_int8_plan
+
+        def forced(*args):
+            out = dict(plan(*args))
+            depth = out["depth_blocks"]
+            out["split"] = -(-depth // -(-depth // min(3, depth)))
+            return out
+
+        monkeypatch.setattr(int8_conv, "conv_int8_plan", forced)
+    g = torch.Generator(device="cuda").manual_seed(sum(hw) + cin)
+
+    def codes(shape):
+        return torch.randint(-127, 128, shape, generator=g, device="cuda",
+                             dtype=torch.int8).contiguous(memory_format=torch.channels_last)
+
+    x8, w8 = codes((2, cin) + hw), codes((mult * cout, cin, ksize, ksize))
+    before = int8_conv.conv_int8.launches
+    got = int8_conv.conv_int8(x8, w8, stride=stride, padding=padding)
+    want = int8_conv.conv_int8_plain(x8, w8, stride=stride, padding=padding)
+    torch.cuda.synchronize()
+    assert int8_conv.conv_int8.launches == before + 1
+    assert got.shape == want.shape and torch.equal(got, want), (got != want).sum().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 40, 80, 160])
+@pytest.mark.parametrize("bh,s", [((1, 2), 1000), ((1, 2), 4097), ((1, 2), 50), ((2, 8), 5184)])
+def test_int8_kernel_every_head_dim_and_ragged_s(d, bh, s):
+    """K5 against ``int8_plain`` on the kernel's key tile (``int8_block_k``)
+    at every head-dim bucket, q8 and k8 padded to 16-byte rows (D = 8 and
+    40), S ragged against the key tile and the 32-key groups of V8^T, S
+    inside one key tile, and 128-row blocks whose last one's second
+    warpgroup has no row inside S (B*H = 16, S = 5184)."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(d + s + bh[1] + 1)
+    shape = bh + (s, d)
+    (q8, sq), (k8, sk), (v8, _) = (tq.quantize_act(_randn(shape, g), amax_dims=(1, 2))
+                                   for _ in range(3))
+    c = (sq * sk * (d ** -0.5 * fa.LOG2E)).reshape(1)
+    before = fa.flash_attention_int8.launches
+    got = fa.flash_attention_int8(q8, k8, v8, c, out_dtype=torch.bfloat16)
+    want = fa.int8_plain(q8, k8, v8, c, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_int8.launches == before + 1
+    assert (got.float() - want.float()).abs().max().item() <= fa.kernel_tolerance(want)
+
+
+@pytest.mark.cuda
+def test_int8_kernels_refuse_what_they_do_not_take():
+    """The int8 conv refuses a non-channels-last or unaligned x and a stride
+    past the TMA's element strides; K5 refuses heads wider than 160 or not
+    a multiple of 8, a non-bf16 output and a c that is not one fp32 value;
+    none of them launches."""
+    _need_cuda()
+    cl = torch.channels_last
+    x8 = torch.zeros((1, 16, 12, 12), dtype=torch.int8, device="cuda")
+    w8 = torch.zeros((32, 16, 3, 3), dtype=torch.int8, device="cuda").contiguous(memory_format=cl)
+    counts = (int8_conv.conv_int8.launches, fa.flash_attention_int8.launches)
+    with pytest.raises(ValueError):
+        int8_conv.conv_int8(x8, w8, stride=1, padding=1)  # NCHW x
+    with pytest.raises(ValueError):
+        int8_conv.conv_int8(x8.contiguous(memory_format=cl), w8, stride=9, padding=1)
+    buf = torch.zeros(16 * 12 * 12 + 1, dtype=torch.int8, device="cuda")
+    odd = buf[1:].view(1, 12, 12, 16).permute(0, 3, 1, 2)  # channels-last, 1 byte off
+    with pytest.raises(ValueError):
+        int8_conv.conv_int8(odd, w8, stride=1, padding=1)
+    c = torch.ones(1, device="cuda")
+    for d in (168, 36):
+        t = torch.zeros((1, 1, 64, d), dtype=torch.int8, device="cuda")
+        with pytest.raises(ValueError):
+            fa.flash_attention_int8(t, t, t, c, out_dtype=torch.bfloat16)
+    t = torch.zeros((1, 1, 64, 40), dtype=torch.int8, device="cuda")
+    with pytest.raises(TypeError):
+        fa.flash_attention_int8(t, t, t, c, out_dtype=torch.float32)
+    with pytest.raises(ValueError):
+        fa.flash_attention_int8(t, t, t, torch.ones(2, device="cuda"), out_dtype=torch.bfloat16)
+    assert (int8_conv.conv_int8.launches, fa.flash_attention_int8.launches) == counts
 
 
 @pytest.mark.cuda

@@ -111,7 +111,7 @@ def test_int8_slice_matches_pfd_tpu_through_k4(monkeypatch):
     both sides, through the bridge) and int8-PV self-attention. The 32x32
     latent gives S = 1024 at ds1, so pfd_tpu's ``self_attn_fn_int8`` runs its
     K4 Pallas kernel in interpret mode and the port its K4 wrapper (the plain
-    version here, on 64-key tiles where pfd_tpu's tile holds all 1024 keys).
+    version here, on 128-key tiles where pfd_tpu's tile holds all 1024 keys).
     4 DDIM steps (the uniform grid needs a divisor of 1000). Limits: mean-abs
     1e-2, max-abs 5e-2. An int8 code that flips under fp32 re-association
     upstream moves one conv output by one quantization step, and the next

@@ -182,19 +182,39 @@ def test_conv_int8_plain_is_exact():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("tiles,slices,want", [(192, 45, 1), (10, 180, 11), (40, 180, 6),
-                                               (80, 80, 3), (48, 45, 2), (128, 72, 2),
-                                               (128, 18, 1), (3, 18, 1)])
-def test_conv_int8_depth_split(tiles, slices, want):
-    """The kernel's depth split on 132 SMs at the int8 path's grids: the
-    split grid stays inside one resident wave, each part keeps at least
-    MIN_SLICES slices, none is empty."""
-    split = int8_conv.split_depth(tiles, slices, 132)
-    assert split == want
-    per = -(-slices // split)
-    assert (split - 1) * per < slices and split * per >= slices
-    assert split == 1 or (per >= int8_conv.MIN_SLICES
-                          and tiles * split <= int8_conv.RESIDENT * 132)
+@pytest.mark.parametrize("n,ho,wo,cin,cout,taps,stride,box,block_n,tiles,split", [
+    (2, 64, 64, 320, 320, 9, 1, (64, 2, 1), 160, 128, 1),     # ResBlock: one wave, no split
+    (2, 32, 32, 640, 640, 9, 1, (32, 4, 1), 160, 64, 2),
+    (2, 16, 16, 1280, 1280, 9, 1, (16, 8, 1), 160, 32, 4),
+    (2, 8, 8, 1280, 1280, 9, 1, (8, 8, 2), 160, 8, 15),       # a box of two images; 90 blocks / 6
+    (2, 32, 32, 320, 320, 9, 2, (32, 4, 1), 160, 32, 4),      # Downsample 64 -> 32
+    (2, 9, 9, 1280, 5120, 4, 1, (9, 9, 1), 160, 64, 2),       # phase conv at 8x8: 81 rows a box
+    (2, 33, 33, 640, 2560, 4, 1, (33, 3, 1), 160, 352, 1),
+    (1, 512, 512, 128, 128, 9, 1, (128, 1, 1), 128, 2048, 1),  # VAE: 128 on the 128-wide tile
+    (1, 64, 64, 512, 512, 9, 1, (64, 2, 1), 128, 128, 1),
+    (1, 256, 256, 128, 128, 9, 2, (128, 1, 1), 128, 512, 1),  # VAE encoder s2: input box 256 wide
+    (1, 7, 7, 256, 2048, 9, 1, (7, 7, 1), 128, 16, 4),        # 18 depth blocks: 5, 5, 5, 3
+    (2, 7, 7, 640, 320, 9, 1, (7, 7, 2), 160, 2, 9),          # 11 parts trimmed to 9 of 5 blocks
+    (1, 20, 3, 16, 8, 9, 4, (3, 20, 1), 128, 1, 2),           # stride 4: input box 12 x 80
+])
+def test_conv_int8_plan(n, ho, wo, cin, cout, taps, stride, box, block_n, tiles, split):
+    """The int8 conv kernel's tiling on 132 SMs (a mirror of csrc/conv_int8.cu
+    pfd_conv_int8): boxes of whole output rows whose input extent (stride
+    times the output's) stays within a TMA box's 256, the narrower padded
+    width of cout (160 on a tie), and a depth split that keeps the grid
+    within the SMs, at least MIN_DEPTH_BLOCKS depth blocks a part and none
+    empty."""
+    plan = int8_conv.conv_int8_plan(n, ho, wo, cin, cout, taps, stride, sms=132)
+    assert (plan["box"], plan["block_n"], plan["tiles"], plan["split"]) == (
+        box, block_n, tiles, split)
+    bw, bh, bn = box
+    assert bw * bh * bn <= int8_conv.BLOCK_M
+    assert stride * max(bw, bh) <= int8_conv.BOX_SPAN
+    depth = plan["depth_blocks"]
+    assert depth == taps * -(-cin // int8_conv.BLOCK_C)
+    per = -(-depth // split)
+    assert (split - 1) * per < depth <= split * per
+    assert split == 1 or (tiles * split <= 132 and per >= int8_conv.MIN_DEPTH_BLOCKS)
 
 
 def test_upsample_int8_matches_pfd_tpu():
