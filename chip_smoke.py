@@ -30,13 +30,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    cost of one call (1,000 calls without a sync); then the dispatchers'
    routes: fp32 to plain attention with no launch, a head of 36 padded to 40
    through K1;
-5. the slice at full published width (``pfd_seecoder``, BF16, random weights
-   from a seed with the zero-initialised layers de-zeroed): request A
-   (512x512 reference image, 50 DDIM steps, guidance 2.0, seed 42) must give
-   a finite image in [0, 1] and launch K1 501 times and K2 500 times; request
-   B (= A) must repeat it bit for bit; request C (seed 7, 10 steps) must
-   differ; one UNet call through the kernels is held against the same call
-   through plain attention, and profiled;
+5. the slice at full published width (``pfd_seecoder_with_controlnet``, BF16,
+   random weights from a seed with the zero-initialised layers de-zeroed):
+   request A (512x512 reference image, no hint, 50 DDIM steps, guidance 2.0,
+   seed 42) must give a finite image in [0, 1] and launch K1 501 times and K2
+   500 times; request B (= A) must repeat it bit for bit; request C (seed 7,
+   10 steps) must differ; one UNet call through the kernels is held against
+   the same call through plain attention, and profiled; request F (as A, with
+   a canny hint of a seeded 512^2 image with structure, whose edge fraction
+   must lie in [0.003, 0.02]) must give a finite image in [0, 1] that differs
+   from A and launch K1 701 and K2 700 times (the ControlNet's 4 long
+   transformer blocks a step besides the UNet's 10); F' (= F) must repeat it
+   bit for bit; one ControlNet call through the kernels is held against the
+   same call through plain attention (its 13 residuals and the eps with them,
+   relative L2 <= 5e-2), and one UNet + ControlNet step is profiled;
 6. K4 and K5 (the int8 mode's attention) against their plain versions within
    ``kernel_tolerance`` and against float attention within ``pfd_tpu``'s
    bounds (max-abs / max|want| < 0.08, mean-abs / max|want| < 0.01; where the
@@ -46,17 +53,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the wrapper (with the V8^T layout copy, and K5's q8 / k8 row padding) and
    the V8^T copy;
 7. the int8 conv against its plain version, bit for bit, at every int8 conv
-   geometry of a 512^2 request, each row with its plan (box, tile width,
-   tiles, depth split);
+   geometry of a 512^2 request (the ControlNet's hint pyramid's three at
+   batch 1 too), each row with its plan (box, tile width, tiles, depth split);
 8. the int8 serving mode at full width (``quantized=True``,
    ``self_attn_fn_int8``): request D (as A) must give a finite image in
    [0, 1] and launch K4 500, K2 500, K1 1 and the int8 conv the number of
    quantized convs the plan runs; request D' (= D) must repeat it bit for
-   bit; request E (mode "full", 10 steps) must launch K5 100 times; one int8
-   UNet call through the kernels is held against the same call through the
-   plain versions (relative L2 <= 5e-2) and profiled; one line of
-   throughput, 8 images of 10 steps, bf16 against int8, and a profile of one
-   UNet call at that batch in each mode;
+   bit; request E (mode "full", 10 steps) must launch K5 100 times; request G
+   (F's hint, 10 steps) must give a finite image in [0, 1] and launch K4 140,
+   K2 140, K1 1 and the int8 conv 764 times (10 x (50 + the ControlNet's 23)
+   + the hint pyramid's 3 + the decoder's 31); one int8 UNet call through
+   the kernels is held against the same call through the plain versions
+   (relative L2 <= 5e-2); one int8 UNet + ControlNet call (from the raw hint)
+   through the kernels is held against the same call with the int8 conv's
+   plain version, bit for bit, and against the call through every plain
+   version within relative L2 5e-2 or the int8 function's own spread where
+   that is larger (K4's plain version on a 1,024-key tile against on K4's);
+   both calls are profiled; one line of throughput, 8 images of 10 steps, bf16
+   against int8, and a profile of one UNet call at that batch in each mode;
 9. K3 (``flash_attention(pipelined=True)``) against its plain version and
    against K1 within ``kernel_tolerance``, at K1's wide-grid ragged shapes
    among others; K6 (``conv3x3_fused``, with the
@@ -73,8 +87,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (``LAB_SECTIONS=pallas_mm,convs``), with the launch counts set to 0 just
    before and read just after: K3, the conv3x3 kernel and K7b must each
    launch;
-11. a ``kernels`` JSON line, the card's name and power limit, then the device
-   JSON as the last line.
+11. a ``kernels`` JSON line (``launches``: this slice's ControlNet requests,
+   F for the bf16 kernels and G for the int8 ones; every serving request's
+   counts in ``launches_by_request``), the card's name and power limit, then
+   the device JSON as the last line.
 
 Imports neither JAX nor ``pfd_tpu``.
 """
@@ -535,10 +551,11 @@ def run_labs():
     return counts
 
 
-def serve(pipe, ref, seed, steps, label):
-    """One request through ``action_inference`` with the launch counts set
-    to 0 just before it; per-stage device times from CUDA events. Returns
-    (image, stats)."""
+def serve(pipe, ref, seed, steps, label, imctl=None):
+    """One request through ``action_inference`` (a canny hint ``imctl``
+    runs the ControlNet) with the launch counts set to 0 just before it;
+    per-stage device times from CUDA events. Returns (outputs: the images,
+    then the hints; stats)."""
     import torch
 
     timings = {"ctx_encode": [], "apply_model": [], "vae_decode": []}
@@ -561,7 +578,8 @@ def serve(pipe, ref, seed, steps, label):
     reset_counts()
     t0 = time.perf_counter()
     try:
-        img = pipe.action_inference(ref, h=512, w=512, ugscale=2.0, seed=seed, steps=steps)[0]
+        out = pipe.action_inference(ref, imctl, "canny", True, 512, 512, 2.0, seed,
+                                    steps=steps)
         torch.cuda.synchronize()
     finally:
         for name in timings:
@@ -580,7 +598,7 @@ def serve(pipe, ref, seed, steps, label):
           f"vae_decode_ms={stats['vae_decode_ms']:.3f} s_per_img={s_per_img:.4f} "
           f"peak_mem_gb={stats['peak_mem_gb']:.3f} launches={json.dumps(launches)}",
           flush=True)
-    return img, stats
+    return out, stats
 
 
 def check_image(img, label):
@@ -592,15 +610,20 @@ def check_image(img, label):
 
 
 @contextlib.contextmanager
-def plain_versions():
-    """Route every kernel wrapper of the int8 path to its plain version (the
-    on-card oracle of a whole UNet call)."""
+def plain_versions(attention=True, pv8_block_k=None):
+    """Route the int8 path's kernel wrappers to their plain versions (the
+    on-card oracle of a whole UNet call): the int8 conv, and with
+    ``attention`` K4 (on key tiles of ``pv8_block_k``, K4's by default)
+    and K2 as well."""
     from pfd_tpu_torch.ops import flash_attention as fa
     from pfd_tpu_torch.ops import int8_conv
 
     saved = (fa.flash_attention_pv8, fa.cross_attention, int8_conv.conv_int8)
-    fa.flash_attention_pv8 = lambda q, k, v8, *, qscale: fa.pv8_plain(q, k, v8, qscale=qscale)
-    fa.cross_attention = lambda q, k, v, *, scale=None: fa.attention_plain(q, k, v, scale=scale)
+    if attention:
+        fa.flash_attention_pv8 = lambda q, k, v8, *, qscale: fa.pv8_plain(
+            q, k, v8, qscale=qscale, block_k=pv8_block_k)
+        fa.cross_attention = lambda q, k, v, *, scale=None: fa.attention_plain(q, k, v,
+                                                                              scale=scale)
     int8_conv.conv_int8 = int8_conv.conv_int8_plain
     try:
         yield
@@ -609,13 +632,26 @@ def plain_versions():
 
 
 def compare_eps(label, e_k, e_p):
-    """A UNet eps through the kernels against the same call through plain
-    versions: relative L2 at most 5e-2."""
+    """A UNet eps (or a ControlNet residual) through the kernels against the
+    same call through plain versions: relative L2 at most 5e-2."""
     rel = ((e_k - e_p).norm() / e_p.norm()).item()
     print(f"{label}: rel_l2={rel:.3e} max_abs={(e_k - e_p).abs().max().item():.3e} "
           f"|eps|_rms={e_p.pow(2).mean().sqrt().item():.3e}", flush=True)
     if not rel < 5e-2:
         raise AssertionError(f"{label}: rel_l2 {rel}")
+    return rel
+
+
+def hint_image():
+    """A seeded 512^2 hint image with structure: a white rectangle and a
+    grey bar on black, with faint noise."""
+    import numpy as np
+    rng = np.random.default_rng(11)
+    img = 0.02 * rng.random((512, 512, 3), dtype=np.float32)
+    y0, x0 = rng.integers(96, 160, size=2)
+    img[y0:y0 + 256, x0:x0 + 224] = 1.0
+    img[y0 + 100:y0 + 140, 40:480] = 0.5
+    return img
 
 
 def profile_unet(label, call):
@@ -709,18 +745,26 @@ def main() -> int:
     # ---- 5. the slice at full width -----------------------------------------
     import numpy as np
     from pfd_tpu_torch.models.build import dezero_
+    from pfd_tpu_torch.ops import quant as tq
     from pfd_tpu_torch.pipeline import PromptFreeDiffusionPipeline
 
     def build_pipe(label, **kw):
         t0 = time.perf_counter()
         pipe = PromptFreeDiffusionPipeline(fp16=True, device="cuda", seed=0, **kw)
+        # the hint pyramid's last conv is zero-initialised: as built, its int8
+        # codes are all zero and its scale finite (float: its weight is zero)
+        last = pipe.net.ctl.input_hint_block[-1]
+        zero = (not torch.any(last.weight_q) and bool(torch.isfinite(last.weight_scale).all())
+                if tq.is_quantized(last) else not torch.any(last.weight))
+        if not zero:
+            raise AssertionError(f"{label}: the hint pyramid's zero conv is not zero as built")
         dezero_(pipe.net, torch.Generator(device="cuda").manual_seed(1))
         torch.cuda.synchronize()
         n_params = sum(p.numel() for p in pipe.net.parameters())
         n_buf = sum(b.numel() for b in pipe.net.buffers())
-        print(f"{label}: pfd_seecoder built, {n_params / 1e6:.1f} M parameters, "
-              f"{n_buf / 1e6:.1f} M buffer values, {time.perf_counter() - t0:.1f} s",
-              flush=True)
+        print(f"{label}: pfd_seecoder_with_controlnet built, {n_params / 1e6:.1f} M "
+              f"parameters, {n_buf / 1e6:.1f} M buffer values, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
         return pipe
 
     pipe = build_pipe("slice", self_attn_fn=fa.self_attn_fn)
@@ -728,7 +772,7 @@ def main() -> int:
     ref = np.random.default_rng(0).random((512, 512, 3), dtype=np.float32)
     pipe.action_inference(ref, h=512, w=512, ugscale=2.0, seed=0, steps=2)  # warm-up
 
-    img_a, stats_a = serve(pipe, ref, 42, 50, "A")
+    [img_a], stats_a = serve(pipe, ref, 42, 50, "A")
     launches = stats_a["launches"]
     check_image(img_a, "A")
     want = {"flash_attention": 10 * 50 + 1, "cross_attention": 10 * 50,
@@ -761,6 +805,49 @@ def main() -> int:
     profile_unet("unet call profile", lambda: net.apply_model(
         xi, t, ci, self_attn_fn=fa.self_attn_fn))
 
+    # request F: the ControlNet path, a canny hint
+    hint_src = hint_image()
+    pipe.action_inference(ref, hint_src, "canny", True, 512, 512, 2.0, 0, steps=2)  # warm-up
+    [img_f, hint_f], stats_f = serve(pipe, ref, 42, 50, "F", hint_src)
+    launches_f = stats_f["launches"]
+    check_image(img_f, "F")
+    edges = float((hint_f[..., 0] > 0).mean())
+    print(f"request F: hint edge fraction {edges:.5f} (limit [0.003, 0.02])", flush=True)
+    if not 0.003 <= edges <= 0.02:
+        raise AssertionError(f"request F: hint edge fraction {edges}")
+    want = {"flash_attention": 14 * 50 + 1, "cross_attention": 14 * 50,
+            "flash_attention_pv8": 0, "flash_attention_int8": 0, "conv_int8": 0}
+    if launches_f != want:
+        raise AssertionError(f"request F: launches {launches_f}, want {want}")
+    if np.array_equal(img_f, img_a):
+        raise AssertionError("request F (with a hint) did not differ from A")
+    img_f2 = pipe.action_inference(ref, hint_src, "canny", True, 512, 512, 2.0, 42, steps=50)[0]
+    if not np.array_equal(img_f, img_f2):
+        raise AssertionError("request F' (same as F) is not bit-identical")
+    print(f"request F': bit-identical to F; F image mean {img_f.mean():.4f} std "
+          f"{img_f.std():.4f}, mean |F-A| {np.abs(img_f - img_a).mean():.5f}", flush=True)
+
+    # one ControlNet call through the kernels against the same call through
+    # plain attention, then the eps with its residuals (the hoisted embedding)
+    with torch.no_grad():
+        h1 = torch.as_tensor(hint_f.transpose(2, 0, 1).copy(), device="cuda")[None]
+        hint2 = torch.cat([h1, h1])
+        r_k = net.ctl(x, hint2, t, c2, self_attn_fn=fa.self_attn_fn)
+        r_p = net.ctl(x, hint2, t, c2, self_attn_fn=None)
+        rels = [((a.float() - b.float()).norm() / b.float().norm()).item()
+                for a, b in zip(r_k, r_p)]
+        emb = net.ctl.hint_embed(h1)
+        ci_ctl = {"type": "image", "c": c2, "control_embed": torch.cat([emb, emb])}
+        e_k = net.apply_model(xi, t, ci_ctl, self_attn_fn=fa.self_attn_fn).float()
+        e_p = net.apply_model(xi, t, ci_ctl, self_attn_fn=None).float()
+    print(f"controlnet residuals, kernels vs plain attention at 512^2: {len(rels)}, "
+          f"rel_l2 max {max(rels):.3e} ({', '.join(f'{r:.2e}' for r in rels)})", flush=True)
+    if len(rels) != 13 or not max(rels) < 5e-2:
+        raise AssertionError(f"controlnet residuals: rel_l2 {rels}")
+    compare_eps("unet + controlnet eps, kernels vs plain attention at 512^2", e_k, e_p)
+    profile_unet("unet + controlnet step profile", lambda: net.apply_model(
+        xi, t, ci_ctl, self_attn_fn=fa.self_attn_fn))
+
     # ---- 6. K4 and K5 against their plain versions ----------------------------
     # the serving shapes, then pfd_tpu's own test shapes for its float bounds
     int8_shapes = [(2, 8, 4096, 40), (2, 8, 1024, 80), (1, 2, 1000, 40), (2, 8, 2304, 160),
@@ -780,23 +867,31 @@ def main() -> int:
         ("phase2x2 (2,640,32,32)->2560", (2, 640, 32, 32), 4 * 640, 2, 1, 1),
         ("vae 3x3s1 (1,128,512,512)->128", (1, 128, 512, 512), 128, 3, 1, 1),
         ("vae 3x3s1 (1,512,64,64)->512", (1, 512, 64, 64), 512, 3, 1, 1),
+        ("hint 3x3s1 (1,96,128,128)->96", (1, 96, 128, 128), 96, 3, 1, 1),
+        ("hint 3x3s2 (1,96,128,128)->256", (1, 96, 128, 128), 256, 3, 2, 1),
+        ("hint 3x3s1 (1,256,64,64)->320", (1, 256, 64, 64), 320, 3, 1, 1),
     ]]
 
     # ---- 8. the int8 serving mode at full width --------------------------------
-    from pfd_tpu_torch.ops import quant as tq
     pipe8 = build_pipe("int8 slice", quantized=True, self_attn_fn=fa.self_attn_fn_int8)
     net8 = pipe8.net
     per_unet = sum(tq.is_quantized(m) for m in net8.diffuser["image"].modules())
     per_decode = sum(tq.is_quantized(m) for m in net8.vae["image"].decoder.modules())
+    per_hint = sum(tq.is_quantized(m) for m in net8.ctl.input_hint_block)
+    per_ctl = sum(tq.is_quantized(m) for m in net8.ctl.modules()) - per_hint
     n_conv = 50 * per_unet + per_decode
-    print(f"int8 plan: {per_unet} int8 convs per UNet call, {per_decode} in the VAE "
-          f"decoder -> {n_conv} conv_int8 launches in 50 steps", flush=True)
-    if (per_unet, per_decode) != (50, 31):
-        raise AssertionError(f"int8 plan: want 50 convs per UNet call and 31 in the "
-                             f"decoder, got {per_unet} and {per_decode}")
+    n_conv_g = 10 * (per_unet + per_ctl) + per_hint + per_decode
+    print(f"int8 plan: {per_unet} int8 convs per UNet call, {per_ctl} per ControlNet "
+          f"call, {per_hint} in its hint pyramid, {per_decode} in the VAE decoder -> "
+          f"{n_conv} conv_int8 launches in 50 steps, {n_conv_g} in 10 with a hint",
+          flush=True)
+    if (per_unet, per_ctl, per_hint, per_decode) != (50, 23, 3, 31):
+        raise AssertionError(f"int8 plan: want 50 convs per UNet call, 23 per ControlNet "
+                             f"call, 3 in its hint pyramid and 31 in the decoder, got "
+                             f"{per_unet}, {per_ctl}, {per_hint} and {per_decode}")
     pipe8.action_inference(ref, h=512, w=512, ugscale=2.0, seed=0, steps=2)  # warm-up
 
-    img_d, stats_d = serve(pipe8, ref, 42, 50, "D")
+    [img_d], stats_d = serve(pipe8, ref, 42, 50, "D")
     launches_d = stats_d["launches"]
     check_image(img_d, "D")
     want = {"flash_attention": 1, "cross_attention": 10 * 50,
@@ -811,12 +906,25 @@ def main() -> int:
           f"max |D-A| {np.abs(img_d - img_a).max():.4f} (information only)", flush=True)
 
     pipe8.self_attn_fn = functools.partial(fa.self_attn_fn_int8, mode="full")
-    img_e, stats_e = serve(pipe8, ref, 42, 10, "E")
+    [img_e], stats_e = serve(pipe8, ref, 42, 10, "E")
     pipe8.self_attn_fn = fa.self_attn_fn_int8
     launches_e = stats_e["launches"]
     check_image(img_e, "E")
     if launches_e["flash_attention_int8"] != 10 * 10 or launches_e["flash_attention_pv8"]:
         raise AssertionError(f"request E: launches {launches_e}, want K5 100 and K4 0")
+
+    # request G: the int8 ControlNet path, F's hint
+    pipe8.action_inference(ref, hint_src, "canny", True, 512, 512, 2.0, 0, steps=2)  # warm-up
+    [img_g, hint_g], stats_g = serve(pipe8, ref, 42, 10, "G", hint_src)
+    launches_g = stats_g["launches"]
+    check_image(img_g, "G")
+    want = {"flash_attention": 1, "cross_attention": 14 * 10, "flash_attention_pv8": 14 * 10,
+            "flash_attention_int8": 0, "conv_int8": n_conv_g}
+    if launches_g != want:
+        raise AssertionError(f"request G: launches {launches_g}, want {want}")
+    if not np.array_equal(hint_g, hint_f):
+        raise AssertionError("request G: its hint differs from F's")
+    print(f"request G: image mean {img_g.mean():.4f} std {img_g.std():.4f}", flush=True)
 
     with torch.no_grad():
         e_k = net8.apply_model(xi, t, ci, self_attn_fn=fa.self_attn_fn_int8).float()
@@ -825,6 +933,38 @@ def main() -> int:
     compare_eps("int8 unet eps, kernels vs plain versions at 512^2", e_k, e_p)
     profile_unet("int8 unet call profile", lambda: net8.apply_model(
         xi, t, ci, self_attn_fn=fa.self_attn_fn_int8))
+    # with the ControlNet, from the raw hint (its int8 hint pyramid too): the
+    # int8 conv's plain version in place of the kernel must give the same eps
+    # bit for bit. Against every plain version the eps may be off by 5e-2
+    # relative L2, as the UNet's, or by the int8 function's own spread where
+    # that is larger: the plain versions with K4's plain version on
+    # pfd_tpu's 1,024-key tile against on K4's (int8 codes flip under
+    # last-bit differences, and p8 under another running max)
+    ci_hint = {"type": "image", "c": c2, "control": hint2}
+    with torch.no_grad():
+        e_k = net8.apply_model(xi, t, ci_hint, self_attn_fn=fa.self_attn_fn_int8).float()
+        with plain_versions(attention=False):
+            e_c = net8.apply_model(xi, t, ci_hint, self_attn_fn=fa.self_attn_fn_int8).float()
+        with plain_versions():
+            e_p = net8.apply_model(xi, t, ci_hint, self_attn_fn=fa.self_attn_fn_int8).float()
+        with plain_versions(pv8_block_k=1024):
+            e_t = net8.apply_model(xi, t, ci_hint, self_attn_fn=fa.self_attn_fn_int8).float()
+        emb8 = net8.ctl.hint_embed(h1)
+    if not torch.equal(e_k, e_c):
+        raise AssertionError("int8 unet + controlnet eps: the int8 conv kernel inside the "
+                             "call is not bit-exact against its plain version")
+    rel = ((e_k - e_p).norm() / e_p.norm()).item()
+    spread = ((e_t - e_p).norm() / e_p.norm()).item()
+    print(f"int8 unet + controlnet eps at 512^2: conv_int8 kernel vs plain version "
+          f"bit-exact; kernels vs plain versions rel_l2={rel:.3e} "
+          f"max_abs={(e_k - e_p).abs().max().item():.3e} (limit {max(5e-2, spread):.3e}: "
+          f"the plain versions on a 1,024-key tile vs on K4's rel_l2={spread:.3e})",
+          flush=True)
+    if not rel <= max(5e-2, spread):
+        raise AssertionError(f"int8 unet + controlnet eps: rel_l2 {rel}, spread {spread}")
+    ci_ctl8 = {"type": "image", "c": c2, "control_embed": torch.cat([emb8, emb8])}
+    profile_unet("int8 unet + controlnet step profile", lambda: net8.apply_model(
+        xi, t, ci_ctl8, self_attn_fn=fa.self_attn_fn_int8))
 
     # one line of throughput: 8 images of 10 steps per request
     b8 = {}
@@ -864,10 +1004,15 @@ def main() -> int:
     lab_launches = run_labs()
 
     # ---- 11. summary ---------------------------------------------------------
+    served = {"A": launches, "D": launches_d, "E": launches_e, "F": launches_f,
+              "G": launches_g}
+
     def summary(name, source, replaces, rows, n):
         main_row = rows[0]
+        by_request = ({"launches_by_request": {k: v[name] for k, v in served.items()}}
+                      if name in launches else {})
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": n,
+                "launches": n, **by_request,
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
                 "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -875,17 +1020,17 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         summary("flash_attention", "pfd_tpu_torch/csrc/flash_attention.cu",
-                "pfd_tpu/ops/flash_attention.py:277", k1_rows, launches["flash_attention"]),
+                "pfd_tpu/ops/flash_attention.py:277", k1_rows, launches_f["flash_attention"]),
         summary("cross_attention", "pfd_tpu_torch/csrc/cross_attention.cu",
-                "pfd_tpu/ops/flash_attention.py:465", k2_rows, launches["cross_attention"]),
+                "pfd_tpu/ops/flash_attention.py:465", k2_rows, launches_f["cross_attention"]),
         summary("flash_attention_pv8", "pfd_tpu_torch/csrc/flash_attention_pv8.cu",
                 "pfd_tpu/ops/flash_attention.py:359", k4_rows,
-                launches_d["flash_attention_pv8"]),
+                launches_g["flash_attention_pv8"]),
         summary("flash_attention_int8", "pfd_tpu_torch/csrc/flash_attention_int8.cu",
                 "pfd_tpu/ops/flash_attention.py:359", k5_rows,
                 launches_e["flash_attention_int8"]),
         summary("conv_int8", "pfd_tpu_torch/csrc/conv_int8.cu",
-                "pfd_tpu/tools/int8_lab.py:129", conv_rows, launches_d["conv_int8"]),
+                "pfd_tpu/tools/int8_lab.py:129", conv_rows, launches_g["conv_int8"]),
         summary("flash_attention_pipe", "pfd_tpu_torch/csrc/flash_attention_pipe.cu",
                 "pfd_tpu/ops/flash_attention.py:108", k3_rows,
                 lab_launches["flash_attention_pipe"]),

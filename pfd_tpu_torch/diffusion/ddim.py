@@ -9,6 +9,12 @@ the serving path and are not ported yet.
 Quirk kept (ddim.py:277-282, docs/PARITY.md quirk 1): with no unconditional
 conditioning, eps is multiplied by the guidance scale.
 
+ControlNet (ddim.py:211-268): ``c_info['control']`` is the NCHW hint image of
+the request's B latents. With a ControlNet in the model, its hint pyramid
+runs once per request, before the loop and before any CFG tiling, and the
+latent-res embedding is what each step takes, tiled ``[uncond, cond]`` as the
+context is; so is an optional (B,) ``control_mask``.
+
 The turbo modes of ``pfd_tpu`` (encoder propagation, CFG-delta reuse,
 DeepCache, phased schedules, KV-pooled reuse attention) are later slices:
 any interval other than 1, ``phases`` or ``reuse_self_attn_fn`` raises
@@ -67,21 +73,31 @@ class DDIMSampler:
         uncond = c_info.get("unconditional_conditioning")
         scale = float(c_info.get("unconditional_guidance_scale", 1.0))
         use_cfg = uncond is not None
+        control = c_info.get("control")
+        control_mask = c_info.get("control_mask")
+        ci = {"type": c_type}
+        if control is not None and hasattr(model, "ctl"):
+            ci["control_embed"] = model.ctl.hint_embed(control)  # hoisted, once per request
+        elif control is not None:
+            ci["control"] = control
+        if control is not None and control_mask is not None:
+            ci["control_mask"] = torch.as_tensor(control_mask, device=x.device)
+        if use_cfg:
+            ci = {k: v if k == "type" else torch.cat([v, v]) for k, v in ci.items()}
+        ci["c"] = torch.cat([uncond, cond], dim=0) if use_cfg else cond
         idxs = np.arange(len(tables.timesteps))[::-1]
         rows = np.stack([tables.timesteps[idxs].astype(np.float32),
                          tables.alphas[idxs], tables.alphas_prev[idxs],
                          tables.sqrt_one_minus_alphas[idxs], tables.sigmas[idxs]],
                         axis=1).astype(np.float32)
         b = x.shape[0]
-        c_in = torch.cat([uncond, cond], dim=0) if use_cfg else cond
 
         pred_x0 = None
         for row in rows:
             t, a_t, a_prev, s1m, sigma = (float(v) for v in row)
             ts = torch.full((b,), int(t), dtype=torch.long, device=x.device)
             x_in, t_in = (torch.cat([x, x]), torch.cat([ts, ts])) if use_cfg else (x, ts)
-            e = model.apply_model({"type": x_type, "x": x_in}, t_in,
-                                  {"type": c_type, "c": c_in},
+            e = model.apply_model({"type": x_type, "x": x_in}, t_in, ci,
                                   self_attn_fn=self_attn_fn).float()
             if use_cfg:
                 e_uc, e_c = e.chunk(2, dim=0)

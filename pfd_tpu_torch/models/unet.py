@@ -190,9 +190,13 @@ class UNetModel2DNext(nn.Module):
         return blocks.time_embed(self.time_embed, timesteps, self.model_channels,
                                  self.policy.compute_dtype)
 
-    def forward(self, x, timesteps, context, *, self_attn_fn=None,
+    def forward(self, x, timesteps, context, *, control_residuals=None, self_attn_fn=None,
                 data_blocks=None, context_blocks=None, emb=None):
         """x: NCHW latent, timesteps: (B,), context: (B, S, C) tokens.
+        ``control_residuals``: optional list of the ControlNet's 13 NCHW
+        residuals (12 skips + 1 middle), popped from the end as in
+        ``pfd_tpu`` (pfd.py:515-519): the last one joins ``h`` after the
+        middle ops, the others each skip before its concat, in reverse.
         ``data_blocks`` / ``context_blocks`` let the composite model pull the
         two halves from different diffusers (pfd.py:326-329)."""
         pol = self.policy
@@ -203,16 +207,26 @@ class UNetModel2DNext(nn.Module):
             emb = self.time_embedding(timesteps)
         emb = pol.cast(emb)
         context = pol.cast(context) if context is not None else None
-        h = pol.cast(x)
+        ccs = list(control_residuals) if control_residuals is not None else None
         hs = []
-        for op in plan.ops:
-            kind = op[0]
-            if kind == "d":
-                h = apply_data_block(db[op[1]], plan.data_specs[op[1]], h, emb, pol)
-            elif kind == "c":
-                h = cb[op[1]][0](h, context, self_attn_fn=self_attn_fn)
-            elif kind == "save":
-                hs.append(h)
-            else:  # load
-                h = torch.cat([h, hs.pop()], dim=1)
-        return h
+
+        def run(ops, h):
+            for op in ops:
+                kind = op[0]
+                if kind == "d":
+                    h = apply_data_block(db[op[1]], plan.data_specs[op[1]], h, emb, pol)
+                elif kind == "c":
+                    h = cb[op[1]][0](h, context, self_attn_fn=self_attn_fn)
+                elif kind == "save":
+                    hs.append(h)
+                else:  # load
+                    skip = hs.pop()
+                    if ccs is not None:
+                        skip = skip + pol.cast(ccs.pop())
+                    h = torch.cat([h, skip], dim=1)
+            return h
+
+        h = run(plan.i_ops + plan.m_ops, pol.cast(x))
+        if ccs is not None:
+            h = h + pol.cast(ccs.pop())
+        return run(plan.o_ops, h)

@@ -18,6 +18,7 @@ _MODULE_FOR_PREFIX = {
     "swin": "pfd_tpu_torch.models.swin",
     "seecoder": "pfd_tpu_torch.models.seecoder",
     "pfd": "pfd_tpu_torch.models.pfd",
+    "controlnet": "pfd_tpu_torch.models.controlnet",
 }
 
 

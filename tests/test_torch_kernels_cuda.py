@@ -226,6 +226,9 @@ def test_attention_dispatch_on_the_card():
     ((2, 1280, 8, 8), 1280, 3, 1, 1),          # late UNet: depth split over 11 blocks
     ((2, 640, 16, 16), 4 * 640, 2, 1, 1),      # upsample phase conv
     ((1, 128, 33, 47), 128, 3, 2, (0, 1, 0, 1)),  # VAE encoder, ragged tiles
+    ((1, 96, 128, 128), 96, 3, 1, 1),          # ControlNet hint pyramid, batch 1
+    ((1, 96, 128, 128), 256, 3, 2, 1),         # its s2 conv to 64^2
+    ((1, 256, 64, 64), 320, 3, 1, 1),          # its zero-initialised last conv
 ])
 def test_conv_int8_kernel_is_bit_exact(xshape, cout, ksize, stride, padding):
     _need_cuda()

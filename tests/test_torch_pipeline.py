@@ -1,5 +1,7 @@
 """The slice as a whole: reference image -> SeeCoder -> DDIM with CFG ->
-UNet -> VAE decode, the port's pipeline against pfd_tpu, fp32 on the CPU.
+UNet -> VAE decode, the port's pipeline against pfd_tpu, fp32 on the CPU;
+and the ControlNet request: a hint image -> resize -> canny -> the
+ControlNet's residuals in every UNet call.
 
 Tiny configs (tests/test_e2e_parity.py:21-48). The 32x32 latent gives the
 UNet's first level S = 1024 tokens, so pfd_tpu, run with its kernel-backed
@@ -10,6 +12,7 @@ guidance 2.0 (the uniform DDIM grid needs a step count that divides 1000, so
 not 3). The decoded images agree within max-abs 2e-3.
 """
 
+import copy
 import os
 import subprocess
 import sys
@@ -20,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from pfd_tpu import annotators as jann
 from pfd_tpu import registry as jreg
 from pfd_tpu.diffusion.ddim import DDIMSampler as JDDIM
 from pfd_tpu.ops import flash_attention as jfa
@@ -27,6 +31,7 @@ from pfd_tpu_torch.diffusion.ddim import DDIMSampler as TDDIM
 from pfd_tpu_torch.io.convert import params_from_jax
 from pfd_tpu_torch.ops import flash_attention as tfa
 from pfd_tpu_torch.pipeline import PromptFreeDiffusionPipeline
+from tests.test_torch_controlnet import CTL
 from tests.test_torch_nn import numpy_params
 from tests.test_e2e_parity import SEECODER, UNET, VAE
 
@@ -36,12 +41,18 @@ PFD = {"type": "pfd", "args": dict(
     vae_cfg_list=[["image", VAE]], ctx_cfg_list=[["image", SEECODER]],
     diffuser_cfg_list=[["image", UNET]], latent_scale_factor={"image": 0.18215},
     beta_linear_start=0.00085, beta_linear_end=0.012, timesteps=1000)}
+# with the ControlNet: an f=8 VAE (4 levels), since the hint pyramid is fixed 8x
+VAE8 = copy.deepcopy(VAE)
+VAE8["args"]["ddconfig"]["ch_mult"] = [1, 1, 2, 2]
+PFD_CTL = {"type": "pfd_with_control", "args": dict(
+    PFD["args"], vae_cfg_list=[["image", VAE8]], ctl_cfg=CTL)}
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _tiny_pipe(**kw):
     kw.setdefault("self_attn_fn", tfa.self_attn_fn)
-    return PromptFreeDiffusionPipeline(fp16=False, config_override=PFD, device="cpu", **kw)
+    kw.setdefault("config_override", PFD)
+    return PromptFreeDiffusionPipeline(fp16=False, device="cpu", **kw)
 
 
 def _quantize_jax(params):
@@ -227,16 +238,75 @@ def test_action_inference_tiny_cpu():
 def test_autoset_hw_and_unported_surfaces(tmp_path):
     assert PromptFreeDiffusionPipeline.action_autoset_hw(np.zeros((700, 333, 3))) == (640, 512)
     assert PromptFreeDiffusionPipeline.action_autoset_hw(None) == (512, 512)
-    with pytest.raises(NotImplementedError):
-        PromptFreeDiffusionPipeline(with_control=True, device="cpu")
-    ckpt = tmp_path / "pretrained/pfd/diffuser/Deliberate-v2-0.safetensors"
-    ckpt.parent.mkdir(parents=True)
-    ckpt.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="loader"):
-        _tiny_pipe(pretrained_root=str(tmp_path))
+    assert PromptFreeDiffusionPipeline.action_autoset_method("canny_v11p") == "canny"
+    assert PromptFreeDiffusionPipeline.action_autoset_method("softedge_v11p") == "hed"
+    for rel in ("pretrained/pfd/diffuser/Deliberate-v2-0.safetensors",
+                "pretrained/controlnet/control_sd15_canny_slimmed.safetensors"):
+        root = tmp_path / rel.split("/")[1]
+        ckpt = root / rel
+        ckpt.parent.mkdir(parents=True)
+        ckpt.write_bytes(b"")
+        with pytest.raises(NotImplementedError, match="loader"):
+            _tiny_pipe(pretrained_root=str(root))
+    pipe = _tiny_pipe(config_override=PFD_CTL)
+    ref = np.zeros((64, 64, 3), np.float32)
+    with pytest.raises(NotImplementedError, match="HED"):
+        pipe.action_inference(ref, ref, "hed", h=64, w=64, steps=2)
 
 
-@pytest.mark.parametrize("name", ["pfd_seecoder", "pfd_seecoder_pa"])
+def test_control_request_matches_pfd_tpu_through_kernels(monkeypatch):
+    """``action_inference(ref, imctl, "canny", ...)`` with the ControlNet:
+    the hint (a seeded image with structure, not at (h, w), so it is resized
+    first) equals pfd_tpu's resize + canny bit for bit, the returned list is
+    the image and then the hint, and the image agrees with pfd_tpu's
+    SeeCoder -> CFG DDIM with the hint -> VAE decode on the same weights and
+    start latent within max-abs 2e-3, both sides through their kernels (a
+    256x256 request: S = 1024 at the first level)."""
+    jm = jreg.get(PFD_CTL["type"])(**PFD_CTL["args"])
+    params = numpy_params(jm, 0)
+    rng = np.random.default_rng(6)
+    ref_img = rng.random((64, 64, 3), dtype=np.float32)
+    imctl = np.zeros((200, 300, 3), np.float32)
+    imctl[50:150, 80:220] = 1.0
+    imctl[90:110, 120:260] = 0.5
+    imctl += 0.02 * rng.random(imctl.shape, dtype=np.float32)
+
+    pipe = _tiny_pipe(config_override=PFD_CTL)
+    pipe.net.load_state_dict(params_from_jax(params), strict=True)
+    calls = []
+    plain = tfa.attention_plain
+    monkeypatch.setattr(tfa, "attention_plain",
+                        lambda q, k, v, **kw: calls.append(k.shape[2]) or plain(q, k, v, **kw))
+    out = pipe.action_inference(ref_img, imctl, "canny", True, 256, 256, 2.0, 42, steps=4)
+    assert len(out) == 2 and out[0].shape == out[1].shape == (256, 256, 3)
+    # 4 steps x (3 UNet + 1 ControlNet first-level transformer blocks)
+    assert sorted(calls) == [16] * 16 + [1024] * 16
+    got, hint = out
+
+    want_hint = jann.preprocess(jann.resize_image(imctl, (256, 256), method="bicubic"),
+                                method="canny", size=(256, 256))
+    np.testing.assert_array_equal(hint, want_hint)
+    assert 0.005 < (hint[..., 0] > 0).mean() < 0.1
+    x_start = torch.randn((1, 4, 32, 32), generator=torch.Generator().manual_seed(42))
+    x_start = x_start.numpy().transpose(0, 2, 3, 1)
+    c = jax.jit(jm.ctx_encode)(params, jnp.asarray(ref_img)[None])
+    x, _ = JDDIM(jm).sample(
+        params, jax.random.PRNGKey(0), x_start.shape, x_info={"xt": jnp.asarray(x_start)},
+        c_info={"conditioning": c, "unconditional_conditioning": jnp.zeros_like(c),
+                "unconditional_guidance_scale": 2.0, "control": jnp.asarray(want_hint)[None]},
+        steps=4, eta=0.0, self_attn_fn=jfa.self_attn_fn)
+    want = np.asarray(jax.jit(jm.vae_decode)(params, x))[0]
+    assert 0.02 < want.std()
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-3)
+    # without the hint the ControlNet does not run and the image differs
+    calls.clear()
+    plain_img = pipe.action_inference(ref_img, None, "canny", True, 256, 256, 2.0, 42, steps=4)
+    assert len(plain_img) == 1 and sorted(calls) == [16] * 12 + [1024] * 12
+    assert np.abs(plain_img[0] - got).max() > 1e-2
+
+
+@pytest.mark.parametrize("name", ["pfd_seecoder", "pfd_seecoder_pa",
+                                  "pfd_seecoder_with_controlnet"])
 def test_full_config_state_dict_matches_pfd_tpu(name):
     """The published widths: every pfd_tpu leaf has a port parameter of the
     converted shape, and nothing else (shapes only)."""
