@@ -25,7 +25,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (``scaled_dot_product_attention``, a yardstick only) and bound times;
 4. the same for K2, at the serving shapes over the 148 context tokens, at
    Sq = 5184 (ragged against 128-row blocks, each block walking 5-6 q-tiles)
-   and over 512 and 1,024 keys (K1's key loop), each row with the variant
+   and over 512 and 1,024 keys (K1's key loop), at ``attn_lab``'s batch 16,
+   each row with the variant
    the launcher picks (rows a block, key tile, blocks a head) and the host's
    cost of one call (1,000 calls without a sync); then the dispatchers'
    routes: fp32 to plain attention with no launch, a head of 36 padded to 40
@@ -87,7 +88,22 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (``LAB_SECTIONS=pallas_mm,convs``), with the launch counts set to 0 just
    before and read just after: K3, the conv3x3 kernel and K7b must each
    launch;
-11. a ``kernels`` JSON line (``launches``: this slice's ControlNet requests,
+11. the quality gates at full width, through the tools' own functions:
+   ``tools/e2e_gate.py``'s rows of both sets (``fp32``, ``fp32_eps``,
+   ``bf16``, ``bf16_plain_attn``, ``int8``, ``int8_attn8``; ``ctl_fp32``,
+   ``ctl_bf16``, ``ctl_int8``), each scored against ``pfd_tpu``'s own fp32
+   image of the same weights and inputs (the committed reference), with the
+   floor rows and the SeeCoder tokens' error, ``fp32`` once more with
+   cuDNN's TF32 convs (``fp32_tf32``, the fault the fp32 rows must catch),
+   and ``tools/quant_gate.py``'s ``int8`` and ``ctl_int8`` rows at 8
+   samples. It fails unless every image is finite, ``fp32`` and
+   ``ctl_fp32`` reach SSIM 0.999 and latent relative L2 1e-5 while
+   ``fp32_tf32`` exceeds 1e-5, the bf16 and int8 direct rows SSIM 0.95 and
+   latent relative L2 1e-2, the quant rows a minimum SSIM of 0.95 over
+   their samples, and each row launched exactly the kernels of its route (no
+   attention kernel under fp32; the VAE's mid-block K1 alone in
+   ``bf16_plain_attn``);
+12. a ``kernels`` JSON line (``launches``: this slice's ControlNet requests,
    F for the bf16 kernels and G for the int8 ones; every serving request's
    counts in ``launches_by_request``), the card's name and power limit, then
    the device JSON as the last line.
@@ -352,19 +368,15 @@ def check_conv(label, xshape, cout, ksize, stride, padding, gen):
 
 
 def launch_counts(labs=False):
-    """The serving path's launch counters; with ``labs`` those of the
-    kernels that only the labs reach."""
+    """The serving path's launch counters (``ops.flash_attention.launches``);
+    with ``labs`` those of the kernels that only the labs reach."""
     from pfd_tpu_torch.ops import flash_attention as fa
-    from pfd_tpu_torch.ops import fused_conv, int8_conv, int8_matmul
+    from pfd_tpu_torch.ops import fused_conv, int8_matmul
     if labs:
         return {"flash_attention_pipe": fa.flash_attention_pipe.launches,
                 "conv3x3_bf16": fused_conv.conv3x3_fused.launches,
                 "matmul_int8": int8_matmul.matmul_int8.launches}
-    return {"flash_attention": fa.flash_attention.launches,
-            "cross_attention": fa.cross_attention.launches,
-            "flash_attention_pv8": fa.flash_attention_pv8.launches,
-            "flash_attention_int8": fa.flash_attention_int8.launches,
-            "conv_int8": int8_conv.conv_int8.launches}
+    return fa.launches()
 
 
 def reset_counts():
@@ -680,6 +692,107 @@ def profile_unet(label, call):
               flush=True)
 
 
+def tf32_control(sd, ref):
+    """The plain ``fp32`` row with ``ops.nn``'s convs as cuDNN runs fp32 by
+    default, in TF32: the fault the FP32 repair removed, which the fp32 rows'
+    latent limit must tell apart from a sound run. Returns its row."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from pfd_tpu_torch.ops import nn
+    from pfd_tpu_torch.policy import FP32
+    from pfd_tpu_torch.tools import e2e_gate
+
+    model = e2e_gate.assemble(e2e_gate.gate_config(e2e_gate.PLAIN),
+                              e2e_gate.to_device(sd, "cuda", drop_control=True), FP32)
+    guarded = nn.conv2d_raw
+    nn.conv2d_raw = lambda x, w, b=None, *, stride=1, padding=0: F.conv2d(
+        x, w, b, stride=stride, padding=padding)
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+            img, lat = e2e_gate.run(model, e2e_gate.inputs("plain"))
+    finally:
+        nn.conv2d_raw = guarded
+    lat_ref = ref["latent_plain"]
+    row = {"variant": "fp32_tf32", "what": "fp32 with cuDNN's TF32 convs vs pfd_tpu's fp32",
+           "ssim_vs_pfd_tpu_fp32": e2e_gate.score(img[0], ref["img_plain"][0]),
+           "latent_rel_l2_vs_pfd_tpu": float(np.linalg.norm(lat - lat_ref) / np.linalg.norm(lat_ref)),
+           "finite": bool(np.isfinite(img).all() and np.isfinite(lat).all())}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def quality_gates(n_conv, n_conv_ctl):
+    """The quality gates at full width (phase 11) through the tools' own
+    ``evaluate``; raises unless every row passes its limit and launched the
+    kernels of its route (``n_conv`` / ``n_conv_ctl``: the int8 convs of a
+    50-step request without / with the ControlNet)."""
+    import torch
+    from pfd_tpu_torch.tools import e2e_gate, quant_gate
+
+    t0 = time.perf_counter()
+    ref = e2e_gate.load_reference()
+    recipe = dict(ref["recipe"], configs=sorted(ref["recipe"]["configs"]))
+    print(f"gates: reference recipe {json.dumps(recipe)}", flush=True)
+    print(f"gates: TF32 flags {json.dumps(e2e_gate.tf32_flags())} (ops.nn's fp32 convs "
+          f"turn cuDNN's off per call)", flush=True)
+    sd = e2e_gate.reference_weights()
+    print(f"gates: weights {sum(v.size for v in sd.values()) / 1e9:.3f} G floats, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    direct = {}
+    for gate_set in ("plain", "control"):
+        direct.update(e2e_gate.evaluate(gate_set, sd=sd, ref=ref)["rows"])
+        torch.cuda.empty_cache()
+    tf32 = tf32_control(sd, ref)
+    torch.cuda.empty_cache()
+    del sd
+    t1 = time.perf_counter()
+    quant = {**quant_gate.evaluate("plain", ["int8"], 8),
+             **quant_gate.evaluate("control", ["ctl_int8"], 8)}
+    torch.cuda.empty_cache()
+    print(f"gates: {t1 - t0:.1f} s direct, {time.perf_counter() - t1:.1f} s quant", flush=True)
+
+    def want(k1=0, k2=0, k4=0, conv=0):
+        return {"flash_attention": k1, "cross_attention": k2, "flash_attention_pv8": k4,
+                "flash_attention_int8": 0, "conv_int8": conv}
+
+    routes = {"fp32": want(), "fp32_eps": want(), "ctl_fp32": want(),
+              "bf16": want(501, 500), "bf16_plain_attn": want(1),
+              "int8": want(501, 500, conv=n_conv), "int8_attn8": want(1, 500, 500, n_conv),
+              "ctl_bf16": want(701, 700), "ctl_int8": want(701, 700, conv=n_conv_ctl)}
+    # limits: SSIM 0.999 for the fp32 control and BASELINE's 0.95; the
+    # latent relative L2 between the sound readings (fp32 ~5e-7, bf16/int8
+    # 4e-4 to 1.5e-3) and the faults to catch (TF32: fp32_tf32; chance 1.4)
+    fp32_latent, latent = 1e-5, 1e-2
+    bad = []
+    if not tf32["latent_rel_l2_vs_pfd_tpu"] > fp32_latent:
+        bad.append(f"fp32_tf32: latent rel_l2 {tf32['latent_rel_l2_vs_pfd_tpu']} within the "
+                   f"fp32 limit {fp32_latent}: the fp32 rows would not catch TF32")
+    for name, row in direct.items():
+        s, rel = row["ssim_vs_pfd_tpu_fp32"], row["latent_rel_l2_vs_pfd_tpu"]
+        if not row["finite"]:
+            bad.append(f"{name}: not finite")
+        if name in ("fp32", "ctl_fp32") and not (s >= 0.999 and rel <= fp32_latent):
+            bad.append(f"{name}: ssim {s} (limit 0.999), latent rel_l2 {rel} "
+                       f"(limit {fp32_latent})")
+        if name != "fp32_eps" and not s >= 0.95:
+            bad.append(f"{name}: ssim {s} (limit 0.95)")
+        if "fp32" not in name and not rel <= latent:
+            bad.append(f"{name}: latent rel_l2 {rel} (limit {latent})")
+        if row["launches"] != routes[name]:
+            bad.append(f"{name}: launches {row['launches']}, want {routes[name]}")
+    for name, row in quant.items():
+        low = row[f"fullsize_ddim50_ssim_{name}_vs_bf16"]
+        if not (row["finite"] and low >= 0.95):
+            bad.append(f"quant {name}: min ssim {low} (limit 0.95), finite {row['finite']}")
+        if row["launches"] != routes[name]:
+            bad.append(f"quant {name}: launches {row['launches']}, want {routes[name]}")
+    if bad:
+        raise AssertionError("quality gates: " + "; ".join(bad))
+    print(f"gates: all {len(direct)} direct and {len(quant)} quant rows pass", flush=True)
+    return direct, quant
+
+
 def main() -> int:
     import torch
 
@@ -738,7 +851,7 @@ def main() -> int:
                             fa.cross_variant(s[0] * s[1], s[2], skv, s[3], sms))
                for s, skv in [((2, 8, 4096, 40), 148), ((2, 8, 1024, 80), 148),
                               ((1, 2, 1024, 160), 512), ((2, 8, 5184, 40), 148),
-                              ((2, 8, 4096, 40), 1024)]]
+                              ((2, 8, 4096, 40), 1024), ((16, 8, 4096, 40), 148)]]
 
     check_dispatch(gen)
 
@@ -1003,7 +1116,13 @@ def main() -> int:
     # ---- 10. the kernel labs ---------------------------------------------------
     lab_launches = run_labs()
 
-    # ---- 11. summary ---------------------------------------------------------
+    # ---- 11. the quality gates -------------------------------------------------
+    n_conv_ctl = 50 * (per_unet + per_ctl) + per_hint + per_decode
+    del pipe, pipe8, net, net8, p
+    torch.cuda.empty_cache()
+    quality_gates(n_conv, n_conv_ctl)
+
+    # ---- 12. summary ---------------------------------------------------------
     served = {"A": launches, "D": launches_d, "E": launches_e, "F": launches_f,
               "G": launches_g}
 

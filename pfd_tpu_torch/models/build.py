@@ -8,12 +8,15 @@ shape-derived buffers, and fills the parameters from ``generator`` with
 normal tables, and zeros for the layers ``pfd_tpu`` zero-initialises
 (marked with :func:`zero_init`). The numbers differ from ``pfd_tpu``'s
 (another random stream); parity tests load ``pfd_tpu``'s weights instead.
+``init_params_`` also takes a ``numpy.random.Generator``: its draws are the
+same on every device (``tools/quant_gate.py`` builds its weights so).
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -36,17 +39,28 @@ def _fill(p, values):
         p.copy_(values.to(p.dtype))
 
 
+def _draw(p, gen, normal):
+    """fp32 unit normals or uniforms in [0, 1) of p's shape, on p's device,
+    from a torch generator (on that device) or a numpy Generator."""
+    if isinstance(gen, np.random.Generator):
+        a = (gen.standard_normal if normal else gen.random)(tuple(p.shape), dtype=np.float32)
+        return torch.from_numpy(a).to(p.device)
+    draw = torch.randn if normal else torch.rand
+    return draw(p.shape, generator=gen, device=p.device, dtype=torch.float32)
+
+
 def _uniform(p, bound, gen):
-    u = torch.rand(p.shape, generator=gen, device=p.device, dtype=torch.float32)
-    _fill(p, (2.0 * u - 1.0) * bound)
+    _fill(p, (2.0 * _draw(p, gen, False) - 1.0) * bound)
 
 
 def _normal(p, std, gen):
-    _fill(p, torch.randn(p.shape, generator=gen, device=p.device,
-                         dtype=torch.float32) * std)
+    _fill(p, _draw(p, gen, True) * std)
 
 
-def init_params_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+def init_params_(model: nn.Module, generator) -> nn.Module:
+    """Fill every parameter of ``model`` by ``pfd_tpu``'s init rules (module
+    docstring), drawing from ``generator``: a ``torch.Generator`` on the
+    model's device or a ``numpy.random.Generator``."""
     for mod in model.modules():
         zero = getattr(mod, _ZERO_ATTR, False)
         weight = getattr(mod, "weight", None)
@@ -106,9 +120,10 @@ def materialize(model: nn.Module, device) -> nn.Module:
 
 
 def build_model(cfg: dict, *, policy: Policy = FP32, device="cuda",
-                generator: torch.Generator | None = None) -> nn.Module:
+                generator=None) -> nn.Module:
     """Resolved config -> initialised ``nn.Module`` on ``device`` in eval mode.
-    ``generator`` (on ``device``) seeds the weights; seed 0 if omitted."""
+    ``generator`` (a torch generator on ``device``, or a numpy Generator)
+    seeds the weights; seed 0 if omitted."""
     device = torch.device(device)
     with torch.device("meta"):
         model = registry.get(cfg["type"])(**cfg.get("args", {}), policy=policy)

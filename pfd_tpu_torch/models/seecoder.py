@@ -140,14 +140,14 @@ class SeecoderDecoder(nn.Module):
         for tag in self.all_tags[::-1]:
             lat = self.lateral_layers[tag]
             x_in = nchw(tag)
-            lx = TF.conv2d(x_in, lat.weight.to(x_in.dtype))
+            lx = F.conv2d_raw(x_in, lat.weight.to(x_in.dtype))
             lx = F.group_norm(lx, lat.norm, eps=1e-5, norm_dtype=nd)
             if tag in self.trans_tags:
                 out[tag] = out[tag] + lx
                 tag_save = tag
             else:
                 oc = self.output_layers[tag]
-                prev = TF.conv2d(out[tag_save], oc.weight.to(lx.dtype), padding=1)
+                prev = F.conv2d_raw(out[tag_save], oc.weight.to(lx.dtype), padding=1)
                 prev = torch.relu(F.group_norm(prev, oc.norm, eps=1e-5, norm_dtype=nd))
                 # jax.image.resize "bilinear" upsampling == half-pixel
                 # centres with edge clamping == align_corners=False

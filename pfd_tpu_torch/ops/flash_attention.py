@@ -66,6 +66,7 @@ import functools
 import torch
 
 from pfd_tpu_torch.ops import cuda_build
+from pfd_tpu_torch.ops import int8_conv
 from pfd_tpu_torch.ops import nn
 from pfd_tpu_torch.ops import quant as quant_lib
 from pfd_tpu_torch.ops.int8_matmul import pad_depth
@@ -562,6 +563,16 @@ def reset_launch_counts():
     cross_attention.launches = 0
     flash_attention_pv8.launches = 0
     flash_attention_int8.launches = 0
+
+
+def launches():
+    """The serving path's launch counters: the attention kernels' and
+    ``conv_int8``'s (each wrapper counts its own launches)."""
+    return {"flash_attention": flash_attention.launches,
+            "cross_attention": cross_attention.launches,
+            "flash_attention_pv8": flash_attention_pv8.launches,
+            "flash_attention_int8": flash_attention_int8.launches,
+            "conv_int8": int8_conv.conv_int8.launches}
 
 
 def padded_head(d, quant=False):

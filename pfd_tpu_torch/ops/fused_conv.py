@@ -37,7 +37,6 @@ channels-last in memory on CUDA).
 
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import torch
@@ -45,16 +44,6 @@ import torch.nn.functional as F
 
 from pfd_tpu_torch.ops import cuda_build
 from pfd_tpu_torch.ops import nn
-
-
-@contextlib.contextmanager
-def _full_fp32(device):
-    """cuDNN runs fp32 convs in TF32 by default; the plain version does not."""
-    if device.type != "cuda":
-        yield
-        return
-    with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled, allow_tf32=False):
-        yield
 
 
 def conv3x3_fused_plain(x, weight, a, c, bias, residual=None):
@@ -71,8 +60,7 @@ def conv3x3_fused_plain(x, weight, a, c, bias, residual=None):
         inside = torch.zeros((h + 2, w + 2), dtype=torch.bool, device=x.device)
         inside[1:h + 1, 1:w + 1] = True
         xp = torch.where(inside, y, 0.0).to(x.dtype)
-    with _full_fp32(x.device):
-        out = F.conv2d(xp.float(), weight.float())
+    out = nn.conv2d_raw(xp.float(), weight.float())
     if bias is not None:
         out = out + bias.float()[None, :, None, None]
     if residual is not None:

@@ -66,6 +66,21 @@ def _conv_q(x, w8, scale, *, stride, padding):
     return _dequant(y, sx, scale, x, 1)
 
 
+def conv2d_raw(x, weight, bias=None, *, stride=1, padding=0):
+    """``F.conv2d``, in full fp32 where ``x`` is an fp32 CUDA tensor: cuDNN
+    runs fp32 convs in TF32 by default (``torch.backends.cudnn.allow_tf32``),
+    about 1e-3 relative off fp32, while the FP32 policy and ``pfd_tpu``'s
+    fp32 are fp32 throughout. Matmuls need no guard: their TF32 flag
+    (``torch.backends.cuda.matmul.allow_tf32``) is off by default and the
+    port never sets it."""
+    if x.is_cuda and x.dtype == torch.float32:
+        cudnn = torch.backends.cudnn
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            return F.conv2d(x, weight, bias, stride=stride, padding=padding)
+    return F.conv2d(x, weight, bias, stride=stride, padding=padding)
+
+
 def conv2d(x, m, *, stride=1, padding=0):
     """NCHW conv with the module's weights cast to ``x.dtype``, or the int8
     conv where the module is quantized (module docstring).
@@ -77,7 +92,7 @@ def conv2d(x, m, *, stride=1, padding=0):
     if isinstance(padding, tuple):
         x = F.pad(x, padding)
         padding = 0
-    return F.conv2d(x, _w(m, x), _b(m, x), stride=stride, padding=padding)
+    return conv2d_raw(x, _w(m, x), _b(m, x), stride=stride, padding=padding)
 
 
 def _matmul_q(x, w8, scale):

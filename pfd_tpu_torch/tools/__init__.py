@@ -9,4 +9,11 @@
   (K7b) and the conv kernels (``python -m pfd_tpu_torch.tools.int8_lab``).
 
 Each prints the card's name and power limit, then one JSON row per case.
+
+The quality gates (the port of ``pfd_tpu``'s) print one JSON row per gate row:
+
+- ``e2e_gate``: the port's full-width image against ``pfd_tpu``'s own fp32
+  image of the same weights and inputs (``python -m pfd_tpu_torch.tools.e2e_gate``);
+- ``quant_gate``: the int8 mode against the bf16 sampler on fan-in weights
+  (``python -m pfd_tpu_torch.tools.quant_gate``).
 """

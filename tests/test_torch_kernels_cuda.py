@@ -562,3 +562,61 @@ def test_fp32_pipeline_runs_on_the_card():
     assert img.shape == (128, 128, 3) and np.isfinite(img).all()
     assert img.min() >= 0.0 and img.max() <= 1.0
     assert (fa.flash_attention.launches, fa.cross_attention.launches) == counts
+
+
+def _rel_l2(got, want):
+    return ((got.double().cpu() - want.double()).norm() / want.double().norm()).item()
+
+
+@pytest.mark.cuda
+def test_fp32_runs_without_tf32_on_the_card():
+    """Under the FP32 policy the port is fp32 throughout on the card, as on
+    the CPU and in ``pfd_tpu``. cuDNN runs fp32 convs in TF32 (a 10-bit
+    mantissa, about 1e-3 relative off fp32) while
+    ``torch.backends.cudnn.allow_tf32`` is on, its default; ``ops.nn``'s
+    convs turn it off for the call (``nn.conv2d_raw``). What this catches: a
+    conv of the FP32 path that runs TF32. An fp32 conv, and a tiny model's
+    UNet call, SeeCoder and VAE decode on CUDA match the same calls on the CPU
+    within 1e-5 relative L2 with the flag on; the raw cuDNN conv on the same
+    inputs misses by more than 1e-4, so the limit separates the two. The
+    process-wide flag is left as it was."""
+    _need_cuda()
+    import copy
+
+    from pfd_tpu_torch.models.build import build_model, dezero_
+    from pfd_tpu_torch.policy import FP32
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        g = torch.Generator().manual_seed(0)
+        conv = torch.nn.Conv2d(320, 320, 3, padding=1).requires_grad_(False)
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=g) / (9 * 320) ** 0.5)
+        x = torch.randn((2, 320, 64, 64), generator=g)
+        want = tnn.conv2d(x, conv, padding=1)
+        conv_c, x_c = copy.deepcopy(conv).cuda(), x.cuda()
+        assert _rel_l2(tnn.conv2d(x_c, conv_c, padding=1), want) <= 1e-5
+        assert torch.backends.cudnn.allow_tf32
+        raw = torch.nn.functional.conv2d(x_c, conv_c.weight, conv_c.bias, padding=1)
+        assert _rel_l2(raw, want) > 1e-4  # TF32: the fault the guard removes
+
+        net = dezero_(build_model(_TINY_PFD, policy=FP32, device="cpu"),
+                      torch.Generator().manual_seed(1))  # eps is 0 with zero out convs
+        net_c = copy.deepcopy(net).cuda()
+        ref = torch.rand((1, 3, 64, 64), generator=g)
+        xl = torch.randn((2, 4, 32, 32), generator=g)
+        t = torch.tensor([501, 501])
+        with torch.no_grad():
+            c = net.ctx_encode(ref)
+            c_c = net_c.ctx_encode(ref.cuda())
+            assert _rel_l2(c_c, c) <= 1e-5
+            ci = {"type": "image", "c": torch.cat([torch.zeros_like(c), c])}
+            ci_c = {"type": "image", "c": ci["c"].cuda()}
+            e = net.apply_model({"type": "image", "x": xl}, t, ci)
+            e_c = net_c.apply_model({"type": "image", "x": xl.cuda()}, t.cuda(), ci_c)
+            assert _rel_l2(e_c, e) <= 1e-5
+            d = net.vae_decode(xl[:1], "image")
+            d_c = net_c.vae_decode(xl[:1].cuda(), "image")
+            assert _rel_l2(d_c, d) <= 1e-5
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
