@@ -9,8 +9,14 @@ scale, ``ctx_encode`` and the data/context block walk of ``apply_model``
 ``diffuser[c_type]``, pfd.py:126-141). Latents and images are NCHW.
 
 ``pfd_with_control`` adds the ControlNet (``ctl``, ``models/controlnet.py``):
-its 13 residuals, gated per request by an optional ``control_mask``, join
-the UNet walk (``models/unet.py``).
+its 13 residuals (``control_residuals``), gated per request by an optional
+``control_mask``, join the UNet walk (``models/unet.py``).
+
+The split forwards of the turbo samplers (pfd.py:143-224) take the same
+blocks: ``apply_model_encoder`` (the ControlNet runs here) and
+``apply_model_decoder``; DeepCache's ``deep_split_skips``,
+``apply_model_encoder_shallow`` (no hint), ``apply_model_decoder_deep`` and
+``apply_model_decoder_shallow``.
 """
 
 from __future__ import annotations
@@ -81,18 +87,80 @@ class PromptFreeDiffusion(nn.Module):
         b = self._extract(s.sqrt_one_minus_alphas_cumprod, t, x0.ndim).to(x0.dtype)
         return a * x0 + b * noise
 
+    def _unet(self, x_type, c_type, timesteps):
+        """The diffuser of ``x_type`` and the keywords that pull its data
+        blocks from it, its context blocks from ``diffuser[c_type]`` and the
+        time embedding from ``global_layer_ptr`` (pfd.py:126-151)."""
+        glayer = x_type if self.global_layer_ptr is None else self.global_layer_ptr
+        unet = self.diffuser[x_type]
+        return unet, {"data_blocks": unet.data_blocks,
+                      "context_blocks": self.diffuser[c_type].context_blocks,
+                      "emb": self.diffuser[glayer].time_embedding(timesteps)}
+
+    def control_residuals(self, x, timesteps, c_info, self_attn_fn=None):
+        """The ControlNet's residuals for this call; None without one."""
+        return None
+
     def apply_model(self, x_info, timesteps, c_info, *, self_attn_fn=None):
         """x_info: {'type': modality, 'x': NCHW latent};
         c_info: {'type': modality, 'c': context tokens}."""
-        x_type, x = x_info["type"], x_info["x"]
-        c_type, c = c_info["type"], c_info["c"]
-        glayer = x_type if self.global_layer_ptr is None else self.global_layer_ptr
-        unet = self.diffuser[x_type]
-        return unet(x, timesteps, c,
-                    data_blocks=unet.data_blocks,
-                    context_blocks=self.diffuser[c_type].context_blocks,
-                    emb=self.diffuser[glayer].time_embedding(timesteps),
-                    self_attn_fn=self_attn_fn)
+        x = x_info["x"]
+        unet, kw = self._unet(x_info["type"], c_info["type"], timesteps)
+        return unet(x, timesteps, c_info["c"], self_attn_fn=self_attn_fn,
+                    control_residuals=self.control_residuals(x, timesteps, c_info,
+                                                             self_attn_fn), **kw)
+
+    # ---- the split forwards of the turbo samplers (pfd.py:153-224) ---------
+
+    def apply_model_encoder(self, x_info, timesteps, c_info, *, self_attn_fn=None):
+        """The UNet's encoder half, with the ControlNet's residuals folded
+        into its state where the call has a hint: (h_mid, skips)."""
+        x = x_info["x"]
+        unet, kw = self._unet(x_info["type"], c_info["type"], timesteps)
+        return unet.apply_encoder(x, timesteps, c_info["c"], self_attn_fn=self_attn_fn,
+                                  control_residuals=self.control_residuals(
+                                      x, timesteps, c_info, self_attn_fn), **kw)
+
+    def apply_model_decoder(self, h, hs, timesteps, c_info, *, x_type="image",
+                            self_attn_fn=None):
+        unet, kw = self._unet(x_type, c_info["type"], timesteps)
+        return unet.apply_decoder(h, hs, timesteps, c_info["c"], self_attn_fn=self_attn_fn,
+                                  **kw)
+
+    def deep_split_skips(self, x_type="image"):
+        """The number of shallow skips at the diffuser's DeepCache cut."""
+        diffuser = self.diffuser[x_type]
+        split_fn = getattr(diffuser, "decoder_split", None)
+        split = split_fn() if split_fn is not None else None
+        if split is None:
+            raise ValueError(
+                "DeepCache (deep_interval>1 / phased schedules) requires the 2d_next UNet "
+                "layout with a multi-level block plan; "
+                f"{type(diffuser).__name__} does not support decoder_split")
+        return split[2]
+
+    def apply_model_encoder_shallow(self, x_info, timesteps, c_info, *, self_attn_fn=None):
+        """Fresh shallow skips for a DeepCache reuse step. A hint is refused:
+        its shallow residuals would need the whole ControlNet forward, so
+        control requests reuse the cached skips instead (pfd.py:196-209)."""
+        if c_info.get("control") is not None or c_info.get("control_embed") is not None:
+            raise ValueError("the fresh shallow encoder of DeepCache does not take a "
+                             "ControlNet hint")
+        unet, kw = self._unet(x_info["type"], c_info["type"], timesteps)
+        return unet.apply_encoder_shallow(x_info["x"], timesteps, c_info["c"],
+                                          self_attn_fn=self_attn_fn, **kw)
+
+    def apply_model_decoder_deep(self, h, hs_deep, timesteps, c_info, *, x_type="image",
+                                 self_attn_fn=None):
+        unet, kw = self._unet(x_type, c_info["type"], timesteps)
+        return unet.apply_decoder_deep(h, hs_deep, timesteps, c_info["c"],
+                                       self_attn_fn=self_attn_fn, **kw)
+
+    def apply_model_decoder_shallow(self, h, hs_shallow, timesteps, c_info, *,
+                                    x_type="image", self_attn_fn=None):
+        unet, kw = self._unet(x_type, c_info["type"], timesteps)
+        return unet.apply_decoder_shallow(h, hs_shallow, timesteps, c_info["c"],
+                                          self_attn_fn=self_attn_fn, **kw)
 
 
 def _mask_residuals(residuals, c_info):
@@ -118,26 +186,15 @@ class PromptFreeDiffusionWithControl(PromptFreeDiffusion):
         # stored, not applied, as in the reference (pfd.py:463 vs 515-519)
         self.control_scales = [1.0] * self.ctl.num_residuals
 
-    def apply_model(self, x_info, timesteps, c_info, *, self_attn_fn=None):
-        """As ``PromptFreeDiffusion.apply_model``, with the ControlNet's
-        residuals from ``c_info['control_embed']`` (the hoisted hint
-        embedding) or ``c_info['control']`` (the NCHW hint image), gated by
-        ``c_info['control_mask']``; neither key: no ControlNet."""
-        x_type, x = x_info["type"], x_info["x"]
-        c_type, c = c_info["type"], c_info["c"]
+    def control_residuals(self, x, timesteps, c_info, self_attn_fn=None):
+        """The ControlNet's 13 residuals from ``c_info['control_embed']`` (the
+        hoisted hint embedding) or ``c_info['control']`` (the NCHW hint
+        image), gated by ``c_info['control_mask']``; neither key: None, no
+        ControlNet."""
         embed = c_info.get("control_embed")
         hint = embed if embed is not None else c_info.get("control")
-
-        residuals = None
-        if hint is not None:
-            residuals = self.ctl(x, hint, timesteps, c, self_attn_fn=self_attn_fn,
-                                 hint_is_embedding=embed is not None)
-            residuals = _mask_residuals(residuals, c_info)
-
-        glayer = x_type if self.global_layer_ptr is None else self.global_layer_ptr
-        unet = self.diffuser[x_type]
-        return unet(x, timesteps, c, control_residuals=residuals,
-                    data_blocks=unet.data_blocks,
-                    context_blocks=self.diffuser[c_type].context_blocks,
-                    emb=self.diffuser[glayer].time_embedding(timesteps),
-                    self_attn_fn=self_attn_fn)
+        if hint is None:
+            return None
+        residuals = self.ctl(x, hint, timesteps, c_info["c"], self_attn_fn=self_attn_fn,
+                             hint_is_embedding=embed is not None)
+        return _mask_residuals(residuals, c_info)

@@ -9,6 +9,13 @@ forward walks it. The split survives as the module split, which is what lets
 the composite model take data blocks from one diffuser and context blocks from
 another (pfd.py:326-329).
 
+``forward`` is ``apply_encoder`` (the input and middle ops, with the
+ControlNet's residuals folded into the state) followed by ``apply_decoder``
+(the output ops), the split that encoder propagation caches at;
+``decoder_split`` cuts the output ops at their last up block for DeepCache
+(``apply_encoder_shallow``, ``apply_decoder_deep``,
+``apply_decoder_shallow``), as ``pfd_tpu``'s do (unet.py:265-395).
+
 Only the ``openai_unet_2d_next`` layout is ported; the classic, 0-d and
 variant UNets of ``pfd_tpu`` are not on the serving path.
 """
@@ -190,43 +197,113 @@ class UNetModel2DNext(nn.Module):
         return blocks.time_embed(self.time_embed, timesteps, self.model_channels,
                                  self.policy.compute_dtype)
 
-    def forward(self, x, timesteps, context, *, control_residuals=None, self_attn_fn=None,
-                data_blocks=None, context_blocks=None, emb=None):
-        """x: NCHW latent, timesteps: (B,), context: (B, S, C) tokens.
-        ``control_residuals``: optional list of the ControlNet's 13 NCHW
-        residuals (12 skips + 1 middle), popped from the end as in
-        ``pfd_tpu`` (pfd.py:515-519): the last one joins ``h`` after the
-        middle ops, the others each skip before its concat, in reverse.
-        ``data_blocks`` / ``context_blocks`` let the composite model pull the
-        two halves from different diffusers (pfd.py:326-329)."""
+    def _inputs(self, timesteps, context, data_blocks, context_blocks, emb):
+        """(data blocks, context blocks, emb, context) in the compute dtype."""
         pol = self.policy
-        plan = self.plan
         db = self.data_blocks if data_blocks is None else data_blocks
         cb = self.context_blocks if context_blocks is None else context_blocks
         if emb is None:
             emb = self.time_embedding(timesteps)
-        emb = pol.cast(emb)
         context = pol.cast(context) if context is not None else None
-        ccs = list(control_residuals) if control_residuals is not None else None
-        hs = []
+        return db, cb, pol.cast(emb), context
 
-        def run(ops, h):
-            for op in ops:
-                kind = op[0]
-                if kind == "d":
-                    h = apply_data_block(db[op[1]], plan.data_specs[op[1]], h, emb, pol)
-                elif kind == "c":
-                    h = cb[op[1]][0](h, context, self_attn_fn=self_attn_fn)
-                elif kind == "save":
-                    hs.append(h)
-                else:  # load
-                    skip = hs.pop()
-                    if ccs is not None:
-                        skip = skip + pol.cast(ccs.pop())
-                    h = torch.cat([h, skip], dim=1)
-            return h
+    def _walk(self, ops, h, hs, db, cb, emb, context, self_attn_fn, n_saves=None):
+        """Run the opcodes ``ops`` from ``h``: a save appends h to ``hs`` (the
+        walk ends at the ``n_saves``-th), a load concatenates the last skip."""
+        plan, pol = self.plan, self.policy
+        for op in ops:
+            kind = op[0]
+            if kind == "d":
+                h = apply_data_block(db[op[1]], plan.data_specs[op[1]], h, emb, pol)
+            elif kind == "c":
+                h = cb[op[1]][0](h, context, self_attn_fn=self_attn_fn)
+            elif kind == "save":
+                hs.append(h)
+                if len(hs) == n_saves:
+                    return h
+            else:  # load
+                h = torch.cat([h, hs.pop()], dim=1)
+        return h
 
-        h = run(plan.i_ops + plan.m_ops, pol.cast(x))
-        if ccs is not None:
-            h = h + pol.cast(ccs.pop())
-        return run(plan.o_ops, h)
+    def forward(self, x, timesteps, context, *, control_residuals=None, self_attn_fn=None,
+                data_blocks=None, context_blocks=None, emb=None):
+        """x: NCHW latent, timesteps: (B,), context: (B, S, C) tokens.
+        ``control_residuals``: optional list of the ControlNet's 13 NCHW
+        residuals (12 skips + 1 middle), as in ``pfd_tpu`` (pfd.py:515-519):
+        the last one joins ``h`` after the middle ops, the others each its
+        skip (``apply_encoder``). ``data_blocks`` / ``context_blocks`` let
+        the composite model pull the two halves from different diffusers
+        (pfd.py:326-329). The encoder followed by the decoder."""
+        kw = dict(self_attn_fn=self_attn_fn, data_blocks=data_blocks,
+                  context_blocks=context_blocks, emb=emb)
+        h, hs = self.apply_encoder(x, timesteps, context,
+                                   control_residuals=control_residuals, **kw)
+        return self.apply_decoder(h, hs, timesteps, context, **kw)
+
+    def apply_encoder(self, x, timesteps, context, *, control_residuals=None,
+                      self_attn_fn=None, data_blocks=None, context_blocks=None, emb=None):
+        """The input and middle ops (``pfd_tpu`` unet.py:265-297): returns
+        (h_mid, the tuple of skips), the state encoder propagation caches.
+        The ControlNet's residuals are folded in here: the last into
+        ``h_mid``, the others each into its skip (``hs[i] + ccs[i]``, the
+        pairs ``forward``'s loads would pop)."""
+        db, cb, emb, context = self._inputs(timesteps, context, data_blocks,
+                                            context_blocks, emb)
+        pol, hs = self.policy, []
+        h = self._walk(self.plan.i_ops + self.plan.m_ops, pol.cast(x), hs, db, cb, emb,
+                       context, self_attn_fn)
+        if control_residuals is not None:
+            ccs = list(control_residuals)
+            mid = ccs.pop()
+            hs = [s + pol.cast(c) for s, c in zip(hs, ccs)]
+            h = h + pol.cast(mid)
+        return h, tuple(hs)
+
+    def apply_decoder(self, h, hs, timesteps, context, *, self_attn_fn=None,
+                      data_blocks=None, context_blocks=None, emb=None, ops=None):
+        """The output ops (default all of them; ``pfd_tpu`` unet.py:299-325)
+        from ``h`` and the (possibly cached) skips ``hs``."""
+        db, cb, emb, context = self._inputs(timesteps, context, data_blocks,
+                                            context_blocks, emb)
+        return self._walk(self.plan.o_ops if ops is None else ops, h, list(hs), db, cb, emb,
+                          context, self_attn_fn)
+
+    # ---- the DeepCache split (pfd_tpu unet.py:327-395) -------------------
+    # The output program is cut at its last 'up' block: the shallow suffix
+    # is the highest-resolution level (with the up transition and the out
+    # head), the deep prefix everything before it, whose output a reuse
+    # step takes from the cache. The shallow skips are the first saves.
+
+    def decoder_split(self):
+        """(o_deep, o_shallow, n_shallow_skips); None for a single level."""
+        ups = [i for i, op in enumerate(self.plan.o_ops)
+               if op[0] == "d" and self.plan.data_specs[op[1]].kind == "up"]
+        if not ups:
+            return None
+        o_deep, o_shallow = self.plan.o_ops[:ups[-1]], self.plan.o_ops[ups[-1]:]
+        return o_deep, o_shallow, sum(1 for op in o_shallow if op[0] == "load")
+
+    def apply_encoder_shallow(self, x, timesteps, context, *, self_attn_fn=None,
+                              data_blocks=None, context_blocks=None, emb=None):
+        """The input ops up to the last shallow save: the shallow skips
+        alone, equal to ``apply_encoder``'s first ones."""
+        db, cb, emb, context = self._inputs(timesteps, context, data_blocks,
+                                            context_blocks, emb)
+        n_saves, hs = self.decoder_split()[2], []
+        self._walk(self.plan.i_ops, self.policy.cast(x), hs, db, cb, emb, context,
+                   self_attn_fn, n_saves=n_saves)
+        if len(hs) != n_saves:
+            raise AssertionError("the encoder ended before the shallow saves")
+        return tuple(hs)
+
+    def apply_decoder_deep(self, h, hs_deep, timesteps, context, **kw):
+        """The deep prefix on the deep skips (saves n_shallow..): the
+        feature entering the shallow suffix, the DeepCache cache point."""
+        return self.apply_decoder(h, hs_deep, timesteps, context,
+                                  ops=self.decoder_split()[0], **kw)
+
+    def apply_decoder_shallow(self, h, hs_shallow, timesteps, context, **kw):
+        """The shallow suffix from the (possibly cached) deep feature and
+        the first n_shallow skips."""
+        return self.apply_decoder(h, hs_shallow, timesteps, context,
+                                  ops=self.decoder_split()[1], **kw)

@@ -28,6 +28,17 @@ per image, stays bf16. Pair it with
 ``self_attn_fn=ops.flash_attention.self_attn_fn_int8`` (K4; K5 with
 ``functools.partial(..., mode="full")``) for int8 attention.
 
+The turbo serving modes take ``pfd_tpu``'s knobs, names and defaults
+(pipeline.py:42-89): ``encoder_interval``, ``cfg_interval``,
+``deep_interval``, ``cfg_extrapolate`` and ``phases`` go to the sampler
+(``diffusion/ddim.py``); ``kv_pool`` > 1 pools K and V of the reuse steps'
+ds1 self-attention (``ops/kvpool.py``; sequences under ``kv_min_s`` pass
+through), on K2 when ``self_attn_fn`` is set and plain otherwise;
+``tome_ratio`` > 0 merges that fraction of the ds1 tokens around the
+self-attention (``ops/tome.py``). A request with a hint samples exactly
+unless ``control_turbo=True`` (the turbos and the KV pool are off for it;
+ToMe is not), as in ``pfd_tpu`` (:236-256).
+
 Weights: without checkpoint files the model runs with random weights seeded
 by ``seed``. Loading the published zoo needs ``io/loader.py``, which is not
 ported yet: a checkpoint file found on disk raises instead of being ignored.
@@ -46,7 +57,10 @@ import torch
 from pfd_tpu_torch import annotators, config, zoo
 from pfd_tpu_torch.diffusion.ddim import DDIMSampler
 from pfd_tpu_torch.models.build import build_model
+from pfd_tpu_torch.ops import nn as ops_nn
 from pfd_tpu_torch.ops import quant
+from pfd_tpu_torch.ops.kvpool import make_kvpool_attn
+from pfd_tpu_torch.ops.tome import make_tome_attn
 from pfd_tpu_torch.policy import Policy, FP32, BF16
 
 
@@ -74,10 +88,22 @@ class PromptFreeDiffusionPipeline:
                  tag_ctx="SeeCoder", tag_diffuser="Deliberate-v2.0",
                  tag_ctl="canny", pretrained_root=None, seed=0,
                  with_control=True, self_attn_fn=None, config_override=None,
-                 quantized=False, device="cuda"):
+                 encoder_interval=1, quantized=False, tome_ratio=0.0, cfg_interval=1,
+                 deep_interval=1, control_turbo=False, cfg_extrapolate="const",
+                 phases=None, kv_pool=0, kv_min_s=4096, device="cuda"):
         self.policy = policy or (BF16 if fp16 else FP32)
         self.root = pretrained_root
         self.self_attn_fn = self_attn_fn
+        # the turbo knobs (module docstring): output-changing, each gated
+        self.encoder_interval = encoder_interval
+        self.cfg_interval = cfg_interval
+        self.deep_interval = deep_interval
+        self.cfg_extrapolate = cfg_extrapolate
+        self.phases = phases
+        self.kv_pool = kv_pool
+        self.kv_min_s = kv_min_s
+        self.control_turbo = control_turbo
+        self.tome_ratio = tome_ratio
         self.device = torch.device(device)
         self.ddim_steps = 50
         self.ddim_eta = 0.0
@@ -167,17 +193,41 @@ class PromptFreeDiffusionPipeline:
 
     # ---- inference (app.py:212-275) ------------------------------------------
 
+    def _plain_attention(self, q, k, v):
+        return ops_nn.dot_product_attention(q, k, v, softmax_dtype=self.policy.softmax_dtype)
+
+    def sampler_args(self, grid, has_control):
+        """The sampler's attention and turbo arguments for a request on the
+        latent ``grid`` (h, w): ToMe around the self-attention, and unless
+        the exact-control guard holds (a hint without ``control_turbo``)
+        the intervals, the phases and the KV-pooled reuse attention."""
+        attn = self.self_attn_fn
+        if self.tome_ratio > 0:
+            attn = make_tome_attn(attn or self._plain_attention, grid, ratio=self.tome_ratio)
+        kw = {"self_attn_fn": attn, "cfg_extrapolate": self.cfg_extrapolate}
+        if has_control and not self.control_turbo:
+            return kw
+        kw.update(encoder_interval=self.encoder_interval, cfg_interval=self.cfg_interval,
+                  deep_interval=self.deep_interval, phases=self.phases)
+        if self.kv_pool > 1:
+            kw["reuse_self_attn_fn"] = make_kvpool_attn(
+                attn or self._plain_attention, grid, pool=self.kv_pool, min_s=self.kv_min_s,
+                kernel=self.self_attn_fn is not None)
+        return kw
+
     @torch.no_grad()
     def sample_decode(self, c, u, x, ugscale, steps, control=None):
         """CFG DDIM from the NCHW start latent ``x`` with context ``c``,
         unconditional context ``u`` and, if given, the NCHW hint images
-        ``control`` (one per latent), then the VAE decode -> NCHW in [0, 1]."""
+        ``control`` (one per latent), in the pipeline's turbo mode, then the
+        VAE decode -> NCHW in [0, 1]."""
         tables = self.sampler.make_tables(steps, self.ddim_eta)
         c_info = {"conditioning": c, "unconditional_conditioning": u,
                   "unconditional_guidance_scale": ugscale}
         if control is not None:
             c_info["control"] = control
-        x, _ = self.sampler.sample_fn(x, c_info, tables, self_attn_fn=self.self_attn_fn)
+        x, _ = self.sampler.sample_fn(x, c_info, tables,
+                                      **self.sampler_args(tuple(x.shape[2:]), control is not None))
         return self.net.vae_decode(x, "image")
 
     @torch.no_grad()

@@ -23,7 +23,8 @@ packages, an injected start latent. BASELINE's gate is SSIM >= 0.95.
 - **The reference** is ``gate_ref/e2e_gate_ref.npz``: ``pfd_tpu``'s fp32
   images (uint8), final latents (fp32, NCHW) and SeeCoder tokens (fp16) of
   both sets, made on a CPU by ``tests/torch_gate_reference.py``, with its
-  recipe in the ``recipe`` field.
+  recipe in the ``recipe`` field; ``gate_ref/turbo_ref.npz`` holds the
+  images and latents of its fp32 runs under ``TURBO_PHASES`` (``--turbo``).
 
 Rows (``GATE_VARIANTS`` = comma-list, default all of the set;
 ``GATE_SET=control`` for the ControlNet set):
@@ -39,7 +40,20 @@ Rows (``GATE_VARIANTS`` = comma-list, default all of the set;
 - ``int8``: diffuser and VAE spatial convs int8 (``conv_int8``), K1 and K2;
 - ``int8_attn8``: ``int8`` with ``self_attn_fn_int8`` (K4);
 - ``ctl_fp32``, ``ctl_bf16``, ``ctl_int8``: the control set, with the
-  ControlNet quantized too in ``ctl_int8``.
+  ControlNet quantized too in ``ctl_int8``;
+- ``pfd_tpu``'s turbo, KV-pool and ToMe rows (``TURBO_ROWS``,
+  ``CTL_TURBO_ROWS``; e2e_gate.py:150-185, :284-383), which the name
+  defines (``row_recipe``): the precision (``bf16``, ``int8``: K1 and K2,
+  the int8 convs), then ``turbo{k}`` (encoder_interval), ``cfg{k}[lin]``
+  (cfg_interval, linear extrapolation), ``deep{k}`` (deep_interval),
+  ``ph{n}x{k}_{n}x{k}[lin]`` (phases), ``kv{p}`` (K and V pooled p x p on
+  reuse steps, ``ops/kvpool.py``), ``tome5`` / ``tome3`` (ToMe at ratio 0.5
+  / 0.25, ``ops/tome.py``). Like ``pfd_tpu``'s, they are scored against
+  the exact fp32 reference;
+- ``fp32_ph8x2_42x21``, ``ctl_fp32_ph10x2_40x20``: the ``fp32`` row under
+  the phased schedules of ``TURBO_PHASES``, scored against ``pfd_tpu``'s
+  fp32 run of the same schedule (``gate_ref/turbo_ref.npz``): the turbo
+  regression control (cache slicing and group order to the last bit).
 
 Each row prints one JSON line: SSIM against ``pfd_tpu``'s fp32 image (both
 as 8-bit images, ``score``) and against the port's bf16 image of the set, the final latent's relative L2
@@ -59,6 +73,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import time
 
 import numpy as np
@@ -68,34 +83,105 @@ from pfd_tpu_torch import config, registry
 from pfd_tpu_torch.diffusion.ddim import DDIMSampler
 from pfd_tpu_torch.ops import flash_attention as fa
 from pfd_tpu_torch.ops import quant
+from pfd_tpu_torch.ops.kvpool import make_kvpool_attn
+from pfd_tpu_torch.ops.tome import make_tome_attn
 from pfd_tpu_torch.policy import BF16, FP32
 from pfd_tpu_torch.training.evaluator import ssim
 
 REF_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "gate_ref",
                         "e2e_gate_ref.npz")
+TURBO_REF_PATH = os.path.join(os.path.dirname(REF_PATH), "turbo_ref.npz")
+# the turbo reference's runs, one a set: pfd_tpu's phased serving schedules
+# (bench.py's plain default, its control default with control_turbo)
+TURBO_PHASES = {"plain": ((8, 2), (42, 21)), "control": ((10, 2), (40, 20))}
 FULL, PLAIN = "pfd_seecoder_with_controlnet", "pfd_seecoder"
-SEED, SCALE, STEPS, GUIDANCE = 42, 0.04, 50, 2.0
+SEED, SCALE, STEPS, GUIDANCE, SIZE = 42, 0.04, 50, 2.0, 512
 # bf16 compute on fp32 parameters, as pfd_tpu's gate runs its BF16 model
 GATE_BF16 = dataclasses.replace(BF16, param_dtype=torch.float32)
 
-ROWS = ("fp32", "fp32_eps", "bf16", "bf16_plain_attn", "int8", "int8_attn8")
-CTL_ROWS = ("ctl_fp32", "ctl_bf16", "ctl_int8")
-# pfd_tpu's rows whose modules the port does not have yet, by a part of their
-# name: the sampler turbos and the KV pool (ROADMAP queue 1 item 7), ToMe (item 10)
-UNPORTED = ("_turbo", "_cfg", "_deep", "_ph", "_kv", "_tome")
+BASE_ROWS = ("fp32", "fp32_eps", "bf16", "bf16_plain_attn", "int8", "int8_attn8")
+CTL_BASE_ROWS = ("ctl_fp32", "ctl_bf16", "ctl_int8")
+# pfd_tpu's turbo, KV-pool and ToMe rows (e2e_gate.py:284-383, :150-185),
+# defined by their names (row_recipe)
+TURBO_ROWS = (
+    "int8_turbo2", "bf16_turbo2", "int8_tome5", "int8_tome3", "int8_tome5_turbo2",
+    "int8_cfg2", "bf16_cfg2", "int8_turbo2_cfg2", "int8_turbo3_cfg3", "int8_cfg2_deep2",
+    "int8_turbo2_cfg2_deep2", "int8_turbo3_cfg3_deep3", "int8_turbo4_cfg4_deep4",
+    "int8_turbo3_cfg3lin_deep3", "int8_turbo4_cfg4lin_deep4", "int8_turbo5_cfg5_deep5",
+    "int8_turbo5_cfg5lin_deep5", "int8_turbo6_cfg6lin_deep6", "int8_ph10x2_40x5",
+    "int8_ph10x2_40x8", "int8_ph5x1_45x5", "int8_ph10x2_40x8lin", "int8_ph10x2_40x10",
+    "int8_ph10x2_40x20", "int8_ph20x4_30x15", "int8_ph10x2_40x20lin", "int8_ph10x2_40x40",
+    "int8_ph8x2_42x21", "int8_ph6x2_44x22", "int8_ph8x2_42x21_kv2", "int8_ph10x2_40x10_kv2",
+    "int8_ph8x2_42x21_kv4", "int8_ph10x2_40x10_kv4", "bf16_ph10x2_40x8", "bf16_ph10x2_40x10",
+    "bf16_ph10x2_40x20")
+CTL_TURBO_ROWS = (
+    "ctl_int8_cfg2", "ctl_int8_turbo2_cfg2", "ctl_int8_turbo2_cfg2_deep2",
+    "ctl_int8_turbo3_cfg3_deep3", "ctl_int8_ph10x2_40x8", "ctl_int8_ph10x2_40x10",
+    "ctl_int8_ph10x2_40x20", "ctl_int8_ph10x2_40x20_kv2")
+# the fp32 rows under TURBO_PHASES, scored against the turbo reference
+FP32_TURBO = {"plain": "fp32_ph8x2_42x21", "control": "ctl_fp32_ph10x2_40x20"}
+ROWS = BASE_ROWS + TURBO_ROWS + (FP32_TURBO["plain"],)
+CTL_ROWS = CTL_BASE_ROWS + CTL_TURBO_ROWS + (FP32_TURBO["control"],)
+TOME_RATIOS = {"tome5": 0.5, "tome3": 0.25}
 
 
 def check_names(names, valid):
-    """Refuse a row name before any work: an unported ``pfd_tpu`` row names
-    the ROADMAP items it waits on, an unknown one the valid names."""
+    """Refuse a row name before any work unless it is one of ``valid`` or a
+    turbo composition that ``row_recipe`` reads, of the same set (``ctl_``
+    or not) and a precision of ``valid``'s."""
+    control = all(v.startswith("ctl_") for v in valid)
+    precisions = {v.removeprefix("ctl_").split("_")[0] for v in valid}
     for name in names:
         if name in valid:
             continue
-        if any(key in name for key in UNPORTED):
-            raise SystemExit(f"row {name!r} is not ported yet: pfd_tpu's turbo, kv-pool and "
-                             "ToMe rows wait on ROADMAP queue 1 items 7 and 10")
-        raise SystemExit(f"unknown row {name!r}; valid: {sorted(valid)}")
+        if (name.startswith("ctl_") == control
+                and name.removeprefix("ctl_").split("_")[0] in precisions):
+            try:
+                row_recipe(name)
+                continue
+            except ValueError:
+                pass
+        raise SystemExit(f"unknown row {name!r}; valid: {sorted(valid)} and their "
+                         "compositions (row_recipe)")
     return list(names)
+
+
+def row_recipe(name, grid=(SIZE // 8, SIZE // 8)):
+    """(precision, self-attention fn, the sampler's turbo arguments) of a
+    turbo, KV-pool or ToMe row, read from its name (module docstring) for
+    the latent ``grid``. The bf16 and int8 rows run K1 and K2
+    (``self_attn_fn``), fp32 plain attention."""
+    parts = name.split("_")
+    if parts[0] == "ctl":
+        parts = parts[1:]
+    prec, attn, turbo, phases = parts[0], None, {}, []
+    if prec != "fp32":
+        attn = fa.self_attn_fn
+    for tok in parts[1:]:
+        if m := re.fullmatch(r"turbo(\d+)", tok):
+            turbo["encoder_interval"] = int(m[1])
+        elif m := re.fullmatch(r"cfg(\d+)(lin)?", tok):
+            turbo["cfg_interval"] = int(m[1])
+            if m[2]:
+                turbo["cfg_extrapolate"] = "linear"
+        elif m := re.fullmatch(r"deep(\d+)", tok):
+            turbo["deep_interval"] = int(m[1])
+        elif m := re.fullmatch(r"(ph)?(\d+)x(\d+)(lin)?", tok):
+            if bool(m[1]) == bool(phases):
+                raise ValueError(f"row {name!r}: a phase outside its ph... list")
+            phases.append((int(m[2]), int(m[3])))
+            if m[4]:
+                turbo["cfg_extrapolate"] = "linear"
+        elif m := re.fullmatch(r"kv(\d+)", tok):
+            turbo["reuse_self_attn_fn"] = make_kvpool_attn(fa.self_attn_fn, grid,
+                                                           pool=int(m[1]))
+        elif tok in TOME_RATIOS:
+            attn = make_tome_attn(attn, grid, ratio=TOME_RATIOS[tok])
+        else:
+            raise ValueError(f"row {name!r}: unknown part {tok!r}")
+    if phases:
+        turbo["phases"] = phases
+    return prec, attn, turbo
 
 
 def gate_config(name):
@@ -131,7 +217,7 @@ def reference_weights(name=FULL, seed=SEED, scale=SCALE):
     return out
 
 
-def inputs(gate_set="plain", size=512):
+def inputs(gate_set="plain", size=SIZE):
     """``pfd_tpu``'s draws for a set at ``size``^2: ``ref_img`` (1, size,
     size, 3), ``x_start`` (1, 4, size/8, size/8) NCHW and, for the control
     set, ``hint`` (1, 3, size, size) NCHW."""
@@ -180,10 +266,11 @@ def assemble(cfg, sd, policy, quantized=False):
 
 
 @torch.no_grad()
-def run(model, inp, self_attn_fn=None, steps=STEPS, x_start=None):
-    """SeeCoder -> CFG DDIM (guidance 2.0, zero unconditional context, eta 0)
-    from ``x_start`` (default ``inp["x_start"]``), with ``inp["hint"]`` as
-    the ControlNet's raw hint where given -> VAE decode. Returns (images
+def run(model, inp, self_attn_fn=None, steps=STEPS, x_start=None, **turbo):
+    """SeeCoder -> CFG DDIM (guidance 2.0, zero unconditional context, eta 0,
+    the sampler's turbo arguments ``turbo``) from ``x_start`` (default
+    ``inp["x_start"]``), with ``inp["hint"]`` as the ControlNet's raw hint
+    where given -> VAE decode. Returns (images
     (B, H, W, 3) float32 in [0, 1], final latent NCHW float32), on the host."""
     dev = next(model.parameters()).device
     c = model.ctx_encode(torch.as_tensor(inp["ref_img"], device=dev).permute(0, 3, 1, 2),
@@ -194,20 +281,24 @@ def run(model, inp, self_attn_fn=None, steps=STEPS, x_start=None):
         c_info["control"] = torch.as_tensor(inp["hint"], device=dev)
     x = torch.as_tensor(inp["x_start"] if x_start is None else x_start, device=dev)
     x, _ = DDIMSampler(model).sample(x.shape, {"xt": x}, c_info, steps=steps, eta=0.0,
-                                     self_attn_fn=self_attn_fn)
+                                     self_attn_fn=self_attn_fn, **turbo)
     img = model.vae_decode(x, "image")
     return (img.permute(0, 2, 3, 1).float().cpu().numpy(), x.float().cpu().numpy())
 
 
-def load_reference():
-    """The committed reference: images (uint8 -> float in [0, 1]), latents,
-    tokens (fp16 -> fp32) and the recipe (a dict)."""
-    with np.load(REF_PATH) as z:
+def load_reference(path=REF_PATH):
+    """A committed reference: images (uint8 -> float in [0, 1]), latents,
+    tokens (fp16 -> fp32; the exact reference only) and the recipe (a dict).
+    The exact one holds the turbo reference under ``"turbo"``."""
+    with np.load(path) as z:
         ref = {k: z[k] for k in z.files}
     for k in ("img_plain", "img_control"):
         ref[k] = ref[k].astype(np.float32) / 255.0
-    ref["tokens"] = ref["tokens"].astype(np.float32)
+    if "tokens" in ref:
+        ref["tokens"] = ref["tokens"].astype(np.float32)
     ref["recipe"] = json.loads(str(ref["recipe"]))
+    if path == REF_PATH:
+        ref["turbo"] = load_reference(TURBO_REF_PATH)
     return ref
 
 
@@ -261,12 +352,23 @@ def evaluate(gate_set="plain", names=None, *, sd=None, ref=None, device="cuda"):
     tsd = to_device(sd, device, drop_control=not control)
     models = {"fp32": assemble(cfg, tsd, FP32), "bf16": assemble(cfg, tsd, GATE_BF16),
               "int8": assemble(cfg, tsd, GATE_BF16, quantized=True)}
-    recipes = {  # row -> (model, self-attention, start latent)
+    base = {  # row -> (model, self-attention, start latent)
         "fp32": ("fp32", None, None), "fp32_eps": ("fp32", None, eps_latent(inp["x_start"])),
         "bf16": ("bf16", fa.self_attn_fn, None), "bf16_plain_attn": ("bf16", None, None),
         "int8": ("int8", fa.self_attn_fn, None), "int8_attn8": ("int8", fa.self_attn_fn_int8, None),
         "ctl_fp32": ("fp32", None, None), "ctl_bf16": ("bf16", fa.self_attn_fn, None),
         "ctl_int8": ("int8", fa.self_attn_fn, None)}
+    turbo_ref = ref["turbo"]
+
+    def recipe(name):
+        """(model, self-attention, start latent, turbo arguments, the
+        reference's image and latent) of a row."""
+        if name in base:
+            return (*base[name], {}, img_ref, lat_ref)
+        which, attn, turbo = row_recipe(name, grid=tuple(inp["x_start"].shape[2:]))
+        if name == FP32_TURBO[tag]:
+            return which, attn, None, turbo, turbo_ref[f"img_{tag}"][0], turbo_ref[f"latent_{tag}"]
+        return which, attn, None, turbo, img_ref, lat_ref
 
     with torch.no_grad():
         ref_img = torch.as_tensor(inp["ref_img"], device=device).permute(0, 3, 1, 2)
@@ -278,13 +380,13 @@ def evaluate(gate_set="plain", names=None, *, sd=None, ref=None, device="cuda"):
     rows, images = {}, {}
     bf16_name = "ctl_bf16" if control else "bf16"
     for name in sorted(names, key=lambda n: n != bf16_name):
-        which, attn, x0 = recipes[name]
+        which, attn, x0, turbo, row_img, row_lat = recipe(name)
         before, t0 = fa.launches(), time.perf_counter()
-        img, lat = run(models[which], inp, attn, x_start=x0)
+        img, lat = run(models[which], inp, attn, x_start=x0, **turbo)
         seconds = time.perf_counter() - t0
         images[name] = np.clip(img[0], 0.0, 1.0)
-        row = {"variant": name, "ssim_vs_pfd_tpu_fp32": score(img[0], img_ref),
-               "latent_rel_l2_vs_pfd_tpu": _rel_l2(lat, lat_ref),
+        row = {"variant": name, "ssim_vs_pfd_tpu_fp32": score(img[0], row_img),
+               "latent_rel_l2_vs_pfd_tpu": _rel_l2(lat, row_lat),
                "finite": bool(np.isfinite(img).all() and np.isfinite(lat).all())}
         row["gate_0.95"] = row["ssim_vs_pfd_tpu_fp32"] >= 0.95
         if name != bf16_name and bf16_name in images:
@@ -293,6 +395,8 @@ def evaluate(gate_set="plain", names=None, *, sd=None, ref=None, device="cuda"):
                    seconds=seconds)
         if which == "fp32":
             row["tf32_flags"] = tf32_flags()
+        if row_lat is not lat_ref:
+            row["reference"] = "pfd_tpu's fp32 run of the same schedule (turbo_ref.npz)"
         rows[name] = _print(row)
 
     img, lat = run(models["bf16"], inp, fa.self_attn_fn, x_start=floor_latent(inp["x_start"]))

@@ -27,10 +27,12 @@ unconditional context, eta 0.
 - **Rows.** ``int8`` (diffuser and VAE spatial convs int8, K1, K2,
   ``conv_int8``) and ``bf16eps`` (the bf16 sampler from the start latent plus
   1e-3 x ``default_rng(11)`` normals: the chaos control); ``ctl_int8``
-  (the ControlNet quantized too) under ``GATE_SET=control``. ``GATE_ONLY``
-  (comma-list) selects rows, ``GATE_EXTRA=1`` runs all; by default ``int8``,
-  or every control row. ``pfd_tpu``'s turbo, ToMe and kv-pool rows fail
-  with the ROADMAP items they wait on.
+  (the ControlNet quantized too) under ``GATE_SET=control``; and
+  ``pfd_tpu``'s turbo, ToMe and KV-pool rows (``quant_gate.py:72-100``,
+  their definitions :219-350 and :439-460), which their names define as in
+  ``e2e_gate.row_recipe`` (``int8_*`` on the int8 model, ``bf16_*`` on the
+  bf16 one). ``GATE_ONLY`` (comma-list) selects rows, ``GATE_EXTRA=1`` runs
+  all; by default ``int8``, or every control row.
 
 Each row prints one JSON line: the minimum of the per-sample SSIM against
 the bf16 sampler (the gate: >= 0.95), its mean, sample 0's, every sample's,
@@ -54,12 +56,26 @@ from pfd_tpu_torch.policy import BF16
 from pfd_tpu_torch.tools import e2e_gate
 from pfd_tpu_torch.training.evaluator import ssim
 
-ROW_NAMES = ("int8", "bf16eps")
-CTL_ROW_NAMES = ("ctl_int8",)
+ROW_NAMES = (
+    "int8", "bf16eps", "int8_turbo2", "int8_tome3", "int8_tome5", "int8_tome5_turbo2",
+    "int8_cfg2", "int8_turbo2_cfg2", "int8_turbo3_cfg3", "int8_tome5_turbo2_cfg2",
+    "int8_cfg2_deep2", "int8_turbo2_cfg2_deep2", "int8_turbo3_cfg3_deep3",
+    "int8_turbo4_cfg4_deep4", "int8_cfg3lin", "int8_turbo3_cfg3lin_deep3",
+    "int8_turbo4_cfg4lin_deep4", "int8_turbo5_cfg5_deep5", "int8_turbo5_cfg5lin_deep5",
+    "int8_turbo6_cfg6lin_deep6", "bf16_turbo3_cfg3_deep3", "int8_ph10x2_40x5",
+    "int8_ph10x2_40x8", "int8_ph5x1_45x5", "int8_ph10x2_40x8lin", "int8_ph10x2_40x10",
+    "int8_ph10x2_40x20", "int8_ph20x4_30x15", "int8_ph10x2_40x20lin", "int8_ph10x2_40x40",
+    "int8_ph8x2_42x21", "int8_ph6x2_44x22", "bf16_ph10x2_40x8", "bf16_ph10x2_40x10",
+    "bf16_ph10x2_40x20", "int8_ph8x2_42x21_kv2", "int8_ph10x2_40x10_kv2",
+    "int8_ph8x2_42x21_kv4", "int8_ph10x2_40x10_kv4")
+CTL_ROW_NAMES = ("ctl_int8", "ctl_int8_cfg2", "ctl_int8_turbo2_cfg2",
+                 "ctl_int8_turbo2_cfg2_deep2", "ctl_int8_turbo3_cfg3_deep3",
+                 "ctl_int8_ph10x2_40x8", "ctl_int8_ph10x2_40x10", "ctl_int8_ph10x2_40x20",
+                 "ctl_int8_ph10x2_40x20_kv2")
 SEED = 1           # the init rules' draws (``PRNGKey(1)`` in ``pfd_tpu``)
 DEZERO_SEED = 0    # ``_dezero``'s stream
 DEZERO_SCALE = 0.04
-SIZE = 512
+SIZE = e2e_gate.SIZE
 
 
 def fan_in_model(cfg, device):
@@ -157,7 +173,8 @@ def evaluate(gate_set="plain", names=None, n_samples=8, device="cuda"):
             img, _ = e2e_gate.run(model, inp, fa.self_attn_fn,
                                   x_start=e2e_gate.eps_latent(inp["x_start"]))
         else:
-            img, _ = e2e_gate.run(qmodel, inp, fa.self_attn_fn)
+            prec, attn, turbo = e2e_gate.row_recipe(name, grid=tuple(inp["x_start"].shape[2:]))
+            img, _ = e2e_gate.run(qmodel if prec == "int8" else model, inp, attn, **turbo)
         per = _per_sample(img, img_fp)
         rows[name] = {f"fullsize_ddim50_ssim_{name}_vs_bf16": min(per),
                       "mean": float(np.mean(per)), "s0": per[0], "n": len(per),

@@ -14,6 +14,7 @@ import torch
 
 from pfd_tpu import registry as jreg
 from pfd_tpu.training.evaluator import ssim as jssim
+from pfd_tpu_torch.ops import flash_attention as tfa
 from pfd_tpu_torch.policy import FP32
 from pfd_tpu_torch.tools import e2e_gate, quant_gate
 from pfd_tpu_torch.training.evaluator import ssim
@@ -219,17 +220,115 @@ def test_fan_in_weights_match_pfd_tpu_init(monkeypatch):
 @pytest.mark.parametrize("name", ["int8_turbo3_cfg3_deep3", "int8_tome5", "int8_cfg2",
                                   "int8_ph10x2_40x20_kv2", "ctl_int8_turbo2_cfg2"])
 def test_unported_rows_fail_with_their_roadmap_items(name, monkeypatch):
+    """pfd_tpu's turbo, KV-pool and ToMe rows, once refused by name, are rows
+    of both gates now (a composition of them, as int8_ph10x2_40x20_kv2, too):
+    ``check_names`` and ``gate_names`` take them, and an unknown row, a row
+    of the other set or a precision the set lacks is still refused."""
     torch.set_num_threads(1)
-    for valid in (e2e_gate.ROWS + e2e_gate.CTL_ROWS, quant_gate.ROW_NAMES):
-        with pytest.raises(SystemExit, match="ROADMAP queue 1 items 7 and 10"):
-            e2e_gate.check_names([name], valid)
-    monkeypatch.setenv("GATE_ONLY", f"int8,{name}")
-    with pytest.raises(SystemExit, match="items 7 and 10"):
-        quant_gate.gate_names()
+    control = name.startswith("ctl_")
+    e2e_valid = e2e_gate.CTL_ROWS if control else e2e_gate.ROWS
+    quant_valid = quant_gate.CTL_ROW_NAMES if control else quant_gate.ROW_NAMES
+    assert e2e_gate.check_names([name], e2e_valid) == [name]
+    assert e2e_gate.check_names([name], quant_valid) == [name]
+    monkeypatch.setenv("GATE_ONLY", f"{'ctl_' if control else ''}int8,{name}")
+    assert quant_gate.gate_names(quant_valid) == [
+        f"{'ctl_' if control else ''}int8", name]
     with pytest.raises(SystemExit, match="unknown row 'fp32_flash'"):
         e2e_gate.check_names(["fp32", "fp32_flash"], e2e_gate.ROWS)
+    other = name.removeprefix("ctl_") if control else "ctl_" + name
+    with pytest.raises(SystemExit, match="unknown row"):
+        e2e_gate.check_names([other], e2e_valid)
+    monkeypatch.setenv("GATE_ONLY", "bf16eps,fp32_turbo2")
+    with pytest.raises(SystemExit, match="unknown row 'fp32_turbo2'"):
+        quant_gate.gate_names()
     monkeypatch.setenv("GATE_ONLY", "bf16eps,int8")
     assert quant_gate.gate_names() == ["bf16eps", "int8"]
+
+
+def test_quant_rows_are_pfd_tpus(monkeypatch):
+    """The quant gate's row names are pfd_tpu's, in both sets."""
+    jq = _pfd_tpu_quant_gate(monkeypatch)
+    assert quant_gate.ROW_NAMES == jq.ROW_NAMES
+    assert quant_gate.CTL_ROW_NAMES == jq.CTL_ROW_NAMES
+
+
+@pytest.mark.parametrize("name,want", [
+    ("int8_turbo2", ("int8", {"encoder_interval": 2})),
+    ("int8_cfg3lin", ("int8", {"cfg_interval": 3, "cfg_extrapolate": "linear"})),
+    ("int8_turbo3_cfg3lin_deep3", ("int8", {"encoder_interval": 3, "cfg_interval": 3,
+                                            "cfg_extrapolate": "linear", "deep_interval": 3})),
+    ("bf16_ph10x2_40x20", ("bf16", {"phases": [(10, 2), (40, 20)]})),
+    ("int8_ph10x2_40x8lin", ("int8", {"phases": [(10, 2), (40, 8)],
+                                      "cfg_extrapolate": "linear"})),
+    ("int8_ph5x1_45x5", ("int8", {"phases": [(5, 1), (45, 5)]})),
+    ("ctl_int8_ph10x2_40x20_kv2", ("int8", {"phases": [(10, 2), (40, 20)], "kv": 2})),
+    ("int8_ph8x2_42x21_kv4", ("int8", {"phases": [(8, 2), (42, 21)], "kv": 4})),
+    ("int8_tome3", ("int8", {"tome": 0.25})),
+    ("int8_tome5_turbo2_cfg2", ("int8", {"tome": 0.5, "encoder_interval": 2,
+                                         "cfg_interval": 2})),
+    ("fp32_ph8x2_42x21", ("fp32", {"phases": [(8, 2), (42, 21)]})),
+])
+def test_row_recipes_are_pfd_tpus_definitions(name, want, monkeypatch):
+    """A row's name gives pfd_tpu's definition of it (e2e_gate.py:284-383,
+    quant_gate.py:219-350): the precision, the sampler's turbo arguments, the
+    KV pool's p x p cells on the 64x64 grid around K1/K2's ``self_attn_fn``,
+    ToMe's ratio around it."""
+    torch.set_num_threads(1)
+    made = {}
+    monkeypatch.setattr(e2e_gate, "make_kvpool_attn", lambda inner, grid, pool: made.update(
+        kv=(inner, grid, pool)) or "kv")
+    monkeypatch.setattr(e2e_gate, "make_tome_attn", lambda inner, grid, ratio: made.update(
+        tome=(inner, grid, ratio)) or "tome")
+    prec, attn, turbo = e2e_gate.row_recipe(name)
+    exp = dict(want[1])
+    kv, tome = exp.pop("kv", None), exp.pop("tome", None)
+    assert prec == want[0]
+    assert attn == ("tome" if tome else None if prec == "fp32" else tfa.self_attn_fn)
+    if kv:
+        exp["reuse_self_attn_fn"] = "kv"
+        assert made["kv"] == (tfa.self_attn_fn, (64, 64), kv)
+    if tome:
+        assert made["tome"] == (tfa.self_attn_fn, (64, 64), tome)
+    assert turbo == exp
+    with pytest.raises(ValueError):
+        e2e_gate.row_recipe(name + "_warp9")
+
+
+@pytest.mark.parametrize("gate_set", ["plain", "control"])
+def test_gate_turbo_run_matches_pfd_tpu(gate_set):
+    """The gate's ``run`` under a phased schedule (an exact head, then one
+    group of the full composition) at the tiny config, FP32: pfd_tpu's fp32
+    image of the turbo reference maker's recipe within max-abs 1e-4, its
+    final latent within 1e-5 relative L2."""
+    torch.set_num_threads(1)
+    cfg = TINY[gate_set]
+    sd = e2e_gate.reference_weights(TINY["control"])
+    inp = e2e_gate.inputs(gate_set, size=TINY_SIZE)
+    drop = gate_set == "plain"
+    phases = [(1, 1), (3, 3)]
+    _, want, want_lat = tgr.pfd_tpu_run(cfg, tgr.pfd_tpu_params(sd, drop_control=drop), inp,
+                                        steps=TINY_STEPS, phases=phases)
+    model = e2e_gate.assemble(cfg, e2e_gate.to_device(sd, "cpu", drop_control=drop), FP32)
+    got, lat = e2e_gate.run(model, inp, steps=TINY_STEPS, phases=phases)
+    exact, exact_lat = e2e_gate.run(model, inp, steps=TINY_STEPS)
+    assert np.isfinite(got).all() and want.std() > 1e-3
+    assert np.abs(got - want).max() <= 1e-4
+    assert np.linalg.norm(lat - want_lat) / np.linalg.norm(want_lat) <= 1e-5
+    # the schedule moves the latent further than the limit
+    assert np.linalg.norm(lat - exact_lat) / np.linalg.norm(exact_lat) > 1e-5
+
+
+def test_turbo_reference_file():
+    """The committed turbo reference: both sets' images and latents, made by
+    tests/torch_gate_reference.py --turbo under ``TURBO_PHASES``, small."""
+    ref = e2e_gate.load_reference()["turbo"]
+    assert os.path.getsize(e2e_gate.TURBO_REF_PATH) < 3e6
+    assert ref["recipe"]["sampler"]["phases"] == {
+        k: [list(p) for p in v] for k, v in e2e_gate.TURBO_PHASES.items()}
+    for tag in ("plain", "control"):
+        assert ref[f"img_{tag}"].shape == (1, 512, 512, 3)
+        assert ref[f"latent_{tag}"].shape == (1, 4, 64, 64)
+        assert np.isfinite(ref[f"latent_{tag}"]).all()
 
 
 # ---- full width on the CPU (-m slow): the CPU half of the gate ------------
@@ -379,3 +478,31 @@ def test_fullsize_port_fp32_cpu_matches_reference(gate_set, full_weights):
     print(f"{gate_set}: ssim {s:.6f}, latent rel_l2 {rel:.3e}")
     _timed(f"fullsize port fp32 {gate_set}", t0)
     assert np.isfinite(img).all() and s >= 0.9999
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("gate_set", ["plain", "control"])
+def test_fullsize_port_fp32_turbo_cpu_matches_turbo_reference(gate_set, full_weights):
+    """The gate's fp32 turbo row on the CPU at full width (``TURBO_PHASES``:
+    [(8, 2), (42, 21)] plain, [(10, 2), (40, 20)] with the hint) against
+    pfd_tpu's fp32 run of the same schedule: SSIM >= 0.999 and latent
+    relative L2 <= 1e-5, the limits of the exact fp32 row; and further from
+    the exact reference than that."""
+    t0 = time.perf_counter()
+    torch.set_num_threads(os.cpu_count() or 1)
+    ref = e2e_gate.load_reference()
+    control = gate_set == "control"
+    cfg = e2e_gate.gate_config(e2e_gate.FULL if control else e2e_gate.PLAIN)
+    model = e2e_gate.assemble(cfg, e2e_gate.to_device(full_weights, "cpu",
+                                                      drop_control=not control), FP32)
+    phases = [tuple(p) for p in e2e_gate.TURBO_PHASES[gate_set]]
+    img, lat = e2e_gate.run(model, e2e_gate.inputs(gate_set), phases=phases)
+    want = ref["turbo"][f"latent_{gate_set}"]
+    s = e2e_gate.score(img[0], ref["turbo"][f"img_{gate_set}"][0])
+    rel = np.linalg.norm(lat - want) / np.linalg.norm(want)
+    exact = ref[f"latent_{gate_set}"]
+    print(f"{gate_set} turbo: ssim {s:.6f}, latent rel_l2 {rel:.3e} (vs exact "
+          f"{np.linalg.norm(lat - exact) / np.linalg.norm(exact):.3e})")
+    _timed(f"fullsize port fp32 turbo {gate_set}", t0)
+    assert np.isfinite(img).all() and s >= 0.999 and rel <= 1e-5
+    assert np.linalg.norm(lat - exact) / np.linalg.norm(exact) > 1e-4

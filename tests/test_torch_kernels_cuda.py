@@ -620,3 +620,43 @@ def test_fp32_runs_without_tf32_on_the_card():
             assert _rel_l2(d_c, d) <= 1e-5
     finally:
         torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skv", [1024, 256])
+def test_cross_kernel_at_the_kv_pool_shapes(skv):
+    """K2 over the KV pool's pooled keys on a reuse step at 512^2 (UNet batch
+    1: B*H = 8, the ds1 grid's 4,096 queries over 1,024 keys at pool 2 and
+    256 at pool 4), through ``make_kvpool_attn`` as the sampler calls it,
+    against the plain version on the same pooled K/V."""
+    _need_cuda()
+    from pfd_tpu_torch.ops import kvpool
+
+    g = torch.Generator(device="cuda").manual_seed(skv)
+    q, k, v = (_randn((1, 8, 4096, 40), g) for _ in range(3))
+    pool = {1024: 2, 256: 4}[skv]
+    kp, vp = kvpool.pool_kv(k, (64, 64), pool), kvpool.pool_kv(v, (64, 64), pool)
+    assert kp.shape == (1, 8, skv, 40)
+    before = fa.cross_attention.launches
+    got = kvpool.make_kvpool_attn(fa.self_attn_fn, (64, 64), pool=pool)(q, k, v)
+    want = fa.attention_plain(q, kp, vp)
+    torch.cuda.synchronize()
+    assert fa.cross_attention.launches == before + 1
+    assert (got.float() - want.float()).abs().max().item() <= fa.kernel_tolerance(want)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_at_tomes_padded_head():
+    """K1 at ToMe's merged ds1 (2,048 tokens) with the size column's head of
+    41, zero-padded to 48 by ``with_padded_head`` with the real head's scale
+    41^-0.5, against the plain version on the 41-wide head."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(41)
+    q, k, v = (_randn((2, 8, 2048, 41), g) for _ in range(3))
+    before = fa.flash_attention.launches
+    got = fa.self_attn_fn(q, k, v)
+    want = fa.attention_plain(q, k, v, scale=41 ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.shape == q.shape
+    assert (got.float() - want.float()).abs().max().item() <= fa.kernel_tolerance(want)

@@ -173,18 +173,32 @@ def test_int8_ssim_against_float():
 
 
 class _Linear:
-    """A stand-in eps model: eps = 0.1 x + 0.01 (mean of the context)."""
+    """A stand-in eps model: eps = 0.1 x + 0.01 (mean of the context); its
+    encoder half is 0.1 x, its decoder adds the context term."""
 
     def __init__(self, schedule, lib):
         self.schedule, self.lib = schedule, lib
 
-    def apply_model(self, params_or_x, *args, **kw):
+    def _args(self, params_or_x, args):
         if self.lib == "jax":
-            x_info, c_info = args[0], args[2]
-        else:
-            x_info, c_info = params_or_x, args[1]
+            return args[0], args[2]
+        return params_or_x, args[1]
+
+    def _ctx(self, c_info):
         c = c_info["c"].mean(axis=(1, 2)) if self.lib == "jax" else c_info["c"].mean(dim=(1, 2))
-        return 0.1 * x_info["x"] + 0.01 * c.reshape(-1, 1, 1, 1)
+        return 0.01 * c.reshape(-1, 1, 1, 1)
+
+    def apply_model(self, params_or_x, *args, **kw):
+        x_info, c_info = self._args(params_or_x, args)
+        return 0.1 * x_info["x"] + self._ctx(c_info)
+
+    def apply_model_encoder(self, params_or_x, *args, **kw):
+        x_info, _ = self._args(params_or_x, args)
+        return 0.1 * x_info["x"], ()
+
+    def apply_model_decoder(self, *args, **kw):
+        h, _, _, c_info = args[-4:]
+        return h + self._ctx(c_info)
 
 
 @pytest.mark.parametrize("with_uncond", [True, False])
@@ -215,12 +229,36 @@ def test_ddim_update_and_no_uncond_quirk(with_uncond):
 @pytest.mark.parametrize("turbo", [{"encoder_interval": 2}, {"cfg_interval": 3},
                                    {"deep_interval": 2}, {"phases": [(5, 2)]}])
 def test_turbo_modes_not_ported(turbo):
+    """The turbo arguments without CFG, as pfd_tpu takes them: encoder
+    propagation runs (and matches pfd_tpu's); cfg_interval falls through to
+    the exact sampler; deep_interval and phases raise ValueError."""
     from pfd_tpu_torch.diffusion import schedules
     sched = schedules.make_diffusion_schedule("linear", 1000, 0.00085, 0.012)
-    with pytest.raises(NotImplementedError):
-        TDDIM(_Linear(sched, "torch")).sample(
-            (1, 4, 2, 2), {"xt": torch.zeros(1, 4, 2, 2)},
-            {"conditioning": torch.zeros(1, 2, 2)}, steps=10, **turbo)
+    x0 = np.random.default_rng(9).standard_normal((1, 4, 2, 2)).astype(np.float32)
+    cond = np.random.default_rng(10).standard_normal((1, 2, 2)).astype(np.float32)
+
+    def port(**kw):
+        return TDDIM(_Linear(sched, "torch")).sample(
+            x0.shape, {"xt": torch.from_numpy(x0)}, {"conditioning": torch.from_numpy(cond)},
+            steps=10, **kw)[0].numpy()
+
+    if "deep_interval" in turbo or "phases" in turbo:
+        with pytest.raises(ValueError, match="CFG"):
+            port(**turbo)
+        with pytest.raises(ValueError, match="CFG"):
+            JDDIM(_Linear(sched, "jax")).sample(
+                None, jax.random.PRNGKey(0), x0.shape, {"xt": jnp.asarray(x0)},
+                {"conditioning": jnp.asarray(cond)}, steps=10, **turbo)
+        return
+    got = port(**turbo)
+    if "cfg_interval" in turbo:
+        np.testing.assert_array_equal(got, port())
+        return
+    want, _ = JDDIM(_Linear(sched, "jax")).sample(
+        None, jax.random.PRNGKey(0), x0.shape, {"xt": jnp.asarray(x0)},
+        {"conditioning": jnp.asarray(cond)}, steps=10, **turbo)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-5)
+    assert np.abs(got - port()).max() > 1e-3  # the cached encoder state is used
 
 
 def test_action_inference_tiny_cpu():
