@@ -129,10 +129,31 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    their samples, and each row launched exactly the kernels of its route
    (``gate_route``: no attention kernel under fp32; the VAE's mid-block K1
    alone in ``bf16_plain_attn``; ``LaunchPlan``'s count otherwise);
-12. a ``kernels`` JSON line (``launches``: this slice's ControlNet requests,
+12. the checkpoint loader and the serving entry points at full width, on a
+   zoo written to a temporary ``pretrained_root`` (removed at the end): fp16
+   ``.safetensors`` files of ``SD-v1.5``, ``Deliberate-v2.0`` (its context
+   blocks under ``diffuser.text.``), the ``SeeCoder`` (with its Swin
+   buffers) and the ``canny`` ControlNet, the VAE as an fp32 ``.pth`` and
+   ``assets/anime_ug.pth``, each from its own seed (the bytes and seconds of
+   each write, load and swap printed); after each load and swap every
+   tensor of the part must equal the file's cast to its dtype, bit for bit
+   (int8 codes, scales and upsample phase kernels a fresh quantize); requests
+   S1-S5 over HTTP (``serve._Handler`` on 127.0.0.1, nested-list payloads,
+   10 steps, seed 42), each beside the same request made directly (same
+   8-bit image): S1 ``SD-v1.5``, S2 ``Deliberate-v2.0`` (must differ), S3
+   ``SD-v1.5`` (= S1 bit for bit), S4 with a canny hint (returns it), S5
+   ``SeeCoder-Anime`` (no file: the weights stay, the anime negative
+   context; must differ), each launching ``LaunchPlan``'s count; the int8
+   pipeline's swap SD -> Deliberate -> SD (its requests launch K4, K2,
+   ``conv_int8`` at ``LaunchPlan``'s counts, differ, then repeat bit for
+   bit); ``ZooServer`` b4 grouped over both tags with canny hints and
+   ``control_on=[1, 0, 0, 1]`` (each image within max(2x the batch-2 vs
+   batch-1 spread, 1e-3) relative L2 of its request alone; b1 sharded =
+   grouped bit for bit) and ``DataParallelServer`` b8, with s/img;
+13. a ``kernels`` JSON line (``launches``: the ControlNet requests,
    F for the bf16 kernels and G for the int8 ones; every serving request's
-   counts, the turbo ones' too, in ``launches_by_request``), the card's name
-   and power limit, then the device JSON as the last line.
+   counts, the turbo ones' and phase 12's too, in ``launches_by_request``),
+   the card's name and power limit, then the device JSON as the last line.
 
 Imports neither JAX nor ``pfd_tpu``.
 """
@@ -164,6 +185,35 @@ GUARDED = ("flash_attention_pv8", "flash_attention_int8", "conv_int8", "matmul_i
 
 def sh(cmd):
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
+
+
+# torch dtype -> .safetensors dtype name, for write_safetensors
+SAFETENSORS_NAMES = {"float64": "F64", "float32": "F32", "float16": "F16", "int64": "I64",
+                     "int32": "I32", "int16": "I16", "int8": "I8", "uint8": "U8", "bool": "BOOL"}
+
+
+def write_safetensors(path, tensors):
+    """Write ``{key: CPU tensor}`` as a ``.safetensors`` file (the card's host
+    has no package for it): an 8-byte little-endian header length, the JSON
+    header (padded with spaces to a multiple of 8 bytes), then each tensor's
+    bytes in order. Returns the bytes written."""
+    import numpy as np
+
+    header, offset, arrays = {}, 0, []
+    for key, t in tensors.items():
+        a = np.ascontiguousarray(t.detach().cpu().numpy())
+        header[key] = {"dtype": SAFETENSORS_NAMES[str(t.dtype).removeprefix("torch.")],
+                       "shape": list(a.shape), "data_offsets": [offset, offset + a.nbytes]}
+        offset += a.nbytes
+        arrays.append(a)
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for a in arrays:
+            f.write(a.reshape(-1).view(np.uint8).data)
+    return 8 + len(raw) + offset
 
 
 def cuda_ms(fn, iters):
@@ -950,6 +1000,363 @@ def quality_gates(lp):
     return direct, quant
 
 
+def _synced(fn, *args, **kwargs):
+    """(fn's result, seconds) with the device synchronised on both sides."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def write_zoo(root):
+    """Checkpoint files at the zoo paths of ``SD-v1.5`` (``diffuser.image.*``),
+    ``Deliberate-v2.0`` (its context blocks spelled
+    ``diffuser.text.context_blocks.*``, which the loader renames), the
+    ``SeeCoder`` (``ctx.image.*``, with the Swin's ``relative_position_index``
+    buffers a published checkpoint carries) and the ``canny`` ControlNet (bare
+    keys), in fp16 ``.safetensors``; the VAE (fp32 ``.pth``, bare keys) and
+    ``assets/anime_ug.pth`` (77 x 768). Each part is the port's random weights
+    at full published width from its own seed, de-zeroed. Returns
+    {name: (path, {key of the part's module: the tensor written})}."""
+    import torch
+    from pfd_tpu_torch import config, zoo
+    from pfd_tpu_torch.models.build import build_model, dezero_
+    from pfd_tpu_torch.policy import FP32
+
+    args = config.model_cfg("pfd_seecoder_with_controlnet")["args"]
+    cfgs = {"diffuser": dict(args["diffuser_cfg_list"])["image"],
+            "ctx": dict(args["ctx_cfg_list"])["image"],
+            "vae": dict(args["vae_cfg_list"])["image"], "ctl": args["ctl_cfg"]}
+    files = {}
+
+    def part(kind, seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        m = build_model(cfgs[kind], policy=FP32, device="cuda", generator=gen)
+        return dezero_(m, torch.Generator(device="cuda").manual_seed(seed + 1))
+
+    def put(name, rel, sd, file_sd, fmt="safetensors"):
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        t0 = time.perf_counter()
+        if fmt == "safetensors":
+            n = write_safetensors(path, file_sd)
+        else:
+            torch.save(file_sd, path)
+            n = os.path.getsize(path)
+        dt = time.perf_counter() - t0
+        print(f"zoo write {name}: {rel}, {n / 1e9:.3f} GB in {dt:.2f} s "
+              f"({n / 1e9 / dt:.2f} GB/s)", flush=True)
+        files[name] = (path, sd)
+
+    for tag, seed, text in (("SD-v1.5", 101, False), ("Deliberate-v2.0", 103, True)):
+        sd = {f"image.{k}": v.half().cpu() for k, v in part("diffuser", seed).state_dict().items()}
+        keys = {k: "diffuser." + (k.replace("image.context_blocks.", "text.context_blocks.", 1)
+                                  if text else k) for k in sd}
+        if text and not any(v.startswith("diffuser.text.") for v in keys.values()):
+            raise AssertionError("zoo: the diffuser has no context blocks to spell as text")
+        put(tag, zoo.DIFFUSER_PATH[tag], sd, {keys[k]: v for k, v in sd.items()})
+    m = part("ctx", 105)
+    sd = {f"image.{k}": v.half().cpu() for k, v in m.state_dict().items()}
+    bufs = {f"ctx.image.{k}": v.cpu() for k, v in m.named_buffers()
+            if k.endswith("relative_position_index")}
+    if not bufs:
+        raise AssertionError("zoo: the SeeCoder has no Swin buffers to write")
+    put("SeeCoder", zoo.CTXENCODER_PATH["SeeCoder"], sd,
+        {**{f"ctx.{k}": v for k, v in sd.items()}, **bufs})
+    sd = {k: v.half().cpu() for k, v in part("ctl", 107).state_dict().items()}
+    put("canny", zoo.CONTROLNET_PATH["canny"][1], sd, sd)
+    sd = {k: v.float().cpu() for k, v in part("vae", 109).state_dict().items()}
+    put("vae", zoo.VAE_PATH, sd, sd, fmt="pth")
+    ug = torch.randn((77, 768), generator=torch.Generator().manual_seed(111))
+    put("anime_ug", zoo.ANIME_UG_PATH, ug, ug, fmt="pth")
+    del m
+    torch.cuda.empty_cache()
+    return files
+
+
+def check_part(label, module, want):
+    """Every tensor of ``module`` equals the file's tensor cast to its dtype,
+    bit for bit; a quantized layer's codes and scales equal a fresh quantize
+    of the file's weight (cast to the layer's float dtype), and an upsample
+    conv's phase kernel a fresh one of those codes."""
+    import torch
+    from pfd_tpu_torch.ops import quant as tq
+
+    own, n_q = module.state_dict(), 0
+    for name, m in module.named_modules():
+        if not tq.is_quantized(m):
+            continue
+        n_q += 1
+        w = want[f"{name}.weight"].to(m.weight_q.device, tq.float_dtype(m))
+        q, sc = tq.quantize_weight(w)
+        if not (torch.equal(m.weight_q, q) and torch.equal(m.weight_scale, sc)):
+            raise AssertionError(f"{label}: {name}'s int8 codes are not the file's weight's")
+        if "phase_q" in m._buffers:
+            deq = m.weight_q.float() * m.weight_scale[:, None, None, None]
+            pq, ps = tq.quantize_weight(tq.phase_kernel(deq))
+            if not (torch.equal(m.phase_q, pq) and torch.equal(m.phase_scale, ps)):
+                raise AssertionError(f"{label}: {name}'s phase kernel does not follow its codes")
+        own = {k: v for k, v in own.items() if not k.startswith(f"{name}.weight")}
+    floats = {k: v for k, v in want.items() if k in own}
+    if set(floats) != set(own):
+        raise AssertionError(f"{label}: the module's keys are not the file's")
+    bad = [k for k, v in own.items() if not torch.equal(v, floats[k].to(v.device, v.dtype))]
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} tensors differ from the file's, e.g. {bad[:3]}")
+    print(f"{label}: {len(own)} tensors equal the file's bit for bit"
+          + (f", {n_q} int8 layers' codes a fresh quantize of its weights" if n_q else ""),
+          flush=True)
+
+
+def serving_entry_points(card, ref, hint_src):
+    """Phase 12: the checkpoint loader, the hot-swaps and the serving entry
+    points at full width, on a zoo written to a temporary
+    ``pretrained_root``. Returns {request: launches}."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="pfd_zoo_")
+    free = shutil.disk_usage(root).free
+    print(f"zoo: pretrained_root {root}, {free / 1e9:.1f} GB free", flush=True)
+    try:
+        return _serving_entry_points(card, ref, hint_src, root)
+    finally:
+        shutil.rmtree(root)
+
+
+def _serving_entry_points(card, ref, hint_src, root):
+    import threading
+    import urllib.error
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+    from pfd_tpu_torch import annotators
+    from pfd_tpu_torch import serve as tserve
+    from pfd_tpu_torch.io import loader
+    from pfd_tpu_torch.ops import flash_attention as fa
+    from pfd_tpu_torch.parallel import DataParallelServer, ZooServer
+    from pfd_tpu_torch.parallel.serve import nchw
+    from pfd_tpu_torch.pipeline import PromptFreeDiffusionPipeline
+
+    t_phase = time.perf_counter()
+    files = write_zoo(root)
+    for name in ("SD-v1.5", "vae"):
+        path = files[name][0]
+        _, dt = _synced(loader.load_sd_file, path)
+        print(f"zoo read {name}: load_sd_file {os.path.getsize(path) / 1e9:.3f} GB in "
+              f"{dt:.2f} s", flush=True)
+    served = {}
+    tags = dict(tag_ctx="SeeCoder", tag_diffuser="SD-v1.5", tag_ctl="canny")
+
+    # ---- the bf16 pipeline on the zoo, its swaps ------------------------------
+    pipe, dt = _synced(PromptFreeDiffusionPipeline, fp16=True, device="cuda", seed=0,
+                       pretrained_root=root, self_attn_fn=fa.self_attn_fn, **tags)
+    print(f"zoo: bf16 pipeline built and loaded (SeeCoder, SD-v1.5, canny) in {dt:.2f} s",
+          flush=True)
+    check_part("zoo load SeeCoder", pipe.net.ctx, files["SeeCoder"][1])
+    check_part("zoo load SD-v1.5", pipe.net.diffuser, files["SD-v1.5"][1])
+    check_part("zoo load canny", pipe.net.ctl, files["canny"][1])
+    _, dt = _synced(pipe.load_vae, files["vae"][0])
+    print(f"zoo swap: load_vae {dt:.2f} s", flush=True)
+    check_part("zoo load_vae", pipe.net.vae["image"], files["vae"][1])
+    for tag in ("Deliberate-v2.0", "SD-v1.5"):
+        _, dt = _synced(pipe.action_load_diffuser, tag)
+        print(f"zoo swap: action_load_diffuser({tag!r}) {dt:.2f} s", flush=True)
+        check_part(f"zoo swap {tag}", pipe.net.diffuser, files[tag][1])
+    lp = LaunchPlan(pipe.net)
+    pipe.action_inference(ref, h=512, w=512, ugscale=2.0, seed=0, steps=2)  # warm-up
+
+    # ---- HTTP: S1-S5 through serve._Handler, each beside the direct request ----
+    tserve._Handler.pipeline = pipe
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), tserve._Handler)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}/inference"
+    ref_list, hint_list = ref.tolist(), hint_src.tolist()
+
+    def decode(payload):
+        img = np.asarray(tserve._decode_image(payload), np.float32)
+        return img / 255.0 if isinstance(payload, list) else img
+
+    def post(label, **req):
+        body = {"image": ref_list, "steps": 10, "seed": 42, **req}
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        data = json.dumps(body).encode()
+        rq = urllib.request.Request(url, data, {"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(rq, timeout=300) as r:
+                out = json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            raise AssertionError(f"HTTP {label}: {e.code} {e.read()[:500]!r}") from e
+        s_http = time.perf_counter() - t0
+        launches = launch_counts()
+        img = decode(out["image"])
+        check_image(img, f"HTTP {label}")
+        direct, s_direct = _synced(
+            pipe.action_inference, ref, hint_src if "control_image" in req else None, "canny",
+            True, 512, 512, 2.0, 42, tag_ctx=req.get("tag_ctx"),
+            tag_diffuser=req.get("tag_diffuser"), steps=10)
+        if not np.array_equal(np.round(img * 255), np.floor(np.clip(direct[0], 0, 1) * 255)):
+            raise AssertionError(f"HTTP {label}: the image is not the direct request's")
+        want = lp.expected(steps=10, control="control_image" in req)
+        if launches != want:
+            raise AssertionError(f"HTTP {label}: launches {launches}, want {want}")
+        served[label] = launches
+        print(f"HTTP {label}: {json.dumps({k: v for k, v in req.items() if 'image' not in k})} "
+              f"s_http={s_http:.4f} s_direct={s_direct:.4f} overhead_s={s_http - s_direct:.4f} "
+              f"({len(data) / 1e6:.1f} MB request, {card}) launches={json.dumps(launches)}",
+              flush=True)
+        return img, out
+
+    try:
+        s1, _ = post("S1", tag_diffuser="SD-v1.5")
+        s2, _ = post("S2", tag_diffuser="Deliberate-v2.0")
+        s3, _ = post("S3", tag_diffuser="SD-v1.5")
+        s4, out4 = post("S4", tag_diffuser="SD-v1.5", control_image=hint_list,
+                        ctl_method="canny")
+        s5, _ = post("S5", tag_ctx="SeeCoder-Anime")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    if np.array_equal(s2, s1) or not np.array_equal(s3, s1):
+        raise AssertionError("HTTP: S2 (Deliberate) must differ from S1 and S3 (SD again) "
+                             "repeat it bit for bit")
+    if "hint" not in out4 or np.array_equal(s4, s1):
+        raise AssertionError("HTTP S4: no hint returned, or the image equals S1's")
+    if np.array_equal(s5, s1) or pipe.tag_ctx != "SeeCoder-Anime":
+        raise AssertionError("HTTP S5: the anime negative context did not change the image")
+    print(f"HTTP: S2 differs from S1 (mean |S2-S1| {np.abs(s2 - s1).mean():.5f}), S3 = S1 bit "
+          f"for bit, S4 returned its hint, S5 differs (mean |S5-S1| "
+          f"{np.abs(s5 - s1).mean():.5f})", flush=True)
+    pipe.action_load_ctx("SeeCoder")
+
+    # ---- the int8 mode's swap -----------------------------------------------------
+    pipe8, dt = _synced(PromptFreeDiffusionPipeline, fp16=True, quantized=True, device="cuda",
+                        seed=0, pretrained_root=root, self_attn_fn=fa.self_attn_fn_int8, **tags)
+    print(f"zoo: int8 pipeline built and loaded in {dt:.2f} s", flush=True)
+    check_part("zoo int8 load SD-v1.5", pipe8.net.diffuser, files["SD-v1.5"][1])
+    check_part("zoo int8 load canny", pipe8.net.ctl, files["canny"][1])
+    pipe8.load_vae(files["vae"][0])
+    check_part("zoo int8 load_vae", pipe8.net.vae["image"], files["vae"][1])
+    lp8 = LaunchPlan(pipe8.net)
+    want8 = lp8.expected(steps=10, quantized=True, attn8=True)
+    pipe8.action_inference(ref, h=512, w=512, ugscale=2.0, seed=0, steps=2)  # warm-up
+    imgs8 = {}
+    for label, tag in (("int8 SD", "SD-v1.5"), ("int8 swap", "Deliberate-v2.0"),
+                       ("int8 SD again", "SD-v1.5")):
+        _, dt = _synced(pipe8.action_load_diffuser, tag)
+        print(f"zoo swap: int8 action_load_diffuser({tag!r}) {dt:.2f} s", flush=True)
+        check_part(f"zoo int8 swap {tag}", pipe8.net.diffuser, files[tag][1])
+        [imgs8[label]], st = serve(pipe8, ref, 42, 10, label)
+        check_image(imgs8[label], label)
+        if st["launches"] != want8:
+            raise AssertionError(f"request {label}: launches {st['launches']}, want {want8}")
+        served[label] = st["launches"]
+    if (np.array_equal(imgs8["int8 swap"], imgs8["int8 SD"])
+            or not np.array_equal(imgs8["int8 SD again"], imgs8["int8 SD"])):
+        raise AssertionError("int8 swap: the swapped request must differ, and swapping back "
+                             "must repeat the first bit for bit")
+    print("int8 swap: Deliberate's request differs, SD again = SD bit for bit", flush=True)
+    del pipe8
+    torch.cuda.empty_cache()
+
+    # ---- ZooServer: b4 grouped over two tags, canny hints, mixed control --------
+    zoo_sd, dt = _synced(lambda: {t: loader.diffuser_sd_to_params(loader.load_sd_file(
+        files[t][0])) for t in ("SD-v1.5", "Deliberate-v2.0")})
+    zs, dt2 = _synced(ZooServer, pipe.net, zoo_sd, devices=["cuda"], steps=10,
+                      self_attn_fn=fa.self_attn_fn)
+    del zoo_sd
+    print(f"ZooServer: 2 diffuser tags read in {dt:.2f} s, onto the card in {dt2:.2f} s",
+          flush=True)
+    hint = annotators.preprocess(hint_src, method="canny", size=(512, 512))
+    refs4 = np.stack([ref] + [np.random.default_rng(200 + i).random((512, 512, 3),
+                                                                    dtype=np.float32)
+                              for i in range(3)])
+    hints4 = np.stack([hint, hint[:, ::-1], hint[::-1], hint[::-1, ::-1]]).copy()
+    ztags, on = ["SD-v1.5", "Deliberate-v2.0", "SD-v1.5", "Deliberate-v2.0"], [1, 0, 0, 1]
+    swaps, swap = [], zs._swap
+
+    def timed_swap(*a):
+        swaps.append(_synced(swap, *a)[1])
+    zs._swap = timed_swap
+    zs.generate(refs4[:2], ztags[:2], hints=hints4[:2], h=512, w=512, seed=0)  # warm-up
+    swaps.clear()
+    torch.cuda.synchronize()
+    reset_counts()
+    out4, s_b4 = _synced(zs.generate, refs4, ztags, hints=hints4, control_on=on, h=512, w=512,
+                         seed=42)
+    served["zoo b4"] = launch_counts()
+    want = {k: 2 * v for k, v in lp.expected(steps=10, control=True).items()}
+    if served["zoo b4"] != want:
+        raise AssertionError(f"ZooServer b4: launches {served['zoo b4']}, want {want} (two "
+                             f"groups of two with the ControlNet)")
+    out4 = out4.float()
+    if not bool(torch.isfinite(out4).all()) or out4.shape != (4, 512, 512, 3):
+        raise AssertionError("ZooServer b4: bad images")
+    zs._swap = swap
+    x4 = zs.init_noise(42, 4, 512, 512)
+    r4, h4 = nchw(refs4, "cuda"), nchw(hints4, "cuda")
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    readings, spreads = [], []
+    for i in range(4):
+        zs._swap(zs.model, ztags[i], None)
+        hi = h4[[i]] if on[i] else None
+        single = zs._sample_body(x4[[i]], r4[[i]], hi, None, 2.0)[0].permute(1, 2, 0)
+        dup = zs._sample_body(x4[[i, i]], r4[[i, i]], None if hi is None else h4[[i, i]],
+                              None, 2.0)[0].permute(1, 2, 0)
+        readings.append(rel(out4[i], single))
+        spreads.append(rel(dup, single))
+    bound = max(2 * max(spreads), 1e-3)
+    print(f"ZooServer b4 vs each request alone (same tag, hint, start latent), rel L2: "
+          f"{', '.join(f'{r:.3e}' for r in readings)}; batch 2 vs batch 1 of the same request: "
+          f"{', '.join(f'{r:.3e}' for r in spreads)}; bound max(2 x spread, 1e-3) = "
+          f"{bound:.3e}", flush=True)
+    if not max(readings) <= bound:
+        raise AssertionError(f"ZooServer b4: rel L2 {readings} above {bound}")
+    b1_sharded = zs.generate(refs4[:1], ztags[:1], hints=hints4[:1], h=512, w=512, seed=42)
+    b1_grouped = zs._generate_grouped(x4[[0]], r4[[0]], ztags[:1], [None], h4[[0]],
+                                      np.ones(1, np.float32), 2.0).permute(0, 2, 3, 1)
+    if not torch.equal(b1_sharded, b1_grouped):
+        raise AssertionError("ZooServer b1: sharded and grouped differ")
+    print(f"ZooServer: b4 grouped {s_b4 / 4:.4f} s/img ({s_b4:.3f} s), swap per group "
+          f"{', '.join(f'{s:.4f}' for s in swaps)} s; b1 sharded = grouped bit for bit "
+          f"({card})", flush=True)
+    del zs
+    torch.cuda.empty_cache()
+
+    # ---- DataParallelServer: b8 ---------------------------------------------------
+    dp = DataParallelServer(pipe.net, ["cuda"], steps=10, self_attn_fn=fa.self_attn_fn)
+    buckets = dp.warmup([(512, 512)], batch=8)
+    refs8 = np.stack([np.random.default_rng(300 + i).random((512, 512, 3), dtype=np.float32)
+                      for i in range(8)])
+    dp.generate(refs8[:1], h=512, w=512, seed=0)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    out8, s_b8 = _synced(dp.generate, refs8, h=512, w=512, seed=42)
+    served["dp b8"] = launch_counts()
+    if served["dp b8"] != lp.expected(steps=10):
+        raise AssertionError(f"DataParallelServer b8: launches {served['dp b8']}, want "
+                             f"{lp.expected(steps=10)}")
+    out8 = out8.float()
+    if (out8.shape != (8, 512, 512, 3) or not bool(torch.isfinite(out8).all())
+            or out8.min() < 0 or out8.max() > 1):
+        raise AssertionError("DataParallelServer b8: bad images")
+    print(f"DataParallelServer: buckets {buckets}; b8 10 steps {s_b8 / 8:.4f} s/img "
+          f"({s_b8:.3f} s, {card}); phase 12 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return served
+
+
 def main() -> int:
     import torch
 
@@ -1401,10 +1808,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     quality_gates(lp8)
 
-    # ---- 12. summary ---------------------------------------------------------
+    # ---- 12. the zoo and the serving entry points ------------------------------
+    zoo_served = serving_entry_points(card, ref, hint_src)
+
+    # ---- 13. summary ---------------------------------------------------------
     served = {"A": launches, "D": launches_d, "E": launches_e, "F": launches_f,
               "G": launches_g, **{k: turbo_served[k] for k in ("H", "H_kv", "H_tome", "I", "J",
-                                                               "J0")}}
+                                                               "J0")}, **zoo_served}
 
     def summary(name, source, replaces, rows, n):
         main_row = rows[0]

@@ -144,6 +144,29 @@ def quantize_params(model: nn.Module) -> nn.Module:
     return model
 
 
+def float_dtype(m):
+    """The dtype of a quantized layer's float weight: its bias's, fp32
+    where it has none."""
+    return m.bias.dtype if m.bias is not None else torch.float32
+
+
+def quantize_state_dict(model: nn.Module, sd: dict) -> dict:
+    """A float state dict for ``model`` -> the one its quantized layers
+    take: each such layer's ``weight`` becomes ``weight_q`` and
+    ``weight_scale``, quantized from the weight cast to the layer's float
+    dtype on its device, as ``pfd_tpu`` casts a loaded checkpoint to the
+    parameter dtype and quantizes it again (pipeline.py:159-190). An
+    upsample conv's phase kernel follows on ``load_state_dict``. Other
+    entries pass through."""
+    out = dict(sd)
+    for name, m in model.named_modules():
+        key = f"{name}.weight" if name else "weight"
+        if is_quantized(m) and key in out:
+            w = out.pop(key).to(m.weight_q.device, float_dtype(m))
+            out[key[:-len("weight")] + "weight_q"], out[key + "_scale"] = quantize_weight(w)
+    return out
+
+
 def dequantize_params(model: nn.Module) -> nn.Module:
     """Inverse of :func:`quantize_params`: each quantized layer gets back a
     ``weight`` parameter ``weight_q * weight_scale`` (in its bias's dtype,
@@ -151,7 +174,7 @@ def dequantize_params(model: nn.Module) -> nn.Module:
     for m in model.modules():
         if not is_quantized(m):
             continue
-        dtype = m.bias.dtype if m.bias is not None else torch.float32
+        dtype = float_dtype(m)
         q = m.weight_q
         w = q.float() * m.weight_scale.reshape(-1, *[1] * (q.ndim - 1))
         for name in ("weight_q", "weight_scale", "phase_q", "phase_scale"):

@@ -39,10 +39,17 @@ self-attention (``ops/tome.py``). A request with a hint samples exactly
 unless ``control_turbo=True`` (the turbos and the KV pool are off for it;
 ToMe is not), as in ``pfd_tpu`` (:236-256).
 
-Weights: without checkpoint files the model runs with random weights seeded
-by ``seed``. Loading the published zoo needs ``io/loader.py``, which is not
-ported yet: a checkpoint file found on disk raises instead of being ignored.
-The annotator networks (HED, MiDaS, ...) are not ported either; their
+Weights: the constructor loads the tags' checkpoints found under
+``pretrained_root`` (``zoo.py``'s paths; ``$PFD_PRETRAINED_ROOT`` or "." by
+default) through ``io/loader.py``; a part whose file is missing keeps the
+random weights seeded by ``seed``. ``action_load_ctx``, ``action_load_diffuser``
+and ``action_load_ctl`` hot-swap a part by tag (a request's ``tag_*``
+arguments call them), ``load_vae(path)`` swaps the VAE; each load copies into
+the module's parameters in place, cast to their dtype, and in the int8 mode
+quantizes the loaded weights again (``quant.quantize_state_dict``). The
+anime SeeCoder's requests take ``assets/anime_ug.pth`` as their negative
+context. ``ctl_method="none"`` with a hint image raises, as in ``pfd_tpu``.
+The annotator networks (HED, MiDaS, ...) are not ported yet; their
 ``ctl_method`` values raise.
 """
 
@@ -56,6 +63,7 @@ import torch
 
 from pfd_tpu_torch import annotators, config, zoo
 from pfd_tpu_torch.diffusion.ddim import DDIMSampler
+from pfd_tpu_torch.io import loader
 from pfd_tpu_torch.models.build import build_model
 from pfd_tpu_torch.ops import nn as ops_nn
 from pfd_tpu_torch.ops import quant
@@ -74,13 +82,6 @@ def _to_array(im):
     if im.max() > 1.5:
         im = im / 255.0
     return im
-
-
-def _loader_missing(path):
-    raise NotImplementedError(
-        f"checkpoint {path} found, but the checkpoint loader (io/loader.py) is "
-        "not ported to pfd_tpu_torch yet; remove it from pretrained_root to "
-        "run with random weights")
 
 
 class PromptFreeDiffusionPipeline:
@@ -114,8 +115,8 @@ class PromptFreeDiffusionPipeline:
         else:
             cfg = config.model_cfg("pfd_seecoder_with_controlnet" if with_control
                                    else "pfd_seecoder")
-            if tag_ctx == "SeeCoder-PA":
-                cfg["args"]["ctx_cfg_list"] = [["image", config.model_cfg("seecoder_pa")]]
+        self._ctx_cfg = dict(cfg["args"]["ctx_cfg_list"])["image"]
+        _set_pa(self._ctx_cfg, tag_ctx == "SeeCoder-PA")
         self.net = build_model(cfg, policy=self.policy, device=self.device,
                                generator=self._generator())
         if quantized:
@@ -133,41 +134,50 @@ class PromptFreeDiffusionPipeline:
 
     # ---- checkpoint hot-swap (app.py:137-195) --------------------------------
 
+    def _load(self, module, sd):
+        """Load the mapped checkpoint ``sd`` into ``module`` in place (each
+        tensor cast to its parameter's dtype), its quantized layers from
+        codes of the loaded weights (``quant.quantize_state_dict``)."""
+        module.load_state_dict(quant.quantize_state_dict(module, sd), strict=True)
+
     def action_load_ctx(self, tag):
         """Swap the SeeCoder. The PA variant carries a PPE-MLP, so the
         context encoder is rebuilt (with fresh seeded weights) when PA-ness
-        changes, as ``pfd_tpu`` rebuilds its net (pipeline.py:137-157)."""
+        changes, as ``pfd_tpu`` rebuilds its net (pipeline.py:137-157); a
+        missing checkpoint file keeps the weights and only sets the tag."""
         pa = tag == "SeeCoder-PA"
         if pa != (self.net.ctx["image"].qtransformer.pe_layer is not None):
-            self.net.ctx["image"] = build_model(
-                config.model_cfg("seecoder_pa" if pa else "seecoder"),
-                policy=self.policy, device=self.device, generator=self._generator())
+            _set_pa(self._ctx_cfg, pa)
+            self.net.ctx["image"] = build_model(self._ctx_cfg, policy=self.policy,
+                                                device=self.device, generator=self._generator())
         path = zoo.resolve(zoo.CTXENCODER_PATH.get(tag), self.root)
-        if path is not None and os.path.exists(path):
-            _loader_missing(path)
+        if _exists(path):
+            self._load(self.net.ctx, loader.ctx_sd_to_params(loader.load_sd_file(path)))
         self.tag_ctx = tag
         return tag
 
     def action_load_diffuser(self, tag):
-        """Swap the diffuser. In the int8 mode the loaded weights must be
-        quantized again (``quant.quantize_params``), as ``pfd_tpu`` does
-        (pipeline.py:159-169), once the loader lands."""
+        """Swap the diffuser (pipeline.py:159-169)."""
         path = zoo.resolve(zoo.DIFFUSER_PATH.get(tag), self.root)
-        if path is not None and os.path.exists(path):
-            _loader_missing(path)
+        if _exists(path):
+            self._load(self.net.diffuser, loader.diffuser_sd_to_params(loader.load_sd_file(path)))
         self.tag_diffuser = tag
         return tag
 
     def action_load_ctl(self, tag):
-        """Swap the ControlNet (pipeline.py:171-182). In the int8 mode the
-        loaded weights must be quantized again, as for the diffuser, once the
-        loader lands."""
+        """Swap the ControlNet (pipeline.py:171-182); a model built without
+        one (``with_control=False``) only takes the tag."""
         _, rel = zoo.CONTROLNET_PATH.get(tag, ("none", None))
         path = zoo.resolve(rel, self.root)
-        if path is not None and os.path.exists(path):
-            _loader_missing(path)
+        if _exists(path) and hasattr(self.net, "ctl"):
+            self._load(self.net.ctl, loader.ctl_sd_to_params(loader.load_sd_file(path)))
         self.tag_ctl = tag
         return tag
+
+    def load_vae(self, path):
+        """Load a VAE checkpoint (bare keys) into ``vae["image"]``
+        (pipeline.py:184-190)."""
+        self._load(self.net.vae["image"], loader.vae_sd_to_params(loader.load_sd_file(path)))
 
     # ---- shape policy (app.py:197-207) ---------------------------------------
 
@@ -182,14 +192,28 @@ class PromptFreeDiffusionPipeline:
     def action_autoset_method(tag):
         return zoo.CONTROLNET_PATH[tag][0]
 
-    def negative_context(self, c):
-        """Unconditional context: zeros. The anime SeeCoder's negative
-        embedding (app.py:236-241) comes with the loader."""
-        if self.tag_ctx == "SeeCoder-Anime":
+    def negative_context(self, c, anime_ug_path=None):
+        """Unconditional context: zeros, except under the anime SeeCoder,
+        whose negative embedding (a path or an in-memory (N, 768) array;
+        by default ``assets/anime_ug.pth`` under ``pretrained_root`` where it
+        exists) is zero-padded to the token count and tiled over the batch
+        (app.py:236-241, pipeline.py:283-301)."""
+        if self.tag_ctx != "SeeCoder-Anime":
+            return torch.zeros_like(c)
+        if anime_ug_path is None:
             cand = zoo.resolve(zoo.ANIME_UG_PATH, self.root)
-            if os.path.exists(cand):
-                _loader_missing(cand)
-        return torch.zeros_like(c)
+            if _exists(cand):
+                anime_ug_path = cand
+        if anime_ug_path is None:
+            return torch.zeros_like(c)
+        ug = (loader.load_tensor_file(anime_ug_path) if isinstance(anime_ug_path, str)
+              else torch.as_tensor(anime_ug_path))
+        pad = c.shape[1] - ug.shape[0]
+        if pad < 0:
+            raise ValueError(f"negative context of {ug.shape[0]} tokens, more than the "
+                             f"context's {c.shape[1]}")
+        ug = torch.nn.functional.pad(ug, (0, 0, 0, pad))
+        return ug.to(c.device, c.dtype).expand(c.shape[0], -1, -1).contiguous()
 
     # ---- inference (app.py:212-275) ------------------------------------------
 
@@ -238,10 +262,13 @@ class PromptFreeDiffusionPipeline:
     @torch.no_grad()
     def action_inference(self, im, imctl=None, ctl_method="canny",
                          do_preprocess=True, h=512, w=512, ugscale=2.0, seed=0,
-                         tag_ctx=None, tag_diffuser=None, tag_ctl=None, steps=None):
+                         tag_ctx=None, tag_diffuser=None, tag_ctl=None, steps=None,
+                         anime_ug_path=None):
         """Reference image (and hint image ``imctl``) -> list of n (h, w, 3)
         float32 images in [0, 1], followed by the n hints the ControlNet
-        took when there was one (pipeline.py:305-343)."""
+        took when there was one (pipeline.py:305-343). A hint image that
+        ``ctl_method`` preprocesses to nothing ("none") raises
+        ``ValueError``, as ``pfd_tpu`` raises on it."""
         if tag_ctx and tag_ctx != self.tag_ctx:
             self.action_load_ctx(tag_ctx)
         if tag_diffuser and tag_diffuser != self.tag_diffuser:
@@ -253,7 +280,7 @@ class PromptFreeDiffusionPipeline:
         h, w = h // 64 * 64, w // 64 * 64
 
         c = self.encode_context(im).repeat(n, 1, 1)
-        u = self.negative_context(c)
+        u = self.negative_context(c, anime_ug_path)
         hints = None
         if self.tag_ctl != "none" and imctl is not None:
             a = _to_array(imctl)
@@ -261,7 +288,10 @@ class PromptFreeDiffusionPipeline:
                 a = annotators.resize_image(a, (h, w), method="bicubic")
             if do_preprocess:
                 a = annotators.preprocess(a, method=ctl_method, size=(h, w))
-            hints = None if a is None else np.repeat(np.asarray(a, np.float32)[None], n, 0)
+                if a is None:
+                    raise ValueError(f"ctl_method {ctl_method!r} preprocesses the hint image "
+                                     "to nothing: send no hint image, or choose another method")
+            hints = np.repeat(np.asarray(a, np.float32)[None], n, 0)
         control = None
         if hints is not None:
             control = torch.as_tensor(hints.transpose(0, 3, 1, 2).copy(), device=self.device)
@@ -274,3 +304,14 @@ class PromptFreeDiffusionPipeline:
         imgs = self.sample_decode(c, u, x, float(ugscale), steps, control)
         out = [img.permute(1, 2, 0).float().cpu().numpy() for img in imgs]
         return out + ([] if hints is None else list(hints))
+
+
+def _exists(path):
+    return path is not None and os.path.exists(path)
+
+
+def _set_pa(ctx_cfg, pa):
+    """Make the SeeCoder config ``ctx_cfg`` position-aware (the PPE-MLP of
+    ``seecoder_pa``) or not, in place."""
+    ctx_cfg["args"]["qtransformer_cfg"]["args"]["with_fea2d_pos"] = pa
+    ctx_cfg["args"]["with_ppe"] = pa

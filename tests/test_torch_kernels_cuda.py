@@ -12,8 +12,10 @@ relative L2 2e-3 and max-abs one bf16 ulp of the largest output, at boxes
 that span images or leave rows unused, C and Cout not multiples of 64 (nor
 of 8: the wrapper pads them), and with and without the depth split; the
 attention dispatchers' routes on the card (fp32 and wide heads to plain
-attention, heads not a multiple of 8 padded); and a tiny fp32 pipeline
-through the dispatchers to a finite image.
+attention, heads not a multiple of 8 padded); a tiny fp32 pipeline
+through the dispatchers to a finite image; the checkpoint loader's
+``.safetensors`` reader into a CUDA module, and an int8 swap whose int8
+conv outputs equal the plain version's with the new codes.
 
 Needs a CUDA device and ``nvcc``; skips where there is none. Imports neither
 JAX nor pfd_tpu, so it also runs on a machine without them:
@@ -660,3 +662,62 @@ def test_flash_kernel_at_tomes_padded_head():
     assert fa.flash_attention.launches == before + 1
     assert got.shape == q.shape
     assert (got.float() - want.float()).abs().max().item() <= fa.kernel_tolerance(want)
+
+
+@pytest.mark.cuda
+def test_safetensors_reader_loads_into_a_cuda_module(tmp_path):
+    """A fp16 ``.safetensors`` checkpoint (written by ``chip_smoke``'s writer:
+    the card's host has no safetensors package), read by the port's reader
+    and loaded strictly into a bf16 module on the card: each parameter is
+    the file's tensor cast to bf16."""
+    _need_cuda()
+    import chip_smoke
+    from pfd_tpu_torch.io import loader
+
+    g = torch.Generator().manual_seed(0)
+    sd = {"weight": torch.randn(32, 64, 3, 3, generator=g).half(),
+          "bias": torch.randn(32, generator=g).half()}
+    path = str(tmp_path / "conv.safetensors")
+    chip_smoke.write_safetensors(path, sd)
+    got = loader.load_sd_file(path)
+    conv = torch.nn.Conv2d(64, 32, 3, device="cuda", dtype=torch.bfloat16)
+    conv.load_state_dict(got, strict=True)
+    for k, v in sd.items():
+        assert torch.equal(getattr(conv, k).detach().cpu(), v.to(torch.bfloat16)), k
+
+
+@pytest.mark.cuda
+def test_int8_swap_on_the_card_runs_the_new_codes(monkeypatch):
+    """A quantized conv and a quantized upsample conv swapped to new float
+    weights (``quant.quantize_state_dict`` + ``load_state_dict``): their
+    codes are the new weights', the phase kernel follows, and the int8 conv
+    kernel's outputs equal its plain version's bit for bit."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    bf = torch.bfloat16
+    model = torch.nn.ModuleDict({
+        "conv": torch.nn.Conv2d(128, 128, 3, padding=1, device="cuda", dtype=bf),
+        "up": tq.mark_upsample(torch.nn.Conv2d(128, 128, 3, padding=1, device="cuda", dtype=bf)),
+    }).requires_grad_(False)
+    tq.quantize_params(model)
+    old_phase = model["up"].phase_q.clone()
+    new = {f"{n}.{p}": 0.05 * torch.randn(t.shape, generator=g, device="cuda").half()
+           for n in ("conv", "up") for p, t in (("weight", torch.empty(128, 128, 3, 3)),
+                                                ("bias", torch.empty(128)))}
+    model.load_state_dict(tq.quantize_state_dict(model, new), strict=True)
+    for n in ("conv", "up"):
+        q, s = tq.quantize_weight(new[f"{n}.weight"].to(bf))
+        assert torch.equal(model[n].weight_q, q) and torch.equal(model[n].weight_scale, s)
+    up = model["up"]
+    pq, _ = tq.quantize_weight(tq.phase_kernel(up.weight_q.float() * up.weight_scale[:, None,
+                                                                                     None, None]))
+    assert torch.equal(up.phase_q, pq) and not torch.equal(up.phase_q, old_phase)
+    x = _randn((2, 128, 32, 32), g)
+    before = int8_conv.conv_int8.launches
+    got = (tnn.conv2d(x, model["conv"], padding=1), tnn.upsample_conv2d(x, up))
+    torch.cuda.synchronize()
+    assert int8_conv.conv_int8.launches == before + 2
+    monkeypatch.setattr(int8_conv, "conv_int8", int8_conv.conv_int8_plain)
+    want = (tnn.conv2d(x, model["conv"], padding=1), tnn.upsample_conv2d(x, up))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

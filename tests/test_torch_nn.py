@@ -186,15 +186,17 @@ def test_dot_product_attention(with_bias):
     _close(got, want)
 
 
-def numpy_params(model, seed=0):
+def numpy_params(model, seed=0, shapes=None):
     """A random pfd_tpu parameter pytree for ``model``, drawn with numpy from
-    its shapes (``jax.eval_shape`` of ``init``): fan-in scaled kernels, biases
-    and norm gains near their init values, unit-normal tables; no leaf is
-    zero. Much faster than tracing ``init`` for a whole model."""
+    its shapes (``jax.eval_shape`` of ``init``, or ``shapes`` where the caller
+    has them): fan-in scaled kernels, biases and norm gains near their init
+    values, unit-normal tables; no leaf is zero. Much faster than tracing
+    ``init`` for a whole model."""
     import jax
 
     rng = np.random.default_rng(seed)
-    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0))
+    if shapes is None:
+        shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0))
 
     def draw(path, s):
         name = str(getattr(path[-1], "key", path[-1]))

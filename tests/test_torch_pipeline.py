@@ -284,8 +284,9 @@ def test_autoset_hw_and_unported_surfaces(tmp_path):
         ckpt = root / rel
         ckpt.parent.mkdir(parents=True)
         ckpt.write_bytes(b"")
-        with pytest.raises(NotImplementedError, match="loader"):
-            _tiny_pipe(pretrained_root=str(root))
+        # the loader reads a zoo file it finds: a broken one raises, never ignored
+        with pytest.raises(ValueError, match="not a .safetensors file"):
+            _tiny_pipe(pretrained_root=str(root), config_override=PFD_CTL)
     pipe = _tiny_pipe(config_override=PFD_CTL)
     ref = np.zeros((64, 64, 3), np.float32)
     with pytest.raises(NotImplementedError, match="HED"):
