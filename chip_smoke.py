@@ -36,8 +36,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    routes: fp32 to plain attention with no launch, a head of 36 padded to 40
    through K1;
 5. the slice at full published width (``pfd_seecoder_with_controlnet``, BF16,
-   random weights from a seed with the zero-initialised layers de-zeroed):
-   request A (512x512 reference image, no hint, 50 DDIM steps, guidance 2.0,
+   random weights from a seed with the zero-initialised layers de-zeroed),
+   served in phases 5-8b through the pipeline's eager bodies
+   (``encode_context``, ``sample_decode``: ``eager_request``), the yardstick
+   phase 8c holds the graphs to, with per-stage CUDA-event times: request A (512x512 reference image, no hint, 50 DDIM steps, guidance 2.0,
    seed 42) must give a finite image in [0, 1] and launch K1 501 times and K2
    500 times; request B (= A) must repeat it bit for bit; request C (seed 7,
    10 steps) must differ; one UNet call through the kernels is held against
@@ -94,6 +96,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    H_tome, I and J at b1, and of 8 images of 50 steps, int8 exact against
    ``ph8x2_42x21`` and ``ph8x2_42x21_kv2``, bf16 exact against
    ``ph8x2_42x21``;
+8c. the compiled hot path through ``action_inference`` (``ops/graphs.py``:
+   one captured CUDA graph a bucket): ``warmup`` of the A, F, H, J, D, G, I
+   and b8 buckets with each one's seconds (eager warm-up run, capture,
+   instantiation), node count and pool growth; graphed A, F, H, J, D, G
+   (10 steps), I and b8 x 50 int8 ``ph8x2_42x21`` each equal to its eager
+   twin above bit for bit and launching ``LaunchPlan``'s count per replay;
+   A at guidance 3.0 through A's bucket (its eager twin bit for bit); a bf16
+   and an int8 diffuser swap in place followed by a replay of the old graph
+   (the eager request after the swap bit for bit), then the weights put
+   back (the image before); s/img eager against graphed in 3 turns for A,
+   F, H, D, I and the b8 line, the graphed ones also by CUDA events; a
+   profile of one graphed A and one graphed H request (device busy and idle
+   share); a SeeCoder-PA swap, which captures SeeCoder anew (J's bucket against its
+   eager twin under the new encoder);
 9. K3 (``flash_attention(pipelined=True)``) against its plain version and
    against K1 within ``kernel_tolerance``, at K1's wide-grid ragged shapes
    among others; K6 (``conv3x3_fused``, with the
@@ -143,16 +159,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    8-bit image): S1 ``SD-v1.5``, S2 ``Deliberate-v2.0`` (must differ), S3
    ``SD-v1.5`` (= S1 bit for bit), S4 with a canny hint (returns it), S5
    ``SeeCoder-Anime`` (no file: the weights stay, the anime negative
-   context; must differ), each launching ``LaunchPlan``'s count; the int8
-   pipeline's swap SD -> Deliberate -> SD (its requests launch K4, K2,
-   ``conv_int8`` at ``LaunchPlan``'s counts, differ, then repeat bit for
-   bit); ``ZooServer`` b4 grouped over both tags with canny hints and
-   ``control_on=[1, 0, 0, 1]`` (each image within max(2x the batch-2 vs
-   batch-1 spread, 1e-3) relative L2 of its request alone; b1 sharded =
-   grouped bit for bit) and ``DataParallelServer`` b8, with s/img;
-13. a ``kernels`` JSON line (``launches``: the ControlNet requests,
-   F for the bf16 kernels and G for the int8 ones; every serving request's
-   counts, the turbo ones' and phase 12's too, in ``launches_by_request``),
+   context; must differ), each launching ``LaunchPlan``'s count, the
+   pipeline's two 10-step buckets captured by ``warmup`` first; the int8
+   pipeline's swap SD -> Deliberate -> SD through its graph (its requests
+   launch K4, K2, ``conv_int8`` at ``LaunchPlan``'s counts, differ, then
+   repeat bit for bit); ``ZooServer`` b4 grouped over both tags with canny
+   hints and ``control_on=[1, 0, 0, 1]``, both groups on one captured graph
+   (equal to the eager body group by group bit for bit; each image within
+   max(2x the batch-2 vs batch-1 spread, 1e-3) relative L2 of its request
+   alone; b1 sharded = grouped bit for bit) and ``DataParallelServer`` b8
+   captured by its ``warmup`` (equal to its eager body bit for bit), with
+   s/img graphed against eager in 3 turns;
+13. a ``kernels`` JSON line (``launches``: the graphed ControlNet requests
+   of phase 8c, F for the bf16 kernels and G for the int8 ones; every
+   serving request's counts, the turbo ones', the graphed ones' and phase
+   12's too, in ``launches_by_request``),
    the card's name and power limit, then the device JSON as the last line.
 
 Imports neither JAX nor ``pfd_tpu``.
@@ -460,12 +481,9 @@ def launch_counts(labs=False):
 
 
 def reset_counts():
-    from pfd_tpu_torch.ops import flash_attention as fa
-    from pfd_tpu_torch.ops import fused_conv, int8_conv, int8_matmul
-    fa.reset_launch_counts()
-    int8_conv.conv_int8.launches = 0
-    fused_conv.conv3x3_fused.launches = 0
-    int8_matmul.matmul_int8.launches = 0
+    from pfd_tpu_torch.ops import graphs
+    for wrapper in graphs.counters().values():
+        wrapper.launches = 0
 
 
 def check_pipe(shape, mufu_rate, gen):
@@ -739,11 +757,22 @@ class LaunchPlan:
         return n
 
 
+def eager_request(pipe, ref, seed, steps, imctl=None, ugscale=2.0):
+    """``action_inference``'s 512^2 request through the eager bodies
+    (``encode_context``, then ``sample_decode``): the yardstick a graphed
+    request is held to. Returns the images, then the hints."""
+    c = pipe.encode_context(ref).repeat(pipe.n_sample_image, 1, 1)
+    control, hints = pipe.hint_batch(imctl, "canny", True, 512, 512)
+    x, noise = pipe.start_latent(seed, 512, 512, steps)
+    imgs = pipe.sample_decode(c, pipe.negative_context(c), x, ugscale, steps, control, noise)
+    return pipe.images_out(imgs, hints)
+
+
 def serve(pipe, ref, seed, steps, label, imctl=None):
-    """One request through ``action_inference`` (a canny hint ``imctl``
-    runs the ControlNet) with the launch counts set to 0 just before it;
-    per-stage device times from CUDA events. Returns (outputs: the images,
-    then the hints; stats)."""
+    """One request through the eager bodies (``eager_request``; a canny hint
+    ``imctl`` runs the ControlNet) with the launch counts set to 0 just
+    before it; per-stage device times from CUDA events. Returns (outputs:
+    the images, then the hints; stats)."""
     import torch
 
     timings = {"ctx_encode": [], "apply_model": [], "vae_decode": []}
@@ -766,8 +795,7 @@ def serve(pipe, ref, seed, steps, label, imctl=None):
     reset_counts()
     t0 = time.perf_counter()
     try:
-        out = pipe.action_inference(ref, imctl, "canny", True, 512, 512, 2.0, seed,
-                                    steps=steps)
+        out = eager_request(pipe, ref, seed, steps, imctl)
         torch.cuda.synchronize()
     finally:
         for name in timings:
@@ -787,6 +815,28 @@ def serve(pipe, ref, seed, steps, label, imctl=None):
           f"vae_decode_ms={stats['vae_decode_ms']:.3f} s_per_img={s_per_img:.4f} "
           f"peak_mem_gb={stats['peak_mem_gb']:.3f} launches={json.dumps(launches)}",
           flush=True)
+    return out, stats
+
+
+def serve_graphed(pipe, ref, seed, steps, label, imctl=None, ugscale=2.0):
+    """One request through ``action_inference`` (SeeCoder's graph and the
+    bucket's graph replayed) with the launch counts set to 0 just before
+    it; host wall time and CUDA-event time around the call. Returns
+    (outputs, stats)."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_counts()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    s.record()
+    out = pipe.action_inference(ref, imctl, "canny", True, 512, 512, ugscale, seed, steps=steps)
+    e.record()
+    torch.cuda.synchronize()
+    stats = {"s": time.perf_counter() - t0, "event_s": s.elapsed_time(e) / 1e3,
+             "launches": launch_counts()}
+    print(f"graphed request {label}: s={stats['s']:.4f} event_s={stats['event_s']:.4f} "
+          f"launches={json.dumps(stats['launches'])}", flush=True)
     return out, stats
 
 
@@ -1010,6 +1060,178 @@ def _synced(fn, *args, **kwargs):
     return out, time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def knobs(pipe, **kw):
+    """The pipeline's attributes ``kw`` set for the block, restored after."""
+    saved = {k: getattr(pipe, k) for k in kw}
+    for k, v in kw.items():
+        setattr(pipe, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(pipe, k, v)
+
+
+def other_weights(module, seed):
+    """A float state dict for ``module`` as a checkpoint swap loads it: each
+    float tensor of its own times (1 + 0.05 N(0, 1)), a quantized layer's
+    weight dequantized from its codes first (``quant.quantize_state_dict``
+    quantizes it again)."""
+    import torch
+    from pfd_tpu_torch.ops import quant as tq
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def jitter(v):
+        return (v.float() * (1 + 0.05 * torch.randn(v.shape, generator=g, device=v.device))
+                ).to(v.dtype)
+
+    quantized = {n for n, m in module.named_modules() if tq.is_quantized(m)}
+    sd = {}
+    for k, v in module.state_dict().items():
+        base, _, leaf = k.rpartition(".")
+        if base in quantized and leaf in ("weight_q", "weight_scale"):
+            if leaf == "weight_q":
+                m = module.get_submodule(base)
+                sd[f"{base}.weight"] = jitter(m.weight_q.float()
+                                              * m.weight_scale[:, None, None, None])
+        else:
+            sd[k] = jitter(v) if v.is_floating_point() else v
+    return sd
+
+
+def compiled_hot_path(card, pipe, pipe8, ref, hint_src, lp, lp8, eager):
+    """Phase 8c: the compiled hot path at full width. Each bucket is one
+    captured CUDA graph (``ops/graphs.py``): its cost (the warm-up run, the
+    capture, the instantiation, its nodes, the pool's growth); each graphed
+    request against its eager twin ``eager[label]`` bit for bit and at
+    ``LaunchPlan``'s launches; a second guidance scale through one graph; a
+    bf16 and an int8 diffuser swap, then a replay of the old graph; s/img
+    graphed against eager over 3 turns each, and a profile of graphed A and
+    H; b8 int8 ``ph8x2_42x21``; a SeeCoder-PA swap, which captures SeeCoder anew. Returns {request:
+    launches}."""
+    import numpy as np
+    import torch
+
+    ph_h, ph_j = [(8, 2), (42, 21)], [(10, 2), (40, 20)]
+    served, cost, times = {}, {}, {}
+
+    def capture(p, label, with_control, steps=50):
+        n0 = len(p._ctx_graph.stats)
+        _, dt = _synced(p.warmup, batch=p.n_sample_image, with_control=with_control,
+                        steps=steps)
+        st = p._graphs[(512, 512, p.n_sample_image, with_control, steps, 0.0)].stats[0]
+        cost[label] = {"warmup_call_s": dt, **st,
+                       **({"seecoder": p._ctx_graph.stats[0]} if n0 == 0 else {})}
+        print(f"graph bucket {label}: {json.dumps(cost[label])} ({card})", flush=True)
+
+    def replay(p, label, want_launches, steps=50, imctl=None, ugscale=2.0, want=None):
+        out, st = serve_graphed(p, ref, 42, steps, label, imctl, ugscale)
+        want = eager[label] if want is None else want
+        for img in out[:p.n_sample_image]:
+            check_image(img, f"graphed {label}")
+        if not np.array_equal(out[0], want):
+            raise AssertionError(f"graphed {label}: not its eager twin bit for bit (max abs "
+                                 f"{np.abs(out[0] - want).max():.3e})")
+        if st["launches"] != want_launches:
+            raise AssertionError(f"graphed {label}: launches {st['launches']}, want "
+                                 f"{want_launches}")
+        served[f"graphed {label}"] = st["launches"]
+        return out
+
+    def timing(p, label, steps=50, imctl=None, turns=3):
+        """s/img eager against graphed, in turns (eager, graphed) x ``turns``."""
+        rows = {"eager": [], "graphed": [], "graphed_event": []}
+        for _ in range(turns):
+            _, dt = _synced(eager_request, p, ref, 42, steps, imctl)
+            rows["eager"].append(dt / p.n_sample_image)
+            _, st = serve_graphed(p, ref, 42, steps, f"{label} (timing)", imctl)
+            rows["graphed"].append(st["s"] / p.n_sample_image)
+            rows["graphed_event"].append(st["event_s"] / p.n_sample_image)
+        times[label] = rows
+        e, g = rows["eager"], rows["graphed"]
+        print(f"graphs timing {label}: s/img eager {json.dumps(e)} (spread "
+              f"{max(e) / min(e):.3f}), graphed {json.dumps(g)} (spread {max(g) / min(g):.3f}), "
+              f"graphed by events {json.dumps(rows['graphed_event'])}; eager / graphed median "
+              f"{statistics.median(e) / statistics.median(g):.3f} ({card})", flush=True)
+
+    def swap_and_replay(p, label, want_launches, seed):
+        """A diffuser swap in place, then the old graph: its eager twin after
+        the swap bit for bit, not the image before; the weights then put back
+        bit for bit, and the graph gives the image before again."""
+        diffuser = p.net.diffuser
+        saved = {k: v.clone() for k, v in diffuser.state_dict().items()}
+        _, dt = _synced(p._load, diffuser, other_weights(diffuser, seed))
+        want = eager_request(p, ref, 42, 50)[0]
+        if np.array_equal(want, eager[label]):
+            raise AssertionError(f"swap {label}: the swapped weights did not change the image")
+        replay(p, f"{label} after a swap", want_launches, want=want)
+        diffuser.load_state_dict(saved, strict=True)
+        replay(p, f"{label} swapped back", want_launches, want=eager[label])
+        print(f"graphs swap {label}: the diffuser swap ({dt:.2f} s) kept the graph valid: its "
+              f"replay is the eager request after the swap bit for bit, mean |after - before| "
+              f"{np.abs(want - eager[label]).mean():.5f}; swapped back = before", flush=True)
+
+    # bf16, no turbo: A and F, a second scale, a swap
+    capture(pipe, "A", False)
+    capture(pipe, "F", True)
+    replay(pipe, "A", lp.expected())
+    replay(pipe, "F", lp.expected(control=True), imctl=hint_src)
+    want3 = eager_request(pipe, ref, 42, 50, ugscale=3.0)[0]
+    img3 = replay(pipe, "A at guidance 3.0", lp.expected(), ugscale=3.0, want=want3)[0]
+    if np.array_equal(img3, eager["A"]) or len(pipe._graphs) != 2:
+        raise AssertionError("graphs: guidance 3.0 must change A's image through A's bucket")
+    print("graphs: guidance 2.0 and 3.0 through one bucket, each its eager twin bit for bit",
+          flush=True)
+    swap_and_replay(pipe, "A", lp.expected(), 501)
+    timing(pipe, "A")
+    timing(pipe, "F", imctl=hint_src)
+    profile_unet("graphed request A profile", lambda: pipe.action_inference(
+        ref, None, "canny", True, 512, 512, 2.0, 42, steps=50))
+    # bf16 turbo: H, then J with the hint
+    with knobs(pipe, phases=ph_h):
+        capture(pipe, "H", False)
+        replay(pipe, "H", lp.expected(phases=ph_h))
+        timing(pipe, "H")
+        profile_unet("graphed request H profile", lambda: pipe.action_inference(
+            ref, None, "canny", True, 512, 512, 2.0, 42, steps=50))
+    with knobs(pipe, phases=ph_j, control_turbo=True):
+        capture(pipe, "J", True)
+        replay(pipe, "J", lp.expected(control=True, phases=ph_j), imctl=hint_src)
+        # SeeCoder-PA rebuilds the context encoder: its graph goes, the
+        # bucket's stays; last, since the rebuilt encoder has new weights
+        ctx_graph = pipe._ctx_graph
+        pipe.action_load_ctx("SeeCoder-PA")
+        if pipe._ctx_graph is ctx_graph:
+            raise AssertionError("graphs: the SeeCoder-PA swap kept the old SeeCoder graph")
+        want = eager_request(pipe, ref, 42, 50, hint_src)[0]
+        replay(pipe, "J with SeeCoder-PA", lp.expected(control=True, phases=ph_j),
+               imctl=hint_src, want=want)
+        print(f"graphs: SeeCoder-PA swap captured SeeCoder anew "
+              f"{json.dumps(pipe._ctx_graph.stats)}; J's bucket replayed to its eager twin",
+              flush=True)
+    # int8: D, a swap, G with the hint, I, then b8 x 50 ph8x2_42x21
+    capture(pipe8, "D", False)
+    replay(pipe8, "D", lp8.expected(quantized=True, attn8=True))
+    swap_and_replay(pipe8, "D", lp8.expected(quantized=True, attn8=True), 502)
+    timing(pipe8, "D")
+    capture(pipe8, "G", True, steps=10)
+    replay(pipe8, "G", lp8.expected(steps=10, control=True, quantized=True, attn8=True),
+           steps=10, imctl=hint_src)
+    with knobs(pipe8, phases=ph_h):
+        capture(pipe8, "I", False)
+        replay(pipe8, "I", lp8.expected(quantized=True, attn8=True, phases=ph_h))
+        timing(pipe8, "I")
+        with knobs(pipe8, n_sample_image=8):
+            capture(pipe8, "int8 b8 ph8x2_42x21", False)
+            replay(pipe8, "int8 b8 ph8x2_42x21",
+                   lp8.expected(quantized=True, attn8=True, phases=ph_h))
+            timing(pipe8, "int8 b8 ph8x2_42x21")
+    print(f"graphs summary: {json.dumps({'cost': cost, 'times': times})}", flush=True)
+    return served
+
+
 def write_zoo(root):
     """Checkpoint files at the zoo paths of ``SD-v1.5`` (``diffuser.image.*``),
     ``Deliberate-v2.0`` (its context blocks spelled
@@ -1168,7 +1390,11 @@ def _serving_entry_points(card, ref, hint_src, root):
         print(f"zoo swap: action_load_diffuser({tag!r}) {dt:.2f} s", flush=True)
         check_part(f"zoo swap {tag}", pipe.net.diffuser, files[tag][1])
     lp = LaunchPlan(pipe.net)
-    pipe.action_inference(ref, h=512, w=512, ugscale=2.0, seed=0, steps=2)  # warm-up
+    for with_control in (False, True):  # the requests' two buckets, captured ahead
+        keys, dt = _synced(pipe.warmup, with_control=with_control, steps=10)
+        print(f"zoo: bf16 pipeline warmup {keys[-1] if with_control else keys[0]} {dt:.2f} s "
+              f"{json.dumps(pipe._graphs[(512, 512, 1, with_control, 10, 0.0)].stats)}",
+              flush=True)
 
     # ---- HTTP: S1-S5 through serve._Handler, each beside the direct request ----
     tserve._Handler.pipeline = pipe
@@ -1247,14 +1473,14 @@ def _serving_entry_points(card, ref, hint_src, root):
     check_part("zoo int8 load_vae", pipe8.net.vae["image"], files["vae"][1])
     lp8 = LaunchPlan(pipe8.net)
     want8 = lp8.expected(steps=10, quantized=True, attn8=True)
-    pipe8.action_inference(ref, h=512, w=512, ugscale=2.0, seed=0, steps=2)  # warm-up
+    pipe8.warmup(with_control=False, steps=10)
     imgs8 = {}
     for label, tag in (("int8 SD", "SD-v1.5"), ("int8 swap", "Deliberate-v2.0"),
                        ("int8 SD again", "SD-v1.5")):
         _, dt = _synced(pipe8.action_load_diffuser, tag)
         print(f"zoo swap: int8 action_load_diffuser({tag!r}) {dt:.2f} s", flush=True)
         check_part(f"zoo int8 swap {tag}", pipe8.net.diffuser, files[tag][1])
-        [imgs8[label]], st = serve(pipe8, ref, 42, 10, label)
+        [imgs8[label]], st = serve_graphed(pipe8, ref, 42, 10, label)
         check_image(imgs8[label], label)
         if st["launches"] != want8:
             raise AssertionError(f"request {label}: launches {st['launches']}, want {want8}")
@@ -1286,7 +1512,10 @@ def _serving_entry_points(card, ref, hint_src, root):
     def timed_swap(*a):
         swaps.append(_synced(swap, *a)[1])
     zs._swap = timed_swap
-    zs.generate(refs4[:2], ztags[:2], hints=hints4[:2], h=512, w=512, seed=0)  # warm-up
+    # captures the group bucket (2 requests with the ControlNet) both groups replay
+    zs.generate(refs4, ztags, hints=hints4, control_on=on, h=512, w=512, seed=0)
+    print(f"ZooServer: group bucket {json.dumps(zs._group_fn(512, 512, 2, True).stats)}",
+          flush=True)
     swaps.clear()
     torch.cuda.synchronize()
     reset_counts()
@@ -1297,12 +1526,40 @@ def _serving_entry_points(card, ref, hint_src, root):
     if served["zoo b4"] != want:
         raise AssertionError(f"ZooServer b4: launches {served['zoo b4']}, want {want} (two "
                              f"groups of two with the ControlNet)")
-    out4 = out4.float()
     if not bool(torch.isfinite(out4).all()) or out4.shape != (4, 512, 512, 3):
         raise AssertionError("ZooServer b4: bad images")
     zs._swap = swap
     x4 = zs.init_noise(42, 4, 512, 512)
     r4, h4 = nchw(refs4, "cuda"), nchw(hints4, "cuda")
+    mask4 = np.asarray(on, np.float32)
+
+    def zoo_eager():
+        """The b4 request through the eager body, group by group as
+        ``_generate_grouped`` runs it."""
+        groups = {}
+        for i, tag in enumerate(ztags):
+            groups.setdefault((tag, None), []).append(i)
+        out = [None] * 4
+        for (tag, _), idx in sorted(groups.items(), key=lambda kv: str(kv[0])):
+            zs._swap(zs.model, tag, None)
+            imgs = zs._sample_body(x4[idx], r4[idx], h4[idx],
+                                   torch.as_tensor(mask4[idx], device="cuda"), 2.0)
+            for j, i in enumerate(idx):
+                out[i] = imgs[j]
+        return torch.stack(out).permute(0, 2, 3, 1)
+
+    b4_times = {"eager": [], "graphed": []}
+    for _ in range(3):
+        eager4, dt = _synced(zoo_eager)
+        b4_times["eager"].append(dt / 4)
+        _, dt = _synced(zs.generate, refs4, ztags, hints=hints4, control_on=on, h=512, w=512,
+                        seed=42)
+        b4_times["graphed"].append(dt / 4)
+    if not torch.equal(out4, eager4):
+        raise AssertionError("ZooServer b4: the graphed batch is not the eager one bit for bit")
+    print(f"ZooServer b4 10 steps, s/img: {json.dumps(b4_times)}; graphed = eager bit for bit "
+          f"({card})", flush=True)
+    out4 = out4.float()
 
     def rel(a, b):
         return ((a.float() - b.float()).norm() / b.float().norm()).item()
@@ -1336,10 +1593,11 @@ def _serving_entry_points(card, ref, hint_src, root):
 
     # ---- DataParallelServer: b8 ---------------------------------------------------
     dp = DataParallelServer(pipe.net, ["cuda"], steps=10, self_attn_fn=fa.self_attn_fn)
-    buckets = dp.warmup([(512, 512)], batch=8)
+    buckets, dt = _synced(dp.warmup, [(512, 512)], batch=8)
+    print(f"DataParallelServer: warmup {dt:.2f} s {json.dumps(dp._fn(512, 512, 8, False)[0].stats)}",
+          flush=True)
     refs8 = np.stack([np.random.default_rng(300 + i).random((512, 512, 3), dtype=np.float32)
                       for i in range(8)])
-    dp.generate(refs8[:1], h=512, w=512, seed=0)  # warm-up
     torch.cuda.synchronize()
     reset_counts()
     out8, s_b8 = _synced(dp.generate, refs8, h=512, w=512, seed=42)
@@ -1347,6 +1605,19 @@ def _serving_entry_points(card, ref, hint_src, root):
     if served["dp b8"] != lp.expected(steps=10):
         raise AssertionError(f"DataParallelServer b8: launches {served['dp b8']}, want "
                              f"{lp.expected(steps=10)}")
+    x8 = torch.randn((8, 4, 64, 64), device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(42))
+    b8_times = {"eager": [], "graphed": []}
+    for _ in range(3):
+        eager8, dt = _synced(dp._sample_body, nchw(refs8, "cuda"), None, x8, 2.0)
+        b8_times["eager"].append(dt / 8)
+        _, dt = _synced(dp.generate, refs8, h=512, w=512, seed=42)
+        b8_times["graphed"].append(dt / 8)
+    if not torch.equal(out8, eager8.permute(0, 2, 3, 1)):
+        raise AssertionError("DataParallelServer b8: the graphed batch is not the eager one bit "
+                             "for bit")
+    print(f"DataParallelServer b8 10 steps, s/img: {json.dumps(b8_times)}; graphed = eager bit "
+          f"for bit ({card})", flush=True)
     out8 = out8.float()
     if (out8.shape != (8, 512, 512, 3) or not bool(torch.isfinite(out8).all())
             or out8.min() < 0 or out8.max() > 1):
@@ -1452,7 +1723,7 @@ def main() -> int:
     pipe = build_pipe("slice", self_attn_fn=fa.self_attn_fn)
     net = pipe.net
     ref = np.random.default_rng(0).random((512, 512, 3), dtype=np.float32)
-    pipe.action_inference(ref, h=512, w=512, ugscale=2.0, seed=0, steps=2)  # warm-up
+    eager_request(pipe, ref, 0, 2)  # warm-up
 
     [img_a], stats_a = serve(pipe, ref, 42, 50, "A")
     launches = stats_a["launches"]
@@ -1464,11 +1735,11 @@ def main() -> int:
     print(f"request A: image mean {img_a.mean():.4f} std {img_a.std():.4f}", flush=True)
 
     t0 = time.perf_counter()
-    img_b = pipe.action_inference(ref, h=512, w=512, ugscale=2.0, seed=42, steps=50)[0]
+    img_b = eager_request(pipe, ref, 42, 50)[0]
     s_b = time.perf_counter() - t0
     if not np.array_equal(img_a, img_b):
         raise AssertionError("request B (same as A) is not bit-identical")
-    img_c = pipe.action_inference(ref, h=512, w=512, ugscale=2.0, seed=7, steps=10)[0]
+    img_c = eager_request(pipe, ref, 7, 10)[0]
     if np.array_equal(img_a, img_c) or not np.isfinite(img_c).all():
         raise AssertionError("request C (other seed, 10 steps) did not differ")
     print(f"request B: bit-identical to A, s_per_img={s_b:.4f}; request C: differs "
@@ -1489,7 +1760,7 @@ def main() -> int:
 
     # request F: the ControlNet path, a canny hint
     hint_src = hint_image()
-    pipe.action_inference(ref, hint_src, "canny", True, 512, 512, 2.0, 0, steps=2)  # warm-up
+    eager_request(pipe, ref, 0, 2, hint_src)  # warm-up
     [img_f, hint_f], stats_f = serve(pipe, ref, 42, 50, "F", hint_src)
     launches_f = stats_f["launches"]
     check_image(img_f, "F")
@@ -1503,7 +1774,7 @@ def main() -> int:
         raise AssertionError(f"request F: launches {launches_f}, want {want}")
     if np.array_equal(img_f, img_a):
         raise AssertionError("request F (with a hint) did not differ from A")
-    img_f2 = pipe.action_inference(ref, hint_src, "canny", True, 512, 512, 2.0, 42, steps=50)[0]
+    img_f2 = eager_request(pipe, ref, 42, 50, hint_src)[0]
     if not np.array_equal(img_f, img_f2):
         raise AssertionError("request F' (same as F) is not bit-identical")
     print(f"request F': bit-identical to F; F image mean {img_f.mean():.4f} std "
@@ -1571,7 +1842,7 @@ def main() -> int:
         raise AssertionError(f"int8 plan: want 50 convs per UNet call, 23 per ControlNet "
                              f"call, 3 in its hint pyramid and 31 in the decoder, got "
                              f"{per_unet}, {per_ctl}, {per_hint} and {per_decode}")
-    pipe8.action_inference(ref, h=512, w=512, ugscale=2.0, seed=0, steps=2)  # warm-up
+    eager_request(pipe8, ref, 0, 2)  # warm-up
 
     [img_d], stats_d = serve(pipe8, ref, 42, 50, "D")
     launches_d = stats_d["launches"]
@@ -1580,7 +1851,7 @@ def main() -> int:
             "flash_attention_pv8": 10 * 50, "flash_attention_int8": 0, "conv_int8": n_conv}
     if launches_d != want:
         raise AssertionError(f"request D: launches {launches_d}, want {want}")
-    img_d2 = pipe8.action_inference(ref, h=512, w=512, ugscale=2.0, seed=42, steps=50)[0]
+    img_d2 = eager_request(pipe8, ref, 42, 50)[0]
     if not np.array_equal(img_d, img_d2):
         raise AssertionError("request D' (same as D) is not bit-identical")
     print(f"request D': bit-identical to D; D image mean {img_d.mean():.4f} std "
@@ -1596,7 +1867,7 @@ def main() -> int:
         raise AssertionError(f"request E: launches {launches_e}, want K5 100 and K4 0")
 
     # request G: the int8 ControlNet path, F's hint
-    pipe8.action_inference(ref, hint_src, "canny", True, 512, 512, 2.0, 0, steps=2)  # warm-up
+    eager_request(pipe8, ref, 0, 2, hint_src)  # warm-up
     [img_g, hint_g], stats_g = serve(pipe8, ref, 42, 10, "G", hint_src)
     launches_g = stats_g["launches"]
     check_image(img_g, "G")
@@ -1652,7 +1923,7 @@ def main() -> int:
     b8 = {}
     for label, p in (("bf16", pipe), ("int8", pipe8)):
         p.n_sample_image = 8
-        p.action_inference(ref, h=512, w=512, ugscale=2.0, seed=0, steps=2)  # warm-up
+        eager_request(p, ref, 0, 2)  # warm-up
         _, st = serve(p, ref, 42, 10, f"{label} b8")
         p.n_sample_image = 1
         b8[label] = st["s_per_img"] / 8
@@ -1670,17 +1941,11 @@ def main() -> int:
     ph_h, ph_j = [(8, 2), (42, 21)], [(10, 2), (40, 20)]
     turbo_served = {}
 
-    def request(p, label, want, imctl=None, steps=50, **knobs):
-        """One request with the pipeline's turbo knobs set to ``knobs``; its
+    def request(p, label, want, imctl=None, steps=50, **kw):
+        """One request with the pipeline's turbo knobs set to ``kw``; its
         image(s) and stats; it must launch exactly ``want``."""
-        saved = {k: getattr(p, k) for k in knobs}
-        for k, v in knobs.items():
-            setattr(p, k, v)
-        try:
+        with knobs(p, **kw):
             out, st = serve(p, ref, 42, steps, label, imctl)
-        finally:
-            for k, v in saved.items():
-                setattr(p, k, v)
         for img in out[:p.n_sample_image]:
             check_image(img, label)
         if st["launches"] != want:
@@ -1762,26 +2027,32 @@ def main() -> int:
           f"{busy['reuse_kv2']:.3f}", flush=True)
 
     # 8 images of 50 steps per request: the exact sampler against the turbos
-    b8t = {}
+    b8t, b8_imgs = {}, {}
     for label, p, lpp, q in (("int8", pipe8, lp8, True), ("bf16", pipe, lp, False)):
         p.n_sample_image = 8
         for kv in (0, 2):  # warm-up: the turbos' batch-8 shapes
             p.phases, p.kv_pool = [(2, 2)], kv
-            p.action_inference(ref, h=512, w=512, ugscale=2.0, seed=0, steps=2)
+            eager_request(p, ref, 0, 2)
         p.phases, p.kv_pool = None, 0
         modes = {"exact": {}, "ph8x2_42x21": {"phases": ph_h}}
         if q:
             modes["ph8x2_42x21_kv2"] = {"phases": ph_h, "kv_pool": 2}
-        for mode, knobs in modes.items():
-            want = lpp.expected(quantized=q, attn8=q, kv=bool(knobs.get("kv_pool")),
-                                phases=knobs.get("phases"))
-            _, st = request(p, f"{label} b8 {mode}", want, **knobs)
+        for mode, kw in modes.items():
+            want = lpp.expected(quantized=q, attn8=q, kv=bool(kw.get("kv_pool")),
+                                phases=kw.get("phases"))
+            out, st = request(p, f"{label} b8 {mode}", want, **kw)
             b8t[f"{label}_{mode}"] = st["s_per_img"] / 8
+            b8_imgs[f"{label}_{mode}"] = out[0]
         p.n_sample_image = 1
     print(f"throughput b8 50 steps 512^2, s/img: {json.dumps(b8t)}; int8 exact / "
           f"ph8x2_42x21 {b8t['int8_exact'] / b8t['int8_ph8x2_42x21']:.3f}, / kv2 "
           f"{b8t['int8_exact'] / b8t['int8_ph8x2_42x21_kv2']:.3f}; bf16 exact / ph8x2_42x21 "
           f"{b8t['bf16_exact'] / b8t['bf16_ph8x2_42x21']:.3f}", flush=True)
+
+    # ---- 8c. the compiled hot path: one CUDA graph a bucket -------------------
+    eager_imgs = {"A": img_a, "D": img_d, "F": img_f, "G": img_g, "H": img_h, "I": img_i,
+                  "J": img_j, "int8 b8 ph8x2_42x21": b8_imgs["int8_ph8x2_42x21"]}
+    graph_served = compiled_hot_path(card, pipe, pipe8, ref, hint_src, lp, lp8, eager_imgs)
 
     # ---- 9. K3, K6 and K7b against their plain versions ----------------------
     # At B = 2 and at the labs' own shapes (LAB_BATCH / AUDIT_BATCH 16):
@@ -1814,7 +2085,10 @@ def main() -> int:
     # ---- 13. summary ---------------------------------------------------------
     served = {"A": launches, "D": launches_d, "E": launches_e, "F": launches_f,
               "G": launches_g, **{k: turbo_served[k] for k in ("H", "H_kv", "H_tome", "I", "J",
-                                                               "J0")}, **zoo_served}
+                                                               "J0")}, **graph_served,
+              **zoo_served}
+    # the main path's launches: the graphed requests F (bf16) and G (int8)
+    launches_f, launches_g = graph_served["graphed F"], graph_served["graphed G"]
 
     def summary(name, source, replaces, rows, n):
         main_row = rows[0]

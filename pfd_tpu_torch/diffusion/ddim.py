@@ -4,9 +4,17 @@ Uniform timestep subset, eta-sigmas, CFG batch-doubling, the img2img entry
 (x0 forward-noising), temperature and noise dropout (reference
 lib/model_zoo/ddim.py:10-299). ``pfd_tpu`` runs the steps as one
 ``lax.scan`` (its turbo groups as scans of ``lax.cond``); here they are
-eager loops over the same steps in the same order. Random draws come from
-the caller's ``torch.Generator``: torch cannot replay ``jax.random``, so
-the tests pass the start latent (and the img2img noise) in explicitly.
+eager loops over the same steps in the same order (``ops/graphs.py``
+captures a whole loop as one CUDA graph). Random draws come from the
+caller's ``torch.Generator``, or, for eta > 0, from ``eta_noise`` drawn
+ahead by :meth:`DDIMSampler.eta_noise` (a captured graph draws nothing):
+torch cannot replay ``jax.random``, so the tests pass the start latent
+(and the img2img noise) in explicitly.
+
+The guidance scale is a Python number or a 0-d fp32 tensor on the
+latent's device (an input of a captured graph, as ``pfd_tpu`` traces it);
+both give the same numbers bit for bit, since a number is rounded to fp32
+and ``scale - 1`` is taken in fp32, as ``pfd_tpu``'s traced scale is.
 
 Quirk kept (ddim.py:277-282, docs/PARITY.md quirk 1): with no unconditional
 conditioning, eps is multiplied by the guidance scale.
@@ -60,6 +68,17 @@ class DDIMSampler:
     def make_tables(self, steps, eta=0.0):
         return sched_lib.make_ddim_tables(self.model.schedule, steps, eta=eta)
 
+    def eta_noise(self, steps, eta, shape, generator=None, device=None):
+        """The draws ``sample_fn``'s loop makes over ``make_tables(steps,
+        eta)`` for latents of ``shape``: (n_steps, *shape) standard normals,
+        one a step in loop order, from ``generator``; None at eta = 0, where
+        the loop draws nothing."""
+        if eta <= 0:
+            return None
+        n = len(self.make_tables(steps, eta).timesteps)
+        return torch.stack([torch.randn(shape, generator=generator, device=device,
+                                        dtype=torch.float32) for _ in range(n)])
+
     def sample(self, shape, x_info, c_info, *, steps=50, eta=0.0, temperature=1.0,
                generator=None, device=None, x_type="image", c_type="image",
                self_attn_fn=None, **turbo):
@@ -96,14 +115,21 @@ class DDIMSampler:
     def sample_fn(self, x, c_info, tables, n_steps=None, *, generator=None,
                   temperature=1.0, noise_dropout=0.0, x_type="image", c_type="image",
                   self_attn_fn=None, encoder_interval=1, cfg_interval=1, deep_interval=1,
-                  cfg_extrapolate="const", phases=None, reuse_self_attn_fn=None):
+                  cfg_extrapolate="const", phases=None, reuse_self_attn_fn=None,
+                  eta_noise=None):
         """The DDIM loop over the first ``n_steps`` (default all) steps of
         ``tables``, last to first, in the mode the turbo arguments pick
-        (module docstring). Draws (eta > 0) come from ``generator``."""
+        (module docstring). Draws (eta > 0) come from ``generator``, or the
+        normal draws from ``eta_noise`` (:meth:`eta_noise`), row i at step i."""
         model = self.model
         cond = c_info["conditioning"]
         uncond = c_info.get("unconditional_conditioning")
-        scale = float(c_info.get("unconditional_guidance_scale", 1.0))
+        scale = c_info.get("unconditional_guidance_scale", 1.0)
+        if torch.is_tensor(scale):
+            scale_m1 = scale - 1.0
+        else:
+            scale, scale_m1 = float(np.float32(scale)), float(np.float32(scale) - np.float32(1))
+        draws = iter(eta_noise) if eta_noise is not None else None
         use_cfg = uncond is not None
         control = c_info.get("control")
         control_mask = c_info.get("control_mask")
@@ -155,8 +181,10 @@ class DDIMSampler:
             dir_coef = float(np.sqrt(np.maximum(np.float32(1.0) - a_prev - sigma ** 2, 0.0)))
             x_prev = float(np.sqrt(a_prev)) * pred_x0 + dir_coef * e_t
             if not no_eta_noise:
-                noise = float(sigma) * torch.randn(xf.shape, generator=generator,
-                                                   device=xf.device, dtype=torch.float32)
+                draw = (next(draws) if draws is not None else
+                        torch.randn(xf.shape, generator=generator, device=xf.device,
+                                    dtype=torch.float32))
+                noise = float(sigma) * draw
                 noise = noise * temperature
                 if noise_dropout > 0.0:  # on the eta-noise (ddim.py:167-168)
                     keep = torch.rand(xf.shape, generator=generator, device=xf.device
@@ -225,7 +253,7 @@ class DDIMSampler:
                 else:
                     e_c = model.apply_model({"type": x_type, "x": xt}, ts, ci_cond,
                                             self_attn_fn=r_attn)
-                return update(xt, row, e_c.float() + (scale - 1.0) * delta)
+                return update(xt, row, e_c.float() + scale_m1 * delta)
 
             # groups of k, then the n % k remainder as a trailing partial
             # group, so the key steps stay i % k == 0 (encoder propagation's)

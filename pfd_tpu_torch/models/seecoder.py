@@ -171,9 +171,26 @@ class PPEMLP(nn.Module):
             layers += [zero_init(lin) if i == mlp_layer - 1 else lin, nn.SiLU()]
             cin = out_channel
         self.mlp = nn.Sequential(*layers[:-1])
+        self._grids = {}
+
+    def grid(self, h, w, device):
+        """The sin/cos grid of an h x w map as an fp32 tensor on ``device``,
+        copied there once per (h, w, device): the first call runs eagerly (a
+        captured CUDA graph's warm-up run, ``ops/graphs.py``), and a capture
+        then copies nothing from the host."""
+        key = (h, w, str(device))
+        if key not in self._grids:
+            self._grids[key] = torch.as_tensor(self._grid_np(h, w), device=device)
+        return self._grids[key]
 
     def forward(self, h, w, policy: Policy):
         """-> (1, h*w, out_channel) for an h x w feature map."""
+        x = policy.cast(self.grid(h, w, self.mlp[0].weight.device))
+        for m in self.mlp:
+            x = F.linear(x, m) if isinstance(m, nn.Linear) else F.silu(x)
+        return x.reshape(1, h * w, -1)
+
+    def _grid_np(self, h, w):
         minlen = min(h, w)
         dim_t = (minlen / 2) ** np.linspace(0, 1, self.freq_num)
         hs = (np.arange(h) + 0.5 - h / 2) / minlen * (2 * math.pi)
@@ -181,12 +198,8 @@ class PPEMLP(nn.Module):
         h_embed, w_embed = np.meshgrid(hs, ws, indexing="ij")
         pos_h = h_embed[:, :, None] * dim_t
         pos_w = w_embed[:, :, None] * dim_t
-        pos = np.concatenate([np.sin(pos_h), np.cos(pos_h), np.sin(pos_w),
-                              np.cos(pos_w)], axis=-1).astype(np.float32)
-        x = policy.cast(torch.as_tensor(pos, device=self.mlp[0].weight.device))
-        for m in self.mlp:
-            x = F.linear(x, m) if isinstance(m, nn.Linear) else F.silu(x)
-        return x.reshape(1, h * w, -1)
+        return np.concatenate([np.sin(pos_h), np.cos(pos_h), np.sin(pos_w),
+                               np.cos(pos_w)], axis=-1).astype(np.float32)
 
 
 @registry.register("seecoder_query_transformer")

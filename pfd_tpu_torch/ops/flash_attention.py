@@ -557,14 +557,6 @@ flash_attention_pv8.launches = 0
 flash_attention_int8.launches = 0
 
 
-def reset_launch_counts():
-    flash_attention.launches = 0
-    flash_attention_pipe.launches = 0
-    cross_attention.launches = 0
-    flash_attention_pv8.launches = 0
-    flash_attention_int8.launches = 0
-
-
 def launches():
     """The serving path's launch counters: the attention kernels' and
     ``conv_int8``'s (each wrapper counts its own launches)."""

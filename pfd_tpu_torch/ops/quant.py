@@ -21,7 +21,7 @@ The nearest-2x upsample convs (marked with :func:`mark_upsample`) run in
 codes are dequantized, turned into the (4*cout, cin, 2, 2) phase kernel and
 re-quantized per output channel. That requantized kernel is computed here,
 once, into the non-persistent buffers ``phase_q`` / ``phase_scale``, and
-again whenever a state_dict is loaded into the conv.
+again, in place, whenever a state_dict is loaded into the conv.
 
 Rounding is half-to-even (``torch.round``, as ``jnp.round``) and the scaled
 value is formed by a division, as in ``pfd_tpu``, so the codes are
@@ -106,11 +106,21 @@ def phase_kernel(w):
 
 def _refresh_phase(m, *_):
     """(Re)build an upsample conv's requantized phase kernel from its codes:
-    dequantize, phase-decompose, quantize per output channel."""
+    dequantize, phase-decompose, quantize per output channel. Where the
+    buffers exist they are refreshed in place, as ``load_state_dict`` updates
+    every parameter: a captured CUDA graph (``ops/graphs.py``) keeps reading
+    their addresses."""
     w = m.weight_q.float() * m.weight_scale.float()[:, None, None, None]
     pq, ps = quantize_weight(phase_kernel(w))
-    m.register_buffer("phase_q", pq.contiguous(memory_format=torch.channels_last),
-                      persistent=False)
+    pq = pq.contiguous(memory_format=torch.channels_last)
+    old_q, old_s = m._buffers.get("phase_q"), m._buffers.get("phase_scale")
+    if (old_q is not None and old_s is not None and old_q.shape == pq.shape
+            and old_s.shape == ps.shape and old_q.dtype == pq.dtype
+            and old_s.dtype == ps.dtype):
+        old_q.copy_(pq)
+        old_s.copy_(ps)
+        return
+    m.register_buffer("phase_q", pq, persistent=False)
     m.register_buffer("phase_scale", ps, persistent=False)
 
 

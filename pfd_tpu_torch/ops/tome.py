@@ -42,6 +42,15 @@ def _partition(h, w, sx, sy, ox, oy):
     return np.flatnonzero(~dst_mask), np.flatnonzero(dst_mask)
 
 
+@functools.lru_cache(maxsize=32)
+def _partition_indices(h, w, sx, sy, ox, oy, device):
+    """``_partition``'s src and dst indices as long tensors on ``device``,
+    copied there once: the first call of a grid runs eagerly (a captured
+    CUDA graph's warm-up run, ``ops/graphs.py``), and a capture then copies
+    nothing from the host."""
+    return tuple(torch.as_tensor(a, device=device) for a in _partition(h, w, sx, sy, ox, oy))
+
+
 def _in_dtype(value, dtype):
     """A Python scalar rounded to ``dtype``, as JAX rounds a weakly typed
     scalar to the array's dtype before it multiplies."""
@@ -59,11 +68,9 @@ def compute_merge(metric, h, w, r, *, sx=2, sy=2, ox=0, oy=0):
     b, s, _ = metric.shape
     if s != h * w:
         raise ValueError(f"metric has {s} tokens, the grid {h}x{w}")
-    src_np, dst_np = _partition(h, w, sx, sy, ox, oy)
     dev = metric.device
-    src_idx = torch.as_tensor(src_np, device=dev)
-    dst_idx = torch.as_tensor(dst_np, device=dev)
-    n_dst, n_src = len(dst_np), len(src_np)
+    src_idx, dst_idx = _partition_indices(h, w, sx, sy, ox, oy, dev)
+    n_dst, n_src = len(dst_idx), len(src_idx)
     r = min(r, n_src)
 
     m = metric.float()

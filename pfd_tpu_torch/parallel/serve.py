@@ -6,7 +6,14 @@ the weights; its servers use no other axis. The port takes a list of
 devices in its place (by default the one card): with one device the whole
 batch runs on it; with more, each device holds a replica of the model and
 runs its share of the batch. SeeCoder encode, the CFG DDIM loop and the VAE
-decode run eagerly on each share, through the model's kernels.
+decode of each share run through the model's kernels as one captured CUDA
+graph a bucket (``ops/graphs.py``; ``pfd_tpu``'s one jitted program per
+(h, w, batch, has_control), serve.py:58-109): the start latents, the
+references, the hints and the guidance scale are its inputs. ``warmup``
+captures the buckets ahead of the first requests (for references of the
+bucket's size; another reference size is captured at its first request).
+Each replica device has its own memory pool. ``_sample_body`` is the eager
+body the graphs are held to. On the CPU the buckets run eagerly.
 """
 
 from __future__ import annotations
@@ -16,7 +23,7 @@ import copy
 import torch
 
 from pfd_tpu_torch.diffusion.ddim import DDIMSampler
-from pfd_tpu_torch.ops import cuda_build, flash_attention
+from pfd_tpu_torch.ops import graphs
 
 
 def nchw(a, device):
@@ -27,8 +34,10 @@ def nchw(a, device):
 class _BatchServer:
     """What both servers share: the devices and a replica of the model on
     each (the first is ``model`` itself, moved to the first device), the
-    sampler's knobs with the exact-control guard, and the body that turns a
-    batch into images."""
+    sampler's knobs with the exact-control guard, the body that turns a
+    batch into images, and its captured graphs, one memory pool a device.
+    The knobs are read when a bucket is captured: set them before the first
+    request."""
 
     def __init__(self, model, devices=None, *, steps=50, eta=0.0, self_attn_fn=None,
                  encoder_interval=1, cfg_interval=1, deep_interval=1, control_turbo=False,
@@ -49,6 +58,8 @@ class _BatchServer:
         # control requests sample exactly unless explicitly opted in, as in
         # the pipeline (control_turbo)
         self.control_turbo = control_turbo
+        self._pools = [graphs.GraphPool(d) for d in self.devices]
+        self._cache = {}
 
     @property
     def dp(self):
@@ -62,11 +73,31 @@ class _BatchServer:
             return 1, 1, 1, None
         return self.encoder_interval, self.cfg_interval, self.deep_interval, self.phases
 
+    def _graphs(self, key, body):
+        """The bucket ``key``'s program: one ``graphs.Graphed`` a replica,
+        ``body(model)`` its function."""
+        if key not in self._cache:
+            self._cache[key] = [graphs.Graphed(body(m), pool)
+                                for m, pool in zip(self.replicas, self._pools)]
+        return self._cache[key]
+
+    def _hw(self, x):
+        """The image size (h, w) of start latents ``x``."""
+        f = self.model.vae["image"].downsample_factor
+        return x.shape[2] * f, x.shape[3] * f
+
+    def _eta_noise(self, x, seed):
+        """The loop's draws at eta > 0 for start latents ``x`` (None at eta
+        = 0), from a generator on x's device seeded with ``seed``."""
+        gen = torch.Generator(device=x.device).manual_seed(seed)
+        return DDIMSampler(self.model).eta_noise(self.steps, self.eta, x.shape, gen, x.device)
+
     @torch.no_grad()
-    def _images(self, model, x, refs, hints, mask, scale, generator=None):
+    def _images(self, model, x, refs, hints, mask, scale, eta_noise=None):
         """SeeCoder encode -> CFG DDIM from the NCHW start latent ``x`` ->
         VAE decode, on ``model``'s device: NCHW images in [0, 1]. ``hints``
-        (NCHW) run the ControlNet, gated per request by ``mask`` (B,)."""
+        (NCHW) run the ControlNet, gated per request by ``mask`` (B,); for
+        eta > 0, ``eta_noise`` holds the loop's draws."""
         c = model.ctx_encode(refs, "image")
         ci = {"conditioning": c, "unconditional_conditioning": torch.zeros_like(c),
               "unconditional_guidance_scale": scale}
@@ -77,7 +108,7 @@ class _BatchServer:
         enc, cfg, deep, ph = self._intervals(hints is not None)
         sampler = DDIMSampler(model)
         x, _ = sampler.sample_fn(
-            x, ci, sampler.make_tables(self.steps, self.eta), generator=generator,
+            x, ci, sampler.make_tables(self.steps, self.eta), eta_noise=eta_noise,
             self_attn_fn=self.self_attn_fn, encoder_interval=enc, cfg_interval=cfg,
             deep_interval=deep, cfg_extrapolate=self.cfg_extrapolate, phases=ph)
         return model.vae_decode(x, "image")
@@ -90,10 +121,20 @@ class DataParallelServer(_BatchServer):
     tokens) and optionally its own control hint; the checkpoints are shared.
     Per-request checkpoints are :class:`pfd_tpu_torch.parallel.zoo_serve.ZooServer`'s."""
 
-    def _sample_body(self, refs, hints, x, scale, model=None, generator=None):
+    def _sample_body(self, refs, hints, x, scale, model=None, eta_noise=None):
         """NCHW refs, hints (or None) and start latent ``x`` on ``model``'s
         device (by default the first replica) -> NCHW images in [0, 1]."""
-        return self._images(model or self.model, x, refs, hints, None, scale, generator)
+        return self._images(model or self.model, x, refs, hints, None, scale, eta_noise)
+
+    def _fn(self, h, w, batch, has_control):
+        """The (h, w, batch, has_control) bucket: one ``graphs.Graphed`` a
+        replica of ``_sample_body`` on its share, taking (refs, hints, x,
+        scale, eta_noise)."""
+        def body(model):
+            return lambda refs, hints, x, scale, eta_noise: self._sample_body(
+                refs, hints, x, scale, model, eta_noise)
+
+        return self._graphs((h, w, batch, has_control), body)
 
     def generate(self, refs, hints=None, *, h=512, w=512, ugscale=2.0, seed=0):
         """refs: (B, H, W, 3) reference images in [0, 1], B divisible by the
@@ -108,20 +149,29 @@ class DataParallelServer(_BatchServer):
         x = torch.randn((b, vae.embed_dim, h // f, w // f), device=dev,
                         generator=torch.Generator(device=dev).manual_seed(seed))
         share = b // self.dp
+        fns = self._fn(h, w, b, hints is not None)
         out = []
-        for i, (model, d) in enumerate(zip(self.replicas, self.devices)):
+        for i, (fn, d) in enumerate(zip(fns, self.devices)):
             rows = slice(i * share, (i + 1) * share)
-            eta_gen = torch.Generator(device=d).manual_seed(seed + 1 + i)  # eta > 0 only
-            out.append(self._sample_body(
-                nchw(refs[rows], d), None if hints is None else nchw(hints[rows], d),
-                x[rows].to(d), float(ugscale), model, eta_gen).to(dev))
+            xi = x[rows].to(d)
+            out.append(fn(nchw(refs[rows], d), None if hints is None else nchw(hints[rows], d),
+                          xi, float(ugscale), self._eta_noise(xi, seed + 1 + i)).to(dev))
         return torch.cat(out).permute(0, 2, 3, 1)
 
     def warmup(self, buckets, batch, has_control=False):
-        """Build the serving path's kernels (on a CUDA device; nothing to
-        build on the CPU), so that first requests do not pay for it, and
-        return the (h, w) buckets as (h, w, batch, has_control). The port
-        runs eagerly: there is no program per bucket to compile ahead."""
-        if any(d.type == "cuda" for d in self.devices):
-            cuda_build.build(tuple(flash_attention.launches()))
-        return [(h, w, batch, has_control) for h, w in buckets]
+        """Capture the (h, w) buckets at ``batch`` ahead of the first
+        requests, for references of the bucket's size (``pfd_tpu``
+        serve.py:111-115); on the CPU nothing runs. Returns every bucket
+        key, (h, w, batch, has_control)."""
+        share = batch // self.dp
+        vae = self.model.vae["image"]
+        f = vae.downsample_factor
+        for h, w in buckets:
+            for fn, pool in zip(self._fn(h, w, batch, has_control), self._pools):
+                if not pool.on_card:
+                    continue
+                d = pool.device
+                img = torch.zeros((share, 3, h, w), device=d)
+                x = torch.zeros((share, vae.embed_dim, h // f, w // f), device=d)
+                fn.capture(img, img if has_control else None, x, 1.0, self._eta_noise(x, 0))
+        return list(self._cache)

@@ -21,6 +21,12 @@ Two execution modes, as in ``pfd_tpu``:
 Per-request control: a hint batch (B, h, w, 3) and a (B,) 0/1
 ``control_on``; a request with 0 gets the no-hint result exactly (its 13
 ControlNet residuals are multiplied by 0, ``models/pfd.py``).
+
+Each mode's (h, w, batch, has_control) bucket is one captured CUDA graph
+(``ops/graphs.py``; ``pfd_tpu``'s ``_sharded_fn`` / ``_group_fn``,
+zoo_serve.py:123-167) of ``_sample_body``, with the start latents, the
+references, the hints, the control mask and the guidance scale as inputs.
+A swap loads in place, so one graph serves every tag.
 """
 
 from __future__ import annotations
@@ -90,11 +96,25 @@ class ZooServer(_BatchServer):
             model.ctx.load_state_dict(
                 self.base_ctx if ctx_tag is None else self.ctx_zoo[ctx_tag], strict=True)
 
-    def _sample_body(self, x, refs, hints, mask, scale, model=None):
+    def _sample_body(self, x, refs, hints, mask, scale, model=None, eta_noise=None):
         """NCHW start latents, refs and hints (or None) with their (B,)
         control mask, on ``model``'s device (by default the first replica)
         -> NCHW images in [0, 1], with the checkpoints ``model`` holds."""
-        return self._images(model or self.model, x, refs, hints, mask, scale)
+        return self._images(model or self.model, x, refs, hints, mask, scale, eta_noise)
+
+    def _body(self, model):
+        """``_sample_body`` on ``model``, taking (x, refs, hints, mask, scale,
+        eta_noise): a bucket's function."""
+        return lambda x, refs, hints, mask, scale, eta_noise: self._sample_body(
+            x, refs, hints, mask, scale, model, eta_noise)
+
+    def _sharded_fn(self, h, w, batch, has_control):
+        """One request a device: a ``graphs.Graphed`` a replica at batch 1."""
+        return self._graphs(("sharded", h, w, batch, has_control), self._body)
+
+    def _group_fn(self, h, w, batch, has_control):
+        """A group of ``batch`` requests on the first device."""
+        return self._graphs(("group", h, w, batch, has_control), self._body)[0]
 
     def generate(self, refs, diffuser_tags, ctx_tags=None, hints=None, control_on=None, *,
                  h=512, w=512, ugscale=2.0, seed=0):
@@ -116,22 +136,25 @@ class ZooServer(_BatchServer):
         refs = nchw(refs, dev)
         hints = nchw(hints, dev) if has_control else None
         run = self._generate_sharded if b == self.dp else self._generate_grouped
-        out = run(x, refs, diffuser_tags, ctx_tags, hints, mask, float(ugscale))
+        out = run(x, refs, diffuser_tags, ctx_tags, hints, mask, float(ugscale), seed=seed)
         return out.permute(0, 2, 3, 1)
 
-    def _generate_sharded(self, x, refs, diffuser_tags, ctx_tags, hints, mask, scale):
+    def _generate_sharded(self, x, refs, diffuser_tags, ctx_tags, hints, mask, scale, seed=0):
         """One request and its checkpoints on each device."""
+        h, w = self._hw(x)
+        fns = self._sharded_fn(h, w, len(refs), hints is not None)
         out = []
-        for i, (model, d) in enumerate(zip(self.replicas, self.devices)):
+        for i, (model, fn, d) in enumerate(zip(self.replicas, fns, self.devices)):
             self._swap(model, diffuser_tags[i], ctx_tags[i])
             row = slice(i, i + 1)
-            out.append(self._sample_body(
-                x[row].to(d), refs[row].to(d), None if hints is None else hints[row].to(d),
-                None if hints is None else torch.as_tensor(mask[row], device=d),
-                scale, model).to(self.devices[0]))
+            xi = x[row].to(d)
+            out.append(fn(xi, refs[row].to(d), None if hints is None else hints[row].to(d),
+                          None if hints is None else torch.as_tensor(mask[row], device=d),
+                          scale, self._eta_noise(xi, request_seed(seed, len(refs) + i))
+                          ).to(self.devices[0]))
         return torch.cat(out)
 
-    def _generate_grouped(self, x, refs, diffuser_tags, ctx_tags, hints, mask, scale):
+    def _generate_grouped(self, x, refs, diffuser_tags, ctx_tags, hints, mask, scale, seed=0):
         """Group the requests by (diffuser, ctx) tag, in ``str`` order of
         the tags, and run each group on the first device with its
         checkpoints loaded; a group takes the ControlNet when any of its
@@ -139,13 +162,15 @@ class ZooServer(_BatchServer):
         groups = {}
         for i, key in enumerate(zip(diffuser_tags, ctx_tags)):
             groups.setdefault(key, []).append(i)
+        h, w = self._hw(x)
         out = [None] * len(refs)
-        for (dt, ct), idx in sorted(groups.items(), key=lambda kv: str(kv[0])):
+        for gi, ((dt, ct), idx) in enumerate(sorted(groups.items(), key=lambda kv: str(kv[0]))):
             self._swap(self.model, dt, ct)
             g_has_ctl = hints is not None and bool(mask[idx].any())
-            imgs = self._sample_body(
-                x[idx], refs[idx], hints[idx] if g_has_ctl else None,
-                torch.as_tensor(mask[idx], device=x.device) if g_has_ctl else None, scale)
+            fn = self._group_fn(h, w, len(idx), g_has_ctl)
+            imgs = fn(x[idx], refs[idx], hints[idx] if g_has_ctl else None,
+                      torch.as_tensor(mask[idx], device=x.device) if g_has_ctl else None, scale,
+                      self._eta_noise(x[idx], request_seed(seed, len(refs) + gi)))
             for j, i in enumerate(idx):
                 out[i] = imgs[j]
         return torch.stack(out)

@@ -51,6 +51,23 @@ anime SeeCoder's requests take ``assets/anime_ug.pth`` as their negative
 context. ``ctl_method="none"`` with a hint image raises, as in ``pfd_tpu``.
 The annotator networks (HED, MiDaS, ...) are not ported yet; their
 ``ctl_method`` values raise.
+
+The compiled hot path (``pfd_tpu``'s ``_sample_decode_fn``, ``warmup`` and
+``_ctx_encode_jit``, pipeline.py:210-280): on the card each
+``(h, w, batch, has_control, steps, eta)`` bucket is one captured CUDA graph
+(``ops/graphs.py``) of ``sample_decode`` (the CFG DDIM loop in the
+pipeline's turbo mode, then the VAE decode), with ``c``, ``u``, the start
+latent ``x``, the guidance scale, the hint images and, for eta > 0, the
+per-step noise as its inputs; SeeCoder is one graph per reference shape.
+``warmup`` captures buckets ahead of the first request; otherwise a bucket
+is captured at its first request. A request then copies its inputs into the
+graph, replays it and clones the image out. The graphs share one memory
+pool. The knobs a graph bakes in (``self_attn_fn`` and the turbo knobs)
+are watched: a request after any of them changed captures its bucket
+anew. A checkpoint swap loads in place and keeps every graph valid, except
+a SeeCoder-PA change, which rebuilds the context encoder and drops the
+SeeCoder graphs. ``sample_decode`` and ``encode_context`` are the eager
+bodies the graphs are held to. On the CPU the buckets run eagerly.
 """
 
 from __future__ import annotations
@@ -65,6 +82,7 @@ from pfd_tpu_torch import annotators, config, zoo
 from pfd_tpu_torch.diffusion.ddim import DDIMSampler
 from pfd_tpu_torch.io import loader
 from pfd_tpu_torch.models.build import build_model
+from pfd_tpu_torch.ops import graphs
 from pfd_tpu_torch.ops import nn as ops_nn
 from pfd_tpu_torch.ops import quant
 from pfd_tpu_torch.ops.kvpool import make_kvpool_attn
@@ -124,6 +142,10 @@ class PromptFreeDiffusionPipeline:
                 if part is not None:  # no ControlNet under with_control=False
                     quant.quantize_params(part)
         self.sampler = DDIMSampler(self.net)
+        # the compiled hot path (module docstring): one pool for every graph
+        self._pool = graphs.GraphPool(self.device)
+        self._graphs, self._graph_knobs = {}, None
+        self._ctx_graph = self._new_ctx_graph()
         self.tag_ctx = self.tag_diffuser = self.tag_ctl = None
         self.action_load_ctx(tag_ctx)
         self.action_load_diffuser(tag_diffuser)
@@ -143,13 +165,15 @@ class PromptFreeDiffusionPipeline:
     def action_load_ctx(self, tag):
         """Swap the SeeCoder. The PA variant carries a PPE-MLP, so the
         context encoder is rebuilt (with fresh seeded weights) when PA-ness
-        changes, as ``pfd_tpu`` rebuilds its net (pipeline.py:137-157); a
-        missing checkpoint file keeps the weights and only sets the tag."""
+        changes, as ``pfd_tpu`` rebuilds its net (pipeline.py:137-157), and
+        its graphs are dropped; a missing checkpoint file keeps the weights
+        and only sets the tag."""
         pa = tag == "SeeCoder-PA"
         if pa != (self.net.ctx["image"].qtransformer.pe_layer is not None):
             _set_pa(self._ctx_cfg, pa)
             self.net.ctx["image"] = build_model(self._ctx_cfg, policy=self.policy,
                                                 device=self.device, generator=self._generator())
+            self._ctx_graph = self._new_ctx_graph()
         path = zoo.resolve(zoo.CTXENCODER_PATH.get(tag), self.root)
         if _exists(path):
             self._load(self.net.ctx, loader.ctx_sd_to_params(loader.load_sd_file(path)))
@@ -240,24 +264,116 @@ class PromptFreeDiffusionPipeline:
         return kw
 
     @torch.no_grad()
-    def sample_decode(self, c, u, x, ugscale, steps, control=None):
+    def sample_decode(self, c, u, x, ugscale, steps, control=None, eta_noise=None):
         """CFG DDIM from the NCHW start latent ``x`` with context ``c``,
-        unconditional context ``u`` and, if given, the NCHW hint images
-        ``control`` (one per latent), in the pipeline's turbo mode, then the
-        VAE decode -> NCHW in [0, 1]."""
+        unconditional context ``u``, guidance scale ``ugscale`` (a number or
+        a 0-d fp32 tensor) and, if given, the NCHW hint images ``control``
+        (one per latent), in the pipeline's turbo mode, then the VAE decode
+        -> NCHW in [0, 1]. For eta > 0, ``eta_noise`` holds the loop's draws
+        (``start_latent``); without it they come from torch's generator."""
         tables = self.sampler.make_tables(steps, self.ddim_eta)
         c_info = {"conditioning": c, "unconditional_conditioning": u,
                   "unconditional_guidance_scale": ugscale}
         if control is not None:
             c_info["control"] = control
-        x, _ = self.sampler.sample_fn(x, c_info, tables,
+        x, _ = self.sampler.sample_fn(x, c_info, tables, eta_noise=eta_noise,
                                       **self.sampler_args(tuple(x.shape[2:]), control is not None))
         return self.net.vae_decode(x, "image")
 
+    def _knobs(self):
+        """What a bucket's graph bakes in besides its key."""
+        return (self.self_attn_fn, self.tome_ratio, self.encoder_interval, self.cfg_interval,
+                self.deep_interval, self.cfg_extrapolate,
+                None if self.phases is None else tuple(map(tuple, self.phases)),
+                self.kv_pool, self.kv_min_s, self.control_turbo)
+
+    def _sample_decode_fn(self, h, w, batch, has_control, steps, eta):
+        """The bucket's program (``pfd_tpu`` pipeline.py:210-266): a
+        ``graphs.Graphed`` of ``sample_decode`` taking (c, u, x, scale,
+        control, eta_noise). Every bucket is dropped when a knob it bakes in
+        has changed since the buckets were made."""
+        knobs = self._knobs()
+        if knobs != self._graph_knobs:
+            self._graphs.clear()
+            self._graph_knobs = knobs
+        key = (h, w, batch, has_control, steps, eta)
+        if key not in self._graphs:
+            def fn(c, u, x, scale, control, eta_noise):
+                return self.sample_decode(c, u, x, scale, steps, control, eta_noise)
+
+            self._graphs[key] = graphs.Graphed(fn, self._pool)
+        return self._graphs[key]
+
+    def _new_ctx_graph(self):
+        """SeeCoder as a ``graphs.Graphed``, one graph per reference shape
+        (``pfd_tpu``'s ``_ctx_encode_jit``, pipeline.py:269-271)."""
+        return graphs.Graphed(lambda x: self.net.ctx_encode(x, "image"), self._pool)
+
+    def warmup(self, sizes=((512, 512),), batch=1, with_control=True, steps=None):
+        """Capture the (h, w) buckets of ``sizes`` (the app's 64-multiple
+        grid, app.py:197-207) ahead of the first requests (``pfd_tpu``
+        pipeline.py:273-280), and SeeCoder for an (h, w) reference; on the
+        CPU nothing runs. Returns the sorted bucket keys."""
+        steps = steps or self.ddim_steps
+        vae = self.net.vae["image"]
+        f, dev = vae.downsample_factor, self.device
+        for h, w in sizes:
+            fn = self._sample_decode_fn(h, w, batch, with_control, steps, self.ddim_eta)
+            if not self._pool.on_card:
+                continue
+            c = self._ctx_graph(self.reference(np.zeros((h, w, 3), np.float32)))
+            c = c.repeat(batch, 1, 1)
+            x = torch.zeros((batch, vae.embed_dim, h // f, w // f), device=dev)
+            control = torch.zeros((batch, 3, h, w), device=dev) if with_control else None
+            noise = self.sampler.eta_noise(steps, self.ddim_eta, x.shape, device=dev)
+            fn.capture(c, torch.zeros_like(c), x, 1.0, control, noise)
+        return sorted(self._graphs)
+
     @torch.no_grad()
     def encode_context(self, im):
-        craw = torch.as_tensor(_to_array(im), device=self.device)
-        return self.net.ctx_encode(craw.permute(2, 0, 1)[None], "image")
+        """SeeCoder on one reference image (eager) -> (1, 148, 768)."""
+        return self.net.ctx_encode(self.reference(im), "image")
+
+    def reference(self, im):
+        """A reference image -> the (1, 3, H, W) fp32 tensor SeeCoder takes."""
+        return torch.as_tensor(_to_array(im), device=self.device).permute(2, 0, 1)[None]
+
+    def hint_batch(self, imctl, ctl_method, do_preprocess, h, w):
+        """A request's hint image -> (the NCHW hints of the batch on the
+        device, the n (h, w, 3) hints), resized to (h, w) and preprocessed
+        by ``ctl_method``; (None, None) without a hint image or ControlNet
+        tag. A method that preprocesses the hint to nothing ("none") raises
+        ``ValueError``, as ``pfd_tpu`` raises on it."""
+        if self.tag_ctl == "none" or imctl is None:
+            return None, None
+        a = _to_array(imctl)
+        if a.shape[:2] != (h, w):
+            a = annotators.resize_image(a, (h, w), method="bicubic")
+        if do_preprocess:
+            a = annotators.preprocess(a, method=ctl_method, size=(h, w))
+            if a is None:
+                raise ValueError(f"ctl_method {ctl_method!r} preprocesses the hint image "
+                                 "to nothing: send no hint image, or choose another method")
+        hints = np.repeat(np.asarray(a, np.float32)[None], self.n_sample_image, 0)
+        return torch.as_tensor(hints.transpose(0, 3, 1, 2).copy(), device=self.device), hints
+
+    def start_latent(self, seed, h, w, steps):
+        """The request's start latent (n, C, h/f, w/f) from its seed, and
+        for eta > 0 the loop's draws after it from the same generator
+        (``DDIMSampler.eta_noise``; None at eta = 0)."""
+        vae = self.net.vae["image"]
+        f = vae.downsample_factor
+        gen = torch.Generator(device=self.device).manual_seed(seed if seed >= 0 else -seed + 100)
+        x = torch.randn((self.n_sample_image, vae.embed_dim, h // f, w // f), generator=gen,
+                        device=self.device, dtype=torch.float32)
+        return x, self.sampler.eta_noise(steps, self.ddim_eta, x.shape, gen, self.device)
+
+    @staticmethod
+    def images_out(imgs, hints):
+        """NCHW images (and the n hints or None) -> the list a request
+        returns: n (h, w, 3) float32 images, then the hints."""
+        out = [img.permute(1, 2, 0).float().cpu().numpy() for img in imgs]
+        return out + ([] if hints is None else list(hints))
 
     @torch.no_grad()
     def action_inference(self, im, imctl=None, ctl_method="canny",
@@ -266,9 +382,8 @@ class PromptFreeDiffusionPipeline:
                          anime_ug_path=None):
         """Reference image (and hint image ``imctl``) -> list of n (h, w, 3)
         float32 images in [0, 1], followed by the n hints the ControlNet
-        took when there was one (pipeline.py:305-343). A hint image that
-        ``ctl_method`` preprocesses to nothing ("none") raises
-        ``ValueError``, as ``pfd_tpu`` raises on it."""
+        took when there was one (pipeline.py:305-343): SeeCoder's graph,
+        then the bucket's (module docstring)."""
         if tag_ctx and tag_ctx != self.tag_ctx:
             self.action_load_ctx(tag_ctx)
         if tag_diffuser and tag_diffuser != self.tag_diffuser:
@@ -279,31 +394,12 @@ class PromptFreeDiffusionPipeline:
         n = self.n_sample_image
         h, w = h // 64 * 64, w // 64 * 64
 
-        c = self.encode_context(im).repeat(n, 1, 1)
+        c = self._ctx_graph(self.reference(im)).repeat(n, 1, 1)
         u = self.negative_context(c, anime_ug_path)
-        hints = None
-        if self.tag_ctl != "none" and imctl is not None:
-            a = _to_array(imctl)
-            if a.shape[:2] != (h, w):
-                a = annotators.resize_image(a, (h, w), method="bicubic")
-            if do_preprocess:
-                a = annotators.preprocess(a, method=ctl_method, size=(h, w))
-                if a is None:
-                    raise ValueError(f"ctl_method {ctl_method!r} preprocesses the hint image "
-                                     "to nothing: send no hint image, or choose another method")
-            hints = np.repeat(np.asarray(a, np.float32)[None], n, 0)
-        control = None
-        if hints is not None:
-            control = torch.as_tensor(hints.transpose(0, 3, 1, 2).copy(), device=self.device)
-        vae = self.net.vae["image"]
-        f = vae.downsample_factor
-        gen = torch.Generator(device=self.device).manual_seed(
-            seed if seed >= 0 else -seed + 100)
-        x = torch.randn((n, vae.embed_dim, h // f, w // f), generator=gen,
-                        device=self.device, dtype=torch.float32)
-        imgs = self.sample_decode(c, u, x, float(ugscale), steps, control)
-        out = [img.permute(1, 2, 0).float().cpu().numpy() for img in imgs]
-        return out + ([] if hints is None else list(hints))
+        control, hints = self.hint_batch(imctl, ctl_method, do_preprocess, h, w)
+        x, eta_noise = self.start_latent(seed, h, w, steps)
+        fn = self._sample_decode_fn(h, w, n, control is not None, steps, self.ddim_eta)
+        return self.images_out(fn(c, u, x, float(ugscale), control, eta_noise), hints)
 
 
 def _exists(path):

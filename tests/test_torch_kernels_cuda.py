@@ -721,3 +721,101 @@ def test_int8_swap_on_the_card_runs_the_new_codes(monkeypatch):
     want = (tnn.conv2d(x, model["conv"], padding=1), tnn.upsample_conv2d(x, up))
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _graph_pipe(mode):
+    """A tiny bf16 pipeline on the card (``_TINY_PFD``, 128^2: S = 1,024 at
+    the UNet's first level and in the VAE's mid-block), de-zeroed: K1 and K2
+    (bf16) or K4, K2 and ``conv_int8`` (int8) on its path."""
+    import numpy as np
+    from pfd_tpu_torch.models.build import dezero_
+    from pfd_tpu_torch.pipeline import PromptFreeDiffusionPipeline
+
+    q = mode == "int8"
+    pipe = PromptFreeDiffusionPipeline(
+        fp16=True, config_override=_TINY_PFD, device="cuda", quantized=q,
+        self_attn_fn=fa.self_attn_fn_int8 if q else fa.self_attn_fn)
+    dezero_(pipe.net, torch.Generator(device="cuda").manual_seed(1))
+    pipe.ddim_eta = 0.5 if mode == "bf16_eta" else 0.0
+    return pipe, np.random.default_rng(0).random((64, 64, 3), dtype=np.float32)
+
+
+def _eager_request(pipe, ref, seed, ugscale=2.0):
+    """``action_inference``'s request with the eager bodies
+    (``encode_context``, ``sample_decode``)."""
+    c = pipe.encode_context(ref)
+    x, noise = pipe.start_latent(seed, 128, 128, 4)
+    return pipe.images_out(pipe.sample_decode(c, pipe.negative_context(c), x, ugscale, 4,
+                                              eta_noise=noise), None)[0]
+
+
+def _swap_diffuser(pipe, seed):
+    """Load another float diffuser into ``pipe`` in place (quantized again in
+    the int8 mode), as a checkpoint swap does."""
+    from pfd_tpu_torch.models.build import build_model
+
+    other = build_model(_TINY_PFD, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(seed))
+    pipe._load(pipe.net.diffuser, other.diffuser.state_dict())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "int8", "bf16_eta"])
+def test_graph_replay_equals_eager(mode):
+    """``warmup`` captures the bucket; then each request replays it: equal
+    to the eager request bit for bit, at a second guidance scale through the
+    same graph too, and after a diffuser swap (in the int8 mode the codes
+    and the upsample phase kernels refreshed in place); N replays add N x
+    the captured launches, which are the eager request's launches."""
+    import numpy as np
+    from pfd_tpu_torch.ops import graphs
+
+    _need_cuda()
+    pipe, ref = _graph_pipe(mode)
+    keys = pipe.warmup(sizes=((128, 128),), with_control=False, steps=4)
+    assert keys == [(128, 128, 1, False, 4, pipe.ddim_eta)]
+    fn = pipe._graphs[keys[0]]
+    (stats,) = fn.stats
+    assert stats["nodes"] > 0 and stats["pool_gb"] >= 0
+    before = graphs.launch_counts()
+    want = _eager_request(pipe, ref, 1)
+    torch.cuda.synchronize()
+    eager = {k: v - before[k] for k, v in graphs.launch_counts().items()}
+    assert {k: v for k, v in eager.items() if v} == stats["launches"]
+    kernels = ({"flash_attention_pv8", "cross_attention", "conv_int8"} if mode == "int8"
+               else {"flash_attention", "cross_attention"})
+    assert kernels <= set(stats["launches"])
+    before = graphs.launch_counts()
+    for _ in range(3):
+        got = pipe.action_inference(ref, h=128, w=128, ugscale=2.0, seed=1, steps=4)[0]
+        assert np.array_equal(got, want)
+    after = graphs.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {k: 3 * v for k, v in eager.items()}
+    got = pipe.action_inference(ref, h=128, w=128, ugscale=3.5, seed=1, steps=4)[0]
+    assert np.array_equal(got, _eager_request(pipe, ref, 1, 3.5))
+    assert not np.array_equal(got, want)
+    _swap_diffuser(pipe, 7)
+    got = pipe.action_inference(ref, h=128, w=128, ugscale=2.0, seed=1, steps=4)[0]
+    swapped = _eager_request(pipe, ref, 1)
+    assert np.array_equal(got, swapped) and not np.array_equal(got, want)
+    assert list(pipe._graphs) == keys and len(fn.stats) == 1
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises():
+    """A function that syncs with the host cannot be captured: the capture
+    raises, and the call does not run it eagerly instead."""
+    from pfd_tpu_torch.ops import graphs
+
+    _need_cuda()
+    runs = []
+
+    def syncs(x):
+        runs.append(1)
+        return x * x.sum().item()
+
+    fn = graphs.Graphed(syncs, graphs.GraphPool("cuda"))
+    with pytest.raises(RuntimeError):
+        fn(torch.ones(4, device="cuda"))
+    assert fn.stats == [] and len(runs) == 2  # the warm-up run, then the capture's
+    torch.cuda.synchronize()
