@@ -66,7 +66,6 @@ import functools
 import torch
 
 from pfd_tpu_torch.ops import cuda_build
-from pfd_tpu_torch.ops import int8_conv
 from pfd_tpu_torch.ops import nn
 from pfd_tpu_torch.ops import quant as quant_lib
 from pfd_tpu_torch.ops.int8_matmul import pad_depth
@@ -557,14 +556,17 @@ flash_attention_pv8.launches = 0
 flash_attention_int8.launches = 0
 
 
+# the kernels a serving request can launch; ``graphs.counters()`` lists the
+# labs' kernels besides
+SERVING = ("flash_attention", "cross_attention", "flash_attention_pv8", "flash_attention_int8",
+           "conv_int8")
+
+
 def launches():
-    """The serving path's launch counters: the attention kernels' and
-    ``conv_int8``'s (each wrapper counts its own launches)."""
-    return {"flash_attention": flash_attention.launches,
-            "cross_attention": cross_attention.launches,
-            "flash_attention_pv8": flash_attention_pv8.launches,
-            "flash_attention_int8": flash_attention_int8.launches,
-            "conv_int8": int8_conv.conv_int8.launches}
+    """The serving path's launch counters (``SERVING``'s wrappers of
+    ``graphs.counters()``; each wrapper counts its own launches)."""
+    from pfd_tpu_torch.ops import graphs
+    return {k: v for k, v in graphs.launch_counts().items() if k in SERVING}
 
 
 def padded_head(d, quant=False):

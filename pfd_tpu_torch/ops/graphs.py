@@ -28,9 +28,9 @@ what its run added to each count, sets the counts back (a capture launches
 nothing), and every replay adds the recorded counts.
 
 On CUDA a failed capture raises: there is no eager fallback. On the CPU (the
-tests ask for it explicitly) a call runs the callable eagerly, with its
-number arguments as 0-d fp32 tensors, and :meth:`Graphed.capture` does
-nothing.
+tests ask for it explicitly) a call runs the callable eagerly
+(:meth:`Graphed.eager`, with its number arguments as 0-d fp32 tensors), and
+:meth:`Graphed.capture` does nothing.
 """
 
 from __future__ import annotations
@@ -53,34 +53,34 @@ def counters():
             "conv3x3_bf16": fused_conv.conv3x3_fused, "matmul_int8": int8_matmul.matmul_int8}
 
 
-def launch_counts(wrappers=None):
-    """{name: launches so far} of ``wrappers`` (by default :func:`counters`)."""
-    return {name: w.launches for name, w in (wrappers or counters()).items()}
+def launch_counts():
+    """{name: launches so far} of every wrapper of :func:`counters`."""
+    return {name: w.launches for name, w in counters().items()}
 
 
-def take_launches(before, wrappers=None):
+def take_launches(before):
     """The launches counted since ``before`` (a :func:`launch_counts`), with
     the counts set back to ``before``: what a capture counted, which it did
     not launch."""
-    wrappers = wrappers or counters()
     delta = {}
-    for name, w in wrappers.items():
+    for name, w in counters().items():
         delta[name] = w.launches - before[name]
         w.launches = before[name]
     return delta
 
 
-def add_launches(delta, wrappers=None):
+def add_launches(delta):
     """Add a replay's launches, ``delta`` (a :func:`take_launches`), to the
     counts."""
-    wrappers = wrappers or counters()
+    wrappers = counters()
     for name, n in delta.items():
         wrappers[name].launches += n
 
 
 def graph_nodes(graph):
     """The number of nodes of a ``CUDAGraph`` captured with
-    ``keep_graph=True`` (``cuGraphGetNodes`` of ``libcuda``)."""
+    ``keep_graph=True`` (``cuGraphGetNodes`` of ``libcuda``; under
+    ``GraphPool.measure``)."""
     libcuda = ctypes.CDLL("libcuda.so.1")
     n = ctypes.c_size_t(0)
     err = libcuda.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
@@ -105,7 +105,14 @@ def _as_tensor(a, device):
 class GraphPool:
     """One memory pool and one capture stream on ``device``, shared by every
     graph of one owner (a pipeline, or one replica of a server): its graphs
-    never replay at once, so they may share memory."""
+    never replay at once, so they may share memory.
+
+    ``measure`` (off by default; ``chip_smoke.py`` sets it) makes each capture
+    also count its graph's nodes, which keeps the host graph beside the
+    instantiated one, and measure the pool's growth, which first empties
+    the process's cached blocks."""
+
+    measure = False
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -125,7 +132,7 @@ class _Capture:
     one replay makes."""
 
     def __init__(self, fn, args, pool):
-        dev = pool.device
+        dev, measure = pool.device, pool.measure
         self.static = [None if a is None else _as_tensor(a, dev).clone() for a in args]
         s = pool.stream
         with torch.cuda.device(dev), torch.no_grad():
@@ -134,26 +141,27 @@ class _Capture:
             with torch.cuda.stream(s):
                 fn(*self.static)  # builds the kernels, fills the lazy caches
             torch.cuda.synchronize(dev)
-            warm_s = time.perf_counter() - t0
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(dev)
+            self.stats = {"warmup_s": time.perf_counter() - t0}
+            if measure:
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved(dev)
             before = launch_counts()
-            self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+            self.graph = torch.cuda.CUDAGraph(keep_graph=measure)
             t0 = time.perf_counter()
             try:
                 with torch.cuda.graph(self.graph, pool=pool.handle, stream=s):
                     self.out = fn(*self.static)
             finally:
                 self.launches = take_launches(before)
-            capture_s = time.perf_counter() - t0
-            nodes = graph_nodes(self.graph)
-            t0 = time.perf_counter()
-            self.graph.instantiate()
-            torch.cuda.synchronize(dev)
-            self.stats = {"warmup_s": warm_s, "capture_s": capture_s,
-                          "instantiate_s": time.perf_counter() - t0, "nodes": nodes,
-                          "pool_gb": (torch.cuda.memory_reserved(dev) - reserved) / 1e9,
-                          "launches": {k: v for k, v in self.launches.items() if v}}
+            self.stats["capture_s"] = time.perf_counter() - t0  # with the instantiation
+            if measure:
+                self.stats["nodes"] = graph_nodes(self.graph)
+                t0 = time.perf_counter()
+                self.graph.instantiate()
+                torch.cuda.synchronize(dev)
+                self.stats.update(instantiate_s=time.perf_counter() - t0, pool_gb=(
+                    torch.cuda.memory_reserved(dev) - reserved) / 1e9)
+            self.stats["launches"] = {k: v for k, v in self.launches.items() if v}
 
     def __call__(self, args):
         for s, a in zip(self.static, args):
@@ -178,8 +186,9 @@ class Graphed:
     """``fn`` over tensor (or None, or Python number) arguments, captured
     once per signature of its arguments into ``pool``'s memory (module
     docstring). ``stats`` holds each capture's seconds (the eager warm-up
-    run, the capture, the instantiation), node count, the pool's growth in
-    GB and the launches one replay makes."""
+    run, the capture with its instantiation) and the launches one replay
+    makes; under ``pool.measure`` also its node count, the instantiation's
+    seconds (then apart from the capture's) and the pool's growth in GB."""
 
     def __init__(self, fn, pool: GraphPool):
         self.fn = fn
@@ -200,10 +209,15 @@ class Graphed:
     def stats(self):
         return [c.stats for c in self._captures.values()]
 
+    @torch.no_grad()
+    def eager(self, *args):
+        """``fn`` run eagerly on the arguments as a replay takes them (a
+        number as a 0-d fp32 tensor on the pool's device): a call on the
+        CPU, and the yardstick a graph is held to on the card."""
+        return self.fn(*(None if a is None else _as_tensor(a, self.pool.device) for a in args))
+
     def __call__(self, *args):
         if not self.pool.on_card:
-            with torch.no_grad():
-                return self.fn(*(None if a is None else _as_tensor(a, self.pool.device)
-                                 for a in args))
+            return self.eager(*args)
         self.capture(*args)
         return self._captures[_signature(args)](args)

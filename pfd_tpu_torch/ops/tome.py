@@ -84,7 +84,9 @@ def compute_merge(metric, h, w, r, *, sx=2, sy=2, ox=0, oy=0):
 
     bgrid = torch.arange(b, device=dev)[:, None]
     assign = torch.zeros((b, n_dst, n_src), dtype=torch.bfloat16, device=dev)
-    assign[bgrid, tgt, merged] = 1
+    # the value a device tensor: a Python 1 would be a host copy, which a
+    # CUDA graph capture refuses
+    assign.index_put_((bgrid, tgt, merged), torch.ones((), dtype=assign.dtype, device=dev))
     counts = 1.0 + assign.float().sum(dim=-1)            # (B, Sd)
 
     def merge(x):

@@ -13,7 +13,9 @@ tiny ``pfd_with_control`` in fp32 on the CPU, where a bucket runs eagerly.
   graph reads those addresses), the upsample phase kernels a fresh
   quantize of the new codes.
 - ToMe's cached index tensors give ``pfd_tpu``'s merge.
-- A replay adds the launches its capture counted (on stand-in counters).
+- A replay adds the launches its capture counted (on stand-in counters);
+  the serving path's counters are ``graphs.counters()``' by name, and
+  ``chip_smoke.py`` names the port's kernels in a profile by those counters.
 """
 
 import types
@@ -185,22 +187,57 @@ def test_tome_cached_indices_give_pfd_tpus_merge(monkeypatch):
     assert ttome._partition_indices(8, 8, 2, 2, 0, 0, torch.device("cpu")) is first
 
 
-def test_replay_adds_the_captured_launches():
+def test_replay_adds_the_captured_launches(monkeypatch):
     """A capture counts launches it does not make: ``take_launches`` hands
     them back and restores the counts, and each replay adds them."""
-    wrappers = {"k1": types.SimpleNamespace(launches=5), "conv": types.SimpleNamespace(launches=0)}
-    before = graphs.launch_counts(wrappers)
-    wrappers["k1"].launches += 3  # what a capture's run counts
-    wrappers["conv"].launches += 7
-    delta = graphs.take_launches(before, wrappers)
-    assert delta == {"k1": 3, "conv": 7} and graphs.launch_counts(wrappers) == before
-    for _ in range(4):
-        graphs.add_launches(delta, wrappers)
-    assert graphs.launch_counts(wrappers) == {"k1": 5 + 4 * 3, "conv": 4 * 7}
     assert set(graphs.counters()) == {"flash_attention", "flash_attention_pipe",
                                       "cross_attention", "flash_attention_pv8",
                                       "flash_attention_int8", "conv_int8", "conv3x3_bf16",
                                       "matmul_int8"}
+    wrappers = {"k1": types.SimpleNamespace(launches=5), "conv": types.SimpleNamespace(launches=0)}
+    monkeypatch.setattr(graphs, "counters", lambda: wrappers)
+    before = graphs.launch_counts()
+    wrappers["k1"].launches += 3  # what a capture's run counts
+    wrappers["conv"].launches += 7
+    delta = graphs.take_launches(before)
+    assert delta == {"k1": 3, "conv": 7} and graphs.launch_counts() == before
+    for _ in range(4):
+        graphs.add_launches(delta)
+    assert graphs.launch_counts() == {"k1": 5 + 4 * 3, "conv": 4 * 7}
+
+
+def test_serving_counters_are_graphs_counters():
+    """``flash_attention.launches()`` reads ``graphs.counters()``' serving
+    wrappers by name; a pool measures its captures only when asked."""
+    from pfd_tpu_torch.ops import flash_attention as fa
+
+    assert set(fa.SERVING) < set(graphs.counters())
+    assert fa.launches() == {k: v for k, v in graphs.launch_counts().items()
+                             if k in fa.SERVING}
+    assert not graphs.GraphPool("cpu").measure
+
+
+def test_smoke_counts_kernels_by_name():
+    """``chip_smoke.kernel_counts`` names each of the port's kernels in a
+    profile by the counter its wrapper keeps (K1-K5 by their template
+    arguments) and leaves out PyTorch's own."""
+    import chip_smoke
+
+    rows = [("void pfd::sm90::flash_sm90_kernel<1, 2, false, false, 1, false, false>(CUt", 250),
+            ("void pfd::sm90::flash_sm90_kernel<2, 1, false, true, 2, false, false>(CUt", 100),
+            ("void pfd::sm90::flash_sm90_kernel<1, 2, false, false, 1, true, false>(CUt", 7),
+            ("void pfd::sm90::flash_sm90_kernel<1, 2, false, false, 1, true, true>(CUt", 3),
+            ("void pfd::sm90::flash_sm90_kernel<1, 2, true, false, 1, false, false>(CUt", 2),
+            ("void (anonymous namespace)::conv_int8_kernel<160>(CUtensorMap_st", 9),
+            ("void (anonymous namespace)::conv3x3_kernel<128, 2>(CUtensorMap_st", 4),
+            ("void (anonymous namespace)::matmul_int8_kernel<160>(CUtensorMap_st", 5),
+            ("void at::native::elementwise_kernel<128, 4>(int)", 99)]
+    events = [types.SimpleNamespace(key=k, count=n) for k, n in rows]
+    assert chip_smoke.kernel_counts(events) == {
+        "flash_attention": 250, "cross_attention": 100, "flash_attention_pv8": 7,
+        "flash_attention_int8": 3, "flash_attention_pipe": 2, "conv_int8": 9,
+        "conv3x3_bf16": 4, "matmul_int8": 5}
+    assert set(chip_smoke.kernel_counts(events)) == set(graphs.counters())
 
 
 def test_graphed_runs_eagerly_on_the_cpu():

@@ -665,6 +665,26 @@ def test_flash_kernel_at_tomes_padded_head():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", [True, False])
+def test_tome_attention_is_captured(kernel):
+    """ToMe around the self-attention (K1, or plain attention) at the ds1
+    grid, captured in one graph: nothing on its path copies from the host,
+    and replays on new inputs equal the eager calls bit for bit."""
+    from pfd_tpu_torch.ops import graphs
+    from pfd_tpu_torch.ops.tome import make_tome_attn
+
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    inner = fa.self_attn_fn if kernel else tnn.dot_product_attention
+    fn = graphs.Graphed(make_tome_attn(inner, (64, 64), ratio=0.5), graphs.GraphPool("cuda"))
+    for _ in range(2):
+        q, k, v = (_randn((2, 8, 4096, 40), g) for _ in range(3))
+        got = fn(q, k, v)
+        assert len(fn.stats) == 1 and torch.equal(got, fn.eager(q, k, v))
+    assert fn.stats[0]["launches"] == ({"flash_attention": 1} if kernel else {})
+
+
+@pytest.mark.cuda
 def test_safetensors_reader_loads_into_a_cuda_module(tmp_path):
     """A fp16 ``.safetensors`` checkpoint (written by ``chip_smoke``'s writer:
     the card's host has no safetensors package), read by the port's reader
@@ -741,12 +761,14 @@ def _graph_pipe(mode):
 
 
 def _eager_request(pipe, ref, seed, ugscale=2.0):
-    """``action_inference``'s request with the eager bodies
-    (``encode_context``, ``sample_decode``)."""
-    c = pipe.encode_context(ref)
-    x, noise = pipe.start_latent(seed, 128, 128, 4)
-    return pipe.images_out(pipe.sample_decode(c, pipe.negative_context(c), x, ugscale, 4,
-                                              eta_noise=noise), None)[0]
+    """``action_inference``'s request with each graph's body run eagerly in
+    its place (``Graphed.eager``): the yardstick a replay is held to."""
+    from unittest import mock
+
+    from pfd_tpu_torch.ops import graphs
+
+    with mock.patch.object(graphs.Graphed, "__call__", graphs.Graphed.eager):
+        return pipe.action_inference(ref, h=128, w=128, ugscale=ugscale, seed=seed, steps=4)[0]
 
 
 def _swap_diffuser(pipe, seed):
@@ -766,17 +788,23 @@ def test_graph_replay_equals_eager(mode):
     to the eager request bit for bit, at a second guidance scale through the
     same graph too, and after a diffuser swap (in the int8 mode the codes
     and the upsample phase kernels refreshed in place); N replays add N x
-    the captured launches, which are the eager request's launches."""
+    the captured launches, which are the eager request's launches. The bf16
+    case measures its capture (``GraphPool.measure``), the others capture
+    as a request does."""
     import numpy as np
     from pfd_tpu_torch.ops import graphs
 
     _need_cuda()
     pipe, ref = _graph_pipe(mode)
+    pipe._pool.measure = mode == "bf16"
     keys = pipe.warmup(sizes=((128, 128),), with_control=False, steps=4)
     assert keys == [(128, 128, 1, False, 4, pipe.ddim_eta)]
     fn = pipe._graphs[keys[0]]
     (stats,) = fn.stats
-    assert stats["nodes"] > 0 and stats["pool_gb"] >= 0
+    if pipe._pool.measure:
+        assert stats["nodes"] > 0 and stats["pool_gb"] >= 0
+    else:
+        assert "nodes" not in stats and stats["capture_s"] > 0
     before = graphs.launch_counts()
     want = _eager_request(pipe, ref, 1)
     torch.cuda.synchronize()
