@@ -177,10 +177,29 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    alone; b1 sharded = grouped bit for bit) and ``DataParallelServer`` b8
    captured by its ``warmup`` (equal to its eager body bit for bit), with
    s/img graphed against eager in 3 turns;
-13. a ``kernels`` JSON line (``launches``: the graphed requests of phase
+13. config #4, the annotator networks and the full preprocess stack into
+   the ControlNet path, on files written to a temporary ``pretrained_root``
+   (removed at the end): seeded random-init files of HED, PiDiNet, MLSD,
+   MiDaS and OpenPose's body, hand and face nets at their published widths,
+   in the upstream layouts ``pfd_tpu`` reads (the bytes and seconds of each
+   write and load printed; each load equal to the weights written); every
+   network method of ``zoo.PREPROCESS_METHODS`` at 512^2 on the card, each
+   hint finite, not constant, with its share of saturated levels (the
+   OpenPose body decode's peaks, people and seconds, bounded by
+   ``DECODE_BOUND_S``; ``openpose_withfacehand`` must run the hand and face
+   nets); each network on the card against itself on the CPU, same weights,
+   at the input a 512^2 request gives it, within relative L2 1e-4, and its
+   ms there (CUDA events); one bf16 10-step request per method (canny, hed,
+   depth, normal, mlsd, openpose_withfacehand, scribble) through
+   ``action_inference`` on one captured 10-step bucket, each a finite image
+   in [0, 1] equal to its eager twin bit for bit (image and hint), launching
+   ``LaunchPlan``'s K1 and K2, and each network's image differing from
+   canny's; one int8 request with the depth hint at ``LaunchPlan``'s
+   ``conv_int8``, K4, K2 and K1 count, equal to its eager twin;
+14. a ``kernels`` JSON line (``launches``: the graphed requests of phase
    8c, F for the bf16 kernels, G for the int8 ones and E for K5; every
-   serving request's counts, the turbo ones', the graphed ones' and phase
-   12's too, in ``launches_by_request``),
+   serving request's counts, the turbo ones', the graphed ones' and phases
+   12's and 13's too, in ``launches_by_request``),
    the card's name and power limit, then the device JSON as the last line.
 
 Imports neither JAX nor ``pfd_tpu``.
@@ -788,7 +807,7 @@ class LaunchPlan:
         return n
 
 
-def eager_request(pipe, ref, seed, steps, imctl=None, ugscale=2.0):
+def eager_request(pipe, ref, seed, steps, imctl=None, ugscale=2.0, method="canny"):
     """``action_inference``'s 512^2 request with each graph's body (SeeCoder's,
     the bucket's ``sample_decode``) run eagerly in its place
     (``Graphed.eager``): the yardstick a graphed request is held to. Returns
@@ -797,7 +816,7 @@ def eager_request(pipe, ref, seed, steps, imctl=None, ugscale=2.0):
     from pfd_tpu_torch.ops import graphs
 
     with mock.patch.object(graphs.Graphed, "__call__", graphs.Graphed.eager):
-        return pipe.action_inference(ref, imctl, "canny", True, 512, 512, ugscale, seed,
+        return pipe.action_inference(ref, imctl, method, True, 512, 512, ugscale, seed,
                                      steps=steps)
 
 
@@ -851,7 +870,7 @@ def serve(pipe, ref, seed, steps, label, imctl=None):
     return out, stats
 
 
-def serve_graphed(pipe, ref, seed, steps, label, imctl=None, ugscale=2.0):
+def serve_graphed(pipe, ref, seed, steps, label, imctl=None, ugscale=2.0, method="canny"):
     """One request through ``action_inference`` (SeeCoder's graph and the
     bucket's graph replayed) with the launch counts set to 0 just before
     it; host wall time and CUDA-event time around the call. Returns
@@ -863,7 +882,7 @@ def serve_graphed(pipe, ref, seed, steps, label, imctl=None, ugscale=2.0):
     s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     s.record()
-    out = pipe.action_inference(ref, imctl, "canny", True, 512, 512, ugscale, seed, steps=steps)
+    out = pipe.action_inference(ref, imctl, method, True, 512, 512, ugscale, seed, steps=steps)
     e.record()
     torch.cuda.synchronize()
     stats = {"s": time.perf_counter() - t0, "event_s": s.elapsed_time(e) / 1e3,
@@ -968,8 +987,7 @@ def tf32_control(sd, ref):
     model = e2e_gate.assemble(e2e_gate.gate_config(e2e_gate.PLAIN),
                               e2e_gate.to_device(sd, "cuda", drop_control=True), FP32)
     guarded = nn.conv2d_raw
-    nn.conv2d_raw = lambda x, w, b=None, *, stride=1, padding=0: F.conv2d(
-        x, w, b, stride=stride, padding=padding)
+    nn.conv2d_raw = lambda x, w, b=None, **kw: F.conv2d(x, w, b, **kw)
     try:
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
             img, lat = e2e_gate.run(model, e2e_gate.inputs("plain"))
@@ -1697,6 +1715,253 @@ def _serving_entry_points(card, ref, hint_src, root):
     return served
 
 
+# phase 13's OpenPose file: the body net's last heatmap conv scaled by this
+# gain (its seeds 160-162), so that on the random weights the body decode
+# finds a few people, one with a hand box and a face box (the decode pairs
+# every two peaks of a limb: unscaled, ~1,000 peaks and ~70 people); and the
+# bound on one body decode's seconds
+POSE_HEAT_GAIN = 0.2
+POSE_SEED = 160
+DECODE_BOUND_S = 30.0
+# zoo.PREPROCESS_METHODS's network methods, and the ones phase 13 serves
+NET_METHODS = ("hed", "depth", "normal", "mlsd", "openpose", "openpose_withface",
+               "openpose_withfacehand", "scribble")
+SERVED_METHODS = ("hed", "depth", "normal", "mlsd", "openpose_withfacehand", "scribble")
+
+
+def write_annotators(root):
+    """Seeded random-init files of the seven annotator networks at their
+    published widths under ``root``'s ``pretrained/controlnet/preprocess/``,
+    in the upstream layouts ``pfd_tpu`` reads (``torch.save``): HED with its
+    (1, 3, 1, 1) ``norm``, PiDiNet ``module.``-prefixed with 3x3
+    pixel-difference kernels, MLSD with BatchNorm's ``num_batches_tracked``,
+    MiDaS (``.pt``) with timm's classifier-only norm and head, OpenPose's
+    body, hand and face nets. Fan-in-scaled weights (``init_from_spec``'s
+    ``gain``: sqrt(2) for the ReLU stacks, 1 for PiDiNet's residual one; MiDaS its own
+    ``init_params``), so that no map saturates or
+    vanishes everywhere. Returns {network: the port's state dict the file
+    must load to}."""
+    import torch
+    from pfd_tpu_torch.annotators import nets
+    from pfd_tpu_torch.annotators.nets import _specs, hed, midas, mlsd, openpose, pidinet
+    from pfd_tpu_torch.io.convert import params_from_jax, pytree_to_torch_sd
+
+    out = {}
+
+    def put(name, rel, file_sd, sd):
+        path = nets.pretrained_path(*rel, root=root)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        t0 = time.perf_counter()
+        torch.save(file_sd, path)
+        dt = time.perf_counter() - t0
+        n = os.path.getsize(path)
+        print(f"annotator write {name}: {'/'.join(rel)}, {n / 1e6:.1f} MB, "
+              f"{sum(v.numel() for v in sd.values()) / 1e6:.2f} M parameters, {dt:.2f} s",
+              flush=True)
+        out[name] = sd
+
+    sd = params_from_jax(hed.init_params(141, gain=2 ** 0.5))
+    put("hed", ("hed", "ControlNetHED.pth"), dict(sd, norm=sd["norm"].reshape(1, 3, 1, 1)), sd)
+    raw = {f"module.{k}": torch.from_numpy(v) for k, v in pytree_to_torch_sd(
+        nets.init_from_spec(142, pidinet.upstream_spec(), gain=1.0)).items()}
+    put("pidinet", ("pidinet", "table5_pidinet.pth"), raw, pidinet.convert_sd(raw))
+    sd = params_from_jax(mlsd.init_params(143, gain=2 ** 0.5))
+    counters = {k.replace("running_var", "num_batches_tracked"): torch.tensor(0)
+                for k in sd if k.endswith("running_var")}
+    put("mlsd", ("mlsd", "mlsd_large_512_fp32.pth"), {**sd, **counters}, sd)
+    sd = params_from_jax(midas.init_params(144))
+    head = {"pretrained.model.norm.weight": torch.ones(768),
+            "pretrained.model.norm.bias": torch.zeros(768),
+            "pretrained.model.head.weight": torch.zeros(1000, 768),
+            "pretrained.model.head.bias": torch.zeros(1000)}
+    put("midas", ("midas", "dpt_hybrid-midas-501f0c75.pt"), {**sd, **head}, sd)
+    for i, part in enumerate(("body", "hand", "face")):
+        sd = params_from_jax(nets.init_from_spec(
+            POSE_SEED + i, getattr(_specs, f"OPENPOSE_{part.upper()}"), gain=2 ** 0.5))
+        if part == "body":
+            sd = {k: v * POSE_HEAT_GAIN if k.startswith("model6_2.Mconv7_stage6_L2.") else v
+                  for k, v in sd.items()}
+        put(f"openpose_{part}", ("openpose", openpose._FILES[part]), sd, sd)
+    return out
+
+
+def rel_l2(a, b):
+    import torch
+    a, b = torch.as_tensor(a).double().cpu(), torch.as_tensor(b).double().cpu()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def preprocess_stack(card, ref, hint_src):
+    """Phase 13: config #4, the annotator networks and the full preprocess
+    stack into the ControlNet path, at full width, on files written to a
+    temporary ``pretrained_root`` (removed at the end). Returns {request:
+    launches}."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="pfd_annotators_")
+    try:
+        return _preprocess_stack(card, ref, hint_src, root)
+    finally:
+        shutil.rmtree(root)
+
+
+def _preprocess_stack(card, ref, hint_src, root):
+    import numpy as np
+    import torch
+    from pfd_tpu_torch import annotators
+    from pfd_tpu_torch.annotators import imageops, nets
+    from pfd_tpu_torch.annotators.nets import hed, midas, mlsd, openpose, pidinet
+    from pfd_tpu_torch.models.build import dezero_
+    from pfd_tpu_torch.ops import flash_attention as fa
+    from pfd_tpu_torch.pipeline import PromptFreeDiffusionPipeline
+
+    t_phase = time.perf_counter()
+    files = write_annotators(root)
+    shapes = {"hed": hed.SHAPES, "pidinet": pidinet.SHAPES, "mlsd": mlsd.SHAPES,
+              "midas": midas.SHAPES, **{f"openpose_{p}": s for p, s in openpose.SHAPES.items()}}
+    readers = {"hed": hed.get_params, "pidinet": pidinet.get_params, "mlsd": mlsd.get_params,
+               "midas": midas.get_params,
+               **{f"openpose_{p}": (lambda r, f=f: nets.load_torch_params(
+                   nets.pretrained_path("openpose", f, root=r), dict))
+                  for p, f in openpose._FILES.items()}}
+    for name, want in files.items():
+        got, dt = _synced(readers[name], root)
+        if set(got) != set(want) or not all(torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"annotator load {name}: not the weights written")
+        print(f"annotator load {name}: {len(got)} tensors equal the written ones, read and "
+              f"converted in {dt:.2f} s", flush=True)
+
+    # ---- every network method at 512^2 on the card -------------------------------
+    pose, calls = [], collections.Counter()
+    real = {"decode_body": openpose.decode_body, "hand_forward": openpose.hand_forward,
+            "face_forward": openpose.face_forward}
+
+    def decode_body(heat, paf, img_h, **kw):
+        out, dt = _synced(real["decode_body"], heat, paf, img_h, **kw)
+        pose.append({"peaks": len(out[0]), "people": len(out[1]), "decode_s": dt})
+        return out
+
+    def counted(name):
+        def run(*a):
+            calls[name] += 1
+            return real[name](*a)
+        return run
+
+    openpose.decode_body = decode_body
+    openpose.hand_forward, openpose.face_forward = counted("hand_forward"), counted("face_forward")
+    try:
+        for method in NET_METHODS:
+            pose.clear()
+            calls.clear()
+            y, dt = _synced(annotators.preprocess, hint_src, method, size=(512, 512), root=root,
+                            device="cuda")
+            levels = np.round(y if method == "normal" else y * 255)  # normal: 0..255 (pfd_tpu)
+            if y.shape != (512, 512, 3) or not np.isfinite(y).all():
+                raise AssertionError(f"preprocess {method}: bad hint {y.shape}")
+            if levels.min() == levels.max():
+                raise AssertionError(f"preprocess {method}: the hint is constant ({levels.min()})")
+            print(f"preprocess {method} at 512^2 on the card: {dt:.3f} s (the first call reads "
+                  f"and builds its network), {len(np.unique(levels))} levels, saturated (level "
+                  f"0 or 255) {np.isin(levels, (0, 255)).mean():.4f}, mean level "
+                  f"{levels.mean():.2f}" + (f", body decode {json.dumps(pose)}, net calls "
+                                              f"{json.dumps(dict(calls))}" if pose else ""),
+                  flush=True)
+            if any(p["decode_s"] > DECODE_BOUND_S for p in pose):
+                raise AssertionError(f"preprocess {method}: a body decode took over "
+                                     f"{DECODE_BOUND_S} s: {pose}")
+            if method == "openpose_withfacehand" and not (
+                    pose[0]["people"] and calls["hand_forward"] and calls["face_forward"]):
+                raise AssertionError(f"preprocess {method}: no person, hand or face ran "
+                                     f"({pose}, {dict(calls)})")
+    finally:
+        openpose.decode_body = real["decode_body"]
+        openpose.hand_forward, openpose.face_forward = real["hand_forward"], real["face_forward"]
+
+    # ---- each network on the card against itself on the CPU ---------------------
+    img_bgr = (np.clip(hint_src, 0, 1) * 255).astype(np.float32)[:, :, ::-1]
+    scale = 0.5 * 368 / 512
+    body_in, _ = openpose.pad_right_down(
+        openpose.smart_resize(img_bgr, (512 * scale, 512 * scale)), 8, 128)
+    crop = img_bgr[96:352, 128:384]
+    hand_in = openpose.smart_resize(imageops.gaussian_blur(crop, 0.8), (368, 368))
+    face_in = openpose.smart_resize(crop, (384, 384))
+
+    def nchw(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32)).permute(2, 0, 1)[None]
+
+    mlsd_in = np.concatenate([imageops.resize_image(hint_src * 255.0, (512, 512), "bilinear"),
+                              np.ones((512, 512, 1), np.float32)], -1) / 127.5 - 1.0
+    inputs = {  # network: (forward, its input at the shape a 512^2 request gives it)
+        "hed": (hed.hed_forward, nchw(hint_src) * 255.0),
+        "pidinet": (pidinet.pidinet_forward, nchw(hint_src[:, :, ::-1])),
+        "mlsd": (mlsd.mlsd_forward, nchw(mlsd_in)),
+        "midas": (midas.dpt_hybrid_forward, nchw(hint_src * 255.0 / 127.5 - 1.0)),
+        "openpose_body": (openpose.body_forward, nchw(body_in) / 256.0 - 0.5),
+        "openpose_hand": (openpose.hand_forward, nchw(hand_in) / 256.0 - 0.5),
+        "openpose_face": (openpose.face_forward, nchw(face_in) / 256.0 - 0.5)}
+    net_ms = {}
+    for name, (fwd, x) in inputs.items():
+        card_net, cpu_net = (nets.build(shapes[name], files[name], d) for d in ("cuda", "cpu"))
+        xc = x.cuda()
+        with torch.no_grad():
+            outs = [fwd(card_net, xc), fwd(cpu_net, x)]
+            outs = [o if isinstance(o, (list, tuple)) else [o] for o in outs]
+            errs = [rel_l2(a, b) for a, b in zip(*outs)]
+            ms = cuda_ms(lambda: fwd(card_net, xc), 5)
+        net_ms[name] = {"input": list(x.shape), "ms": ms}
+        print(f"annotator {name}: card vs CPU (fp32, same weights) rel L2 per output "
+              f"{', '.join(f'{e:.2e}' for e in errs)}; {ms:.3f} ms a forward at "
+              f"{tuple(x.shape)} ({card})", flush=True)
+        if not max(errs) <= 1e-4:
+            raise AssertionError(f"annotator {name}: card vs CPU rel L2 {errs} above 1e-4")
+        del card_net, cpu_net
+    print(f"annotator ms at a 512^2 request's shapes: {json.dumps(net_ms)} ({card})", flush=True)
+
+    # ---- the ControlNet requests, one 10-step bucket -----------------------------
+    served = {}
+
+    def pipeline(label, **kw):
+        p, dt = _synced(PromptFreeDiffusionPipeline, fp16=True, device="cuda", seed=0,
+                        pretrained_root=root, **kw)
+        dezero_(p.net, torch.Generator(device="cuda").manual_seed(1))
+        keys, dt_w = _synced(p.warmup, with_control=True, steps=10)
+        print(f"{label}: built in {dt:.2f} s, bucket {keys[0]} captured in {dt_w:.2f} s",
+              flush=True)
+        return p, LaunchPlan(p.net)
+
+    def request(p, lp, label, method, **plan):
+        out, st = serve_graphed(p, ref, 42, 10, label, hint_src, method=method)
+        check_image(out[0], label)
+        want = lp.expected(steps=10, control=True, **plan)
+        if st["launches"] != want:
+            raise AssertionError(f"request {label}: launches {st['launches']}, want {want}")
+        twin, dt = _synced(eager_request, p, ref, 42, 10, hint_src, method=method)
+        if not all(np.array_equal(a, b) for a, b in zip(out, twin)):
+            raise AssertionError(f"request {label}: the graphed image or hint is not its eager "
+                                 f"twin's bit for bit")
+        served[label] = st["launches"]
+        print(f"request {label}: ctl_method={method} graphed s/img={st['s']:.4f} (eager twin "
+              f"{dt:.4f} s, bit for bit) ({card})", flush=True)
+        return out
+
+    pipe, lp = pipeline("config #4 bf16 pipeline", self_attn_fn=fa.self_attn_fn)
+    canny = request(pipe, lp, "net canny", "canny")[0]
+    for method in SERVED_METHODS:
+        img = request(pipe, lp, f"net {method}", method)[0]
+        if np.array_equal(img, canny):
+            raise AssertionError(f"request net {method}: the image equals the canny request's")
+    del pipe
+    torch.cuda.empty_cache()
+    pipe8, lp8 = pipeline("config #4 int8 pipeline", quantized=True,
+                          self_attn_fn=fa.self_attn_fn_int8)
+    request(pipe8, lp8, "net int8 depth", "depth", quantized=True, attn8=True)
+    del pipe8
+    torch.cuda.empty_cache()
+    print(f"phase 13 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return served
+
+
 def main() -> int:
     import torch
 
@@ -2157,11 +2422,14 @@ def main() -> int:
     # ---- 12. the zoo and the serving entry points ------------------------------
     zoo_served = serving_entry_points(card, ref, hint_src)
 
-    # ---- 13. summary ---------------------------------------------------------
+    # ---- 13. config #4: the annotator networks into the ControlNet path --------
+    net_served = preprocess_stack(card, ref, hint_src)
+
+    # ---- 14. summary ---------------------------------------------------------
     served = {"A": launches, "D": launches_d, "E": launches_e, "F": launches_f,
               "G": launches_g, **{k: turbo_served[k] for k in ("H", "H_kv", "H_tome", "I", "J",
                                                                "J0")}, **graph_served,
-              **zoo_served}
+              **zoo_served, **net_served}
     # the main path's launches: the graphed requests F (bf16), G (int8) and E
     # (K5), each held to the kernels the profiler saw run
     launches_f, launches_g = graph_served["graphed F"], graph_served["graphed G"]

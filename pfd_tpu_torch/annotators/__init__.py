@@ -3,16 +3,18 @@ port of ``pfd_tpu/annotators/__init__.py``).
 
 Capability parity with ControlNet.preprocess (reference controlnet.py:332-503):
 every method takes an RGB image in [0,1] (H, W, 3 float) and returns a float32
-RGB hint in [0,1] at the requested size. The pixel methods are ported, NumPy
-on the host as in ``pfd_tpu``: ``none``, ``input`` / ``shuffle_v11e`` and
-``canny`` / ``canny_v11p``, and the scribble helpers (``apply_scribble_xdog``,
-``make_scribble``). The annotator *networks* (HED, PiDiNet, MLSD, MiDaS,
-OpenPose) are not ported yet: their methods raise ``NotImplementedError``.
+RGB hint in [0,1] at the requested size. The pixel methods (``none``,
+``input`` / ``shuffle_v11e``, ``canny`` / ``canny_v11p``, the scribble
+NMS and XDoG) are NumPy on the host, as in ``pfd_tpu``; the annotator
+*networks* (HED, PiDiNet, MLSD, MiDaS, OpenPose; ``annotators/nets``) run
+on ``device``, the card unless the caller asks for the CPU, their weights
+read under ``root`` (``$PFD_PRETRAINED_ROOT`` by default) unless ``params``
+gives them. "seg" raises ``NotImplementedError``, as in ``pfd_tpu``.
 
 ``pfd_tpu``'s ``preprocess`` reads scribble's sub-method from
 ``kwargs["method"]``, a keyword that always binds to its ``method``
-parameter, so "scribble" always runs PiDiNet there and the xdog branch is
-unreachable; here "scribble" raises with the other networks.
+parameter, so "scribble" always runs PiDiNet and the hed and xdog branches
+are unreachable; the port keeps that signature, so it runs PiDiNet too.
 """
 
 from __future__ import annotations
@@ -67,23 +69,19 @@ def apply_scribble_xdog(img: np.ndarray, threshold=32) -> np.ndarray:
     return result
 
 
-def _net_missing(name):
-    raise NotImplementedError(
-        f"the {name} annotator network is not ported to pfd_tpu_torch yet "
-        "(ROADMAP queue 1, item 11: annotators)")
-
-
 def preprocess(x: np.ndarray, method: str = "canny", size=None, params=None,
-               **kwargs) -> np.ndarray | None:
+               root=None, device="cuda", **kwargs) -> np.ndarray | None:
     """Dispatch mirroring reference controlnet.py:332-503. x: (H,W,3) [0,1].
 
-    ``params`` is the annotator network's weights in ``pfd_tpu``; the port
-    has no annotator network yet, so it is accepted and unused.
+    ``params``, when given, is the selected network's state dict in the
+    port's layout (``OpenposeDetector``'s ``params_*`` keywords for
+    openpose); it skips the lazy load from ``root``. ``device`` places the
+    network.
     """
-    del params
     if size is not None and x.shape[:2] != tuple(size):
         x = resize_image(x, tuple(size), method="bicubic")
     x = np.clip(np.asarray(x, np.float32), 0, 1)
+    net = {"params": params, "root": root, "device": device}
 
     if method in ("none", None):
         return None
@@ -97,16 +95,36 @@ def preprocess(x: np.ndarray, method: str = "canny", size=None, params=None,
         return _to_rgb3(y)
 
     if method in ("hed", "softedge_v11p"):
-        _net_missing("HED")
-    if method in ("depth", "normal"):
-        _net_missing("MiDaS")
+        from pfd_tpu_torch.annotators.nets import hed
+        return _to_rgb3(hed.apply_hed(x, **net))
+
+    if method == "depth":
+        from pfd_tpu_torch.annotators.nets import midas
+        depth, _ = midas.apply_midas(x, **net)
+        return _to_rgb3(depth)
+
+    if method == "normal":
+        from pfd_tpu_torch.annotators.nets import midas
+        _, normal = midas.apply_midas(x, bg_th=kwargs.pop("bg_th", 0.4), **net)
+        return np.asarray(normal, np.float32)
+
     if method in ("mlsd", "mlsd_v11p"):
-        _net_missing("MLSD")
+        from pfd_tpu_torch.annotators.nets import mlsd
+        y = mlsd.apply_mlsd(x, thr_v=kwargs.pop("thr_v", 0.1),
+                            thr_d=kwargs.pop("thr_d", 0.1), **net)
+        return _to_rgb3(y)
+
     if method.startswith("openpose"):
-        _net_missing("OpenPose")
+        from pfd_tpu_torch.annotators.nets import openpose
+        y = openpose.apply_openpose(x, include_body=True,
+                                    include_face="withface" in method,
+                                    include_hand="withfacehand" in method, **net)
+        return np.asarray(y, np.float32)
 
     if method == "scribble":
-        _net_missing("PiDiNet")
+        from pfd_tpu_torch.annotators.nets import pidinet
+        # pfd_tpu's kwargs.pop("method", "pidinet"): always "pidinet" (docstring)
+        return _to_rgb3(make_scribble(pidinet.apply_pidinet(x, **net)))
 
     if method == "seg":
         # parity note: the reference's seg annotator imports a uniformer

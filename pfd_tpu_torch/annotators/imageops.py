@@ -7,8 +7,12 @@ controlnet.py:436-454: GaussianBlur, dilate, Canny, resize). There is no cv2
 here and no reference C++ to port — these are from-scratch implementations
 with cv2-compatible semantics where they matter (kernel-size formula, border
 replication, L1 Canny gradient). The NumPy functions are ``pfd_tpu``'s line
-for line; ``resize_image``, which ``pfd_tpu`` runs through
-``jax.image.resize``, is ``torch.nn.functional.interpolate`` on the host.
+for line. ``pfd_tpu`` resizes through ``jax.image.resize``; the port builds
+the same separable weight matrices (``resize_weights``: JAX's
+scale-and-translate with the triangle, Keys cubic and Lanczos-3 kernels,
+widened by the scale on a downscale when antialiased) and applies them as
+two matmuls (``resize``), on the host or on the card; ``F.interpolate``
+has no Lanczos, and its antialiased bilinear is not JAX's in every case.
 """
 
 from __future__ import annotations
@@ -82,18 +86,80 @@ def sobel(x: np.ndarray):
     return gx, gy
 
 
+def _triangle(x):
+    return np.maximum(np.float32(0), 1 - np.abs(x))
+
+
+def _keys_cubic(x):
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, np.float32(0), out)
+
+
+def _lanczos3(x):
+    y = 3.0 * np.sin(np.pi * x) * np.sin(np.pi * x / 3.0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        out = np.where(x > 1e-3, y / np.where(x != 0, np.pi ** 2 * x ** 2, 1), 1)
+    return np.where(x > 3.0, np.float32(0), out).astype(np.float32)
+
+
+_KERNELS = {"linear": _triangle, "bilinear": _triangle, "cubic": _keys_cubic,
+            "bicubic": _keys_cubic, "lanczos3": _lanczos3}
+
+
+def resize_weights(n_in: int, n_out: int, method: str, antialias: bool = True) -> np.ndarray:
+    """The (n_out, n_in) float32 matrix ``jax.image.resize`` contracts one
+    axis with (its ``compute_weight_mat``): half-pixel sample positions,
+    the kernel widened by 1/scale on a downscale when ``antialias``, each
+    row normalised to sum 1, rows whose sample lies outside the input
+    zeroed. Computed in float32, as JAX computes it."""
+    f32 = np.float32
+    inv = f32(1.0 / (n_out / n_in))
+    kernel_scale = max(inv, f32(1)) if antialias else f32(1)
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) / kernel_scale
+    w = _KERNELS[method](x).astype(f32)
+    total = w.sum(0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(f32).eps,
+                 w / np.where(total != 0, total, f32(1)), f32(0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.ascontiguousarray(np.where(inside[None, :], w, f32(0)).T.astype(f32))
+
+
+def resize(t: torch.Tensor, size: tuple[int, int], method: str = "linear",
+           antialias: bool = True) -> torch.Tensor:
+    """``jax.image.resize`` of a float tensor's last two (spatial) axes to
+    ``size``: ``W_h @ t @ W_w^T`` on ``t``'s device, an axis whose size
+    does not change left as it is (as JAX skips it)."""
+    h, w = int(size[0]), int(size[1])
+    if t.shape[-2] != h:
+        wh = torch.from_numpy(resize_weights(t.shape[-2], h, method, antialias))
+        t = torch.matmul(wh.to(t.device, t.dtype), t)
+    if t.shape[-1] != w:
+        ww = torch.from_numpy(resize_weights(t.shape[-1], w, method, antialias))
+        t = torch.matmul(t, ww.to(t.device, t.dtype).T)
+    return t
+
+
+def resize_hwc(x: np.ndarray, size, method: str = "linear", antialias: bool = True) -> np.ndarray:
+    """``resize`` of an (H, W[, C...]) host array -> float32 numpy."""
+    t = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    lead = t.ndim - 2
+    t = t.permute(*range(2, t.ndim), 0, 1)          # (C..., H, W)
+    y = resize(t, size, method, antialias)
+    return y.permute(lead, lead + 1, *range(lead)).contiguous().numpy()
+
+
 def resize_image(x: np.ndarray, size: tuple[int, int], method="bilinear") -> np.ndarray:
     """Resize (H, W[, C]) to size=(h, w) on the host, as ``pfd_tpu``'s
-    ``jax.image.resize`` does: half-pixel centres, Keys a = -0.5 bicubic (or
-    the triangle kernel), and on a downscale the kernel widened by the
-    scale (antialiasing). ``interpolate``'s bicubic is a = -0.75 without
-    ``antialias``, and a = -0.5 with it."""
-    h, w = size
-    mode = {"bilinear": "bilinear", "bicubic": "bicubic", "nearest": "nearest-exact"}[method]
+    ``jax.image.resize`` does (antialiased): ``resize_hwc`` for "bilinear"
+    and "bicubic" (Keys a = -0.5), ``F.interpolate``'s "nearest-exact"
+    (JAX's half-pixel nearest) for "nearest"."""
+    if method != "nearest":
+        return resize_hwc(x, size, {"bilinear": "linear", "bicubic": "cubic"}[method])
     t = torch.from_numpy(np.ascontiguousarray(x, np.float32))
     t = t[None, None] if t.ndim == 2 else t.permute(2, 0, 1)[None]
-    kw = {} if mode == "nearest-exact" else {"align_corners": False, "antialias": True}
-    y = F.interpolate(t, size=(h, w), mode=mode, **kw)[0]
+    y = F.interpolate(t, size=tuple(size), mode="nearest-exact")[0]
     return (y[0] if x.ndim == 2 else y.permute(1, 2, 0)).numpy()
 
 

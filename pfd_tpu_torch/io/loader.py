@@ -75,16 +75,19 @@ def load_safetensors(path: str) -> dict[str, torch.Tensor]:
 def load_sd_file(path: str) -> dict[str, torch.Tensor]:
     """Load a torch-format checkpoint into ``{key: CPU tensor}`` (app.py:82-92).
     ``.ckpt`` files hold their weights under ``state_dict``; fp16 tensors of
-    ``.pth`` and ``.ckpt`` files become fp32, as in ``pfd_tpu``."""
+    ``.pth`` and ``.ckpt`` files become fp32, as in ``pfd_tpu``. A ``.pt``
+    file (MiDaS's ``dpt_hybrid-midas-501f0c75.pt``) is read as a ``.pth``;
+    ``pfd_tpu``'s loader refuses that extension, so its MiDaS cannot read
+    its own checkpoint path."""
     ext = os.path.splitext(path)[-1]
     if ext == ".safetensors":
         return load_safetensors(path)
-    if ext in (".pth", ".ckpt"):
+    if ext in (".pth", ".pt", ".ckpt"):
         sd = torch.load(path, map_location="cpu", weights_only=False)
         if ext == ".ckpt":
             sd = sd["state_dict"]
         return {k: v.float() if v.dtype == torch.float16 else v for k, v in sd.items()}
-    raise ValueError(f"file type must be .ckpt/.pth/.safetensors, got {path}")
+    raise ValueError(f"file type must be .ckpt/.pth/.pt/.safetensors, got {path}")
 
 
 def load_tensor_file(path: str) -> torch.Tensor:

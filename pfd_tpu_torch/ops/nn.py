@@ -66,33 +66,55 @@ def _conv_q(x, w8, scale, *, stride, padding):
     return _dequant(y, sx, scale, x, 1)
 
 
-def conv2d_raw(x, weight, bias=None, *, stride=1, padding=0):
+def conv2d_raw(x, weight, bias=None, *, stride=1, padding=0, dilation=1, groups=1):
     """``F.conv2d``, in full fp32 where ``x`` is an fp32 CUDA tensor: cuDNN
     runs fp32 convs in TF32 by default (``torch.backends.cudnn.allow_tf32``),
     about 1e-3 relative off fp32, while the FP32 policy and ``pfd_tpu``'s
-    fp32 are fp32 throughout. Matmuls need no guard: their TF32 flag
+    fp32 are fp32 throughout. The guard covers grouped (depthwise) and
+    dilated convs too. Matmuls need no guard: their TF32 flag
     (``torch.backends.cuda.matmul.allow_tf32``) is off by default and the
     port never sets it."""
+    kw = {"stride": stride, "padding": padding, "dilation": dilation, "groups": groups}
     if x.is_cuda and x.dtype == torch.float32:
         cudnn = torch.backends.cudnn
         with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                          deterministic=cudnn.deterministic, allow_tf32=False):
-            return F.conv2d(x, weight, bias, stride=stride, padding=padding)
-    return F.conv2d(x, weight, bias, stride=stride, padding=padding)
+            return F.conv2d(x, weight, bias, **kw)
+    return F.conv2d(x, weight, bias, **kw)
 
 
-def conv2d(x, m, *, stride=1, padding=0):
+def conv2d(x, m, *, stride=1, padding=0, dilation=1, groups=1):
     """NCHW conv with the module's weights cast to ``x.dtype``, or the int8
-    conv where the module is quantized (module docstring).
-    ``padding`` is an int (symmetric) or ``(left, right, top, bottom)``."""
+    conv where the module is quantized (module docstring; an int8 conv is
+    never grouped or dilated). ``padding`` is an int (symmetric) or
+    ``(left, right, top, bottom)``."""
     if quant.is_quantized(m):
+        if dilation != 1 or groups != 1:
+            raise ValueError("the int8 conv takes no dilation and no groups")
         y = _conv_q(x, m.weight_q, m.weight_scale, stride=stride, padding=padding)
         b = _b(m, x)
         return y if b is None else y + b[None, :, None, None]
     if isinstance(padding, tuple):
         x = F.pad(x, padding)
         padding = 0
-    return conv2d_raw(x, _w(m, x), _b(m, x), stride=stride, padding=padding)
+    return conv2d_raw(x, _w(m, x), _b(m, x), stride=stride, padding=padding,
+                      dilation=dilation, groups=groups)
+
+
+def batch_norm(x, m, *, eps=1e-5):
+    """Inference-mode BatchNorm over NCHW with the module's running
+    statistics (``weight``, ``bias``, ``running_mean``, ``running_var``),
+    folded to a per-channel affine in fp32 as ``pfd_tpu`` folds it
+    (nn.py:205-212)."""
+    scale = m.weight.float() * torch.rsqrt(m.running_var.float() + eps)
+    shift = m.bias.float() - m.running_mean.float() * scale
+    return (x.float() * scale[:, None, None] + shift[:, None, None]).to(x.dtype)
+
+
+def max_pool_2x2(x):
+    """2x2 max-pool, stride 2, no padding (``pfd_tpu``'s VALID
+    ``reduce_window``: an odd last row or column is dropped)."""
+    return F.max_pool2d(x, 2, 2)
 
 
 def _matmul_q(x, w8, scale):

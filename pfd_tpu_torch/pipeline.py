@@ -49,8 +49,13 @@ the module's parameters in place, cast to their dtype, and in the int8 mode
 quantizes the loaded weights again (``quant.quantize_state_dict``). The
 anime SeeCoder's requests take ``assets/anime_ug.pth`` as their negative
 context. ``ctl_method="none"`` with a hint image raises, as in ``pfd_tpu``.
-The annotator networks (HED, MiDaS, ...) are not ported yet; their
-``ctl_method`` values raise.
+A network ``ctl_method`` (hed, depth, normal, mlsd, openpose*, scribble)
+runs its annotator network on the pipeline's device, its weights read
+under ``pretrained_root`` (``annotators/nets``); the diffuser's weights
+never go to a network (``pfd_tpu`` hands its composite params to
+``preprocess`` there, pipeline.py:332-333, which its networks cannot
+read). Preprocessing stays outside the graphs; the hint enters a bucket
+as an input.
 
 The compiled hot path (``pfd_tpu``'s ``_sample_decode_fn``, ``warmup`` and
 ``_ctx_encode_jit``, pipeline.py:210-280): on the card each
@@ -342,15 +347,17 @@ class PromptFreeDiffusionPipeline:
         """A request's hint image -> (the NCHW hints of the batch on the
         device, the n (h, w, 3) hints), resized to (h, w) and preprocessed
         by ``ctl_method``; (None, None) without a hint image or ControlNet
-        tag. A method that preprocesses the hint to nothing ("none") raises
-        ``ValueError``, as ``pfd_tpu`` raises on it."""
+        tag; a network method runs on the pipeline's device with its weights
+        under ``pretrained_root``. A method that preprocesses the hint to
+        nothing ("none") raises ``ValueError``, as ``pfd_tpu`` raises on it."""
         if self.tag_ctl == "none" or imctl is None:
             return None, None
         a = _to_array(imctl)
         if a.shape[:2] != (h, w):
             a = annotators.resize_image(a, (h, w), method="bicubic")
         if do_preprocess:
-            a = annotators.preprocess(a, method=ctl_method, size=(h, w))
+            a = annotators.preprocess(a, method=ctl_method, size=(h, w), root=self.root,
+                                      device=self.device)
             if a is None:
                 raise ValueError(f"ctl_method {ctl_method!r} preprocesses the hint image "
                                  "to nothing: send no hint image, or choose another method")

@@ -15,7 +15,9 @@ attention dispatchers' routes on the card (fp32 and wide heads to plain
 attention, heads not a multiple of 8 padded); a tiny fp32 pipeline
 through the dispatchers to a finite image; the checkpoint loader's
 ``.safetensors`` reader into a CUDA module, and an int8 swap whose int8
-conv outputs equal the plain version's with the new codes.
+conv outputs equal the plain version's with the new codes; each annotator
+network on the card against itself on the CPU (relative L2 1e-4), and a
+graphed request with an HED hint against its eager twin, bit for bit.
 
 Needs a CUDA device and ``nvcc``; skips where there is none. Imports neither
 JAX nor pfd_tpu, so it also runs on a machine without them:
@@ -847,3 +849,117 @@ def test_failed_capture_raises():
         fn(torch.ones(4, device="cuda"))
     assert fn.stats == [] and len(runs) == 2  # the warm-up run, then the capture's
     torch.cuda.synchronize()
+
+
+def _annotator_case(name):
+    """(shapes, the port's state dict, forward, a 64^2 input) of one annotator
+    network at its published width, fan-in-scaled numpy weights."""
+    import numpy as np
+    from pfd_tpu_torch.annotators import nets
+    from pfd_tpu_torch.annotators.nets import _specs, hed, midas, mlsd, openpose, pidinet
+    from pfd_tpu_torch.io.convert import params_from_jax
+
+    x = torch.from_numpy(np.random.default_rng(3).uniform(-1, 1, (1, 3, 64, 64))
+                         .astype(np.float32))
+    if name == "midas":
+        return midas.SHAPES, params_from_jax(midas.init_params(0)), midas.dpt_hybrid_forward, x
+    if name.startswith("openpose_"):
+        part = name.split("_")[1]
+        tree = nets.init_from_spec(0, getattr(_specs, f"OPENPOSE_{part.upper()}"), gain=2 ** 0.5)
+        return openpose.SHAPES[part], params_from_jax(tree), getattr(openpose, f"{part}_forward"), x
+    mod = {"hed": hed, "pidinet": pidinet, "mlsd": mlsd}[name]
+    fwd = {"hed": hed.hed_forward, "pidinet": pidinet.pidinet_forward,
+           "mlsd": mlsd.mlsd_forward}[name]
+    if name == "mlsd":
+        x = torch.cat([x, torch.ones_like(x[:, :1])], 1)
+    gain = 1.0 if name == "pidinet" else 2 ** 0.5
+    return mod.SHAPES, params_from_jax(mod.init_params(0, gain=gain)), fwd, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["hed", "pidinet", "mlsd", "midas", "openpose_body",
+                                  "openpose_hand", "openpose_face"])
+def test_annotator_network_on_the_card_matches_the_cpu(name):
+    """Each annotator network on the card against itself on the CPU, same
+    weights and input, fp32 (cuDNN's TF32 off in the depthwise and dilated
+    convs too): every output within relative L2 1e-4."""
+    from pfd_tpu_torch.annotators import nets
+
+    _need_cuda()
+    shapes, sd, fwd, x = _annotator_case(name)
+    with torch.no_grad():
+        got = fwd(nets.build(shapes, sd, "cuda"), x.cuda())
+        want = fwd(nets.build(shapes, sd, "cpu"), x)
+    got = got if isinstance(got, (list, tuple)) else [got]
+    want = want if isinstance(want, (list, tuple)) else [want]
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.dtype == torch.float32
+        assert _rel_l2(g, w) <= 1e-4
+
+
+def _ctl_pipe(root):
+    """``_TINY_PFD`` with a ControlNet (an f=8 VAE: the hint pyramid is fixed
+    8x) on the card, de-zeroed, its networks read under ``root``."""
+    import copy
+
+    from pfd_tpu_torch.models.build import dezero_
+    from pfd_tpu_torch.pipeline import PromptFreeDiffusionPipeline
+
+    cfg = copy.deepcopy(_TINY_PFD)
+    cfg["type"] = "pfd_with_control"
+    cfg["args"]["vae_cfg_list"][0][1]["args"]["ddconfig"]["ch_mult"] = [1, 1, 2, 2]
+    cfg["args"]["ctl_cfg"] = {"type": "controlnet", "args": dict(
+        image_size=None, in_channels=4, hint_channels=3, model_channels=32,
+        attention_resolutions=[1, 2], num_res_blocks=1, channel_mult=[1, 2], num_heads=4,
+        use_spatial_transformer=True, transformer_depth=1, context_dim=128,
+        use_checkpoint=False, legacy=False)}
+    pipe = PromptFreeDiffusionPipeline(fp16=True, config_override=cfg, device="cuda",
+                                       pretrained_root=str(root), self_attn_fn=fa.self_attn_fn)
+    dezero_(pipe.net, torch.Generator(device="cuda").manual_seed(1))
+    return pipe
+
+
+@pytest.mark.cuda
+def test_hed_request_graphed_equals_eager(tmp_path):
+    """A 256^2 request with ``ctl_method="hed"``: HED (full width, read from
+    its upstream-layout file under the pipeline's root) on the card, its hint
+    into the captured bucket; the replay equals the eager request bit for
+    bit (image and hint), adds the captured launches, and differs from the
+    canny request."""
+    import os
+    from unittest import mock
+
+    import numpy as np
+    from pfd_tpu_torch.annotators import nets
+    from pfd_tpu_torch.annotators.nets import hed
+    from pfd_tpu_torch.io.convert import params_from_jax
+    from pfd_tpu_torch.ops import graphs
+
+    _need_cuda()
+    sd = params_from_jax(hed.init_params(0, gain=2 ** 0.5))
+    path = nets.pretrained_path("hed", "ControlNetHED.pth", root=str(tmp_path))
+    os.makedirs(os.path.dirname(path))
+    torch.save(dict(sd, norm=sd["norm"].reshape(1, 3, 1, 1)), path)
+    pipe = _ctl_pipe(tmp_path)
+    rng = np.random.default_rng(2)
+    ref = rng.random((64, 64, 3), dtype=np.float32)
+    imctl = np.zeros((256, 256, 3), np.float32)
+    imctl[64:192, 80:200] = 1.0
+    imctl += 0.02 * rng.random(imctl.shape, dtype=np.float32)
+    (key,) = pipe.warmup(sizes=((256, 256),), with_control=True, steps=4)
+    (stats,) = pipe._graphs[key].stats
+    assert {"flash_attention", "cross_attention"} <= set(stats["launches"])
+
+    def request(method):
+        return pipe.action_inference(ref, imctl, method, True, 256, 256, 2.0, 1, steps=4)
+
+    before = graphs.launch_counts()
+    got = request("hed")
+    after = graphs.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] - before[k]} == stats["launches"]
+    with mock.patch.object(graphs.Graphed, "__call__", graphs.Graphed.eager):
+        want = request("hed")
+    assert len(got) == 2 and all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert np.isfinite(got[0]).all() and 0 <= got[0].min() and got[0].max() <= 1
+    assert 0 < got[1].mean() < 1
+    assert not np.array_equal(got[0], request("canny")[0])

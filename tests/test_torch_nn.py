@@ -83,6 +83,54 @@ def test_conv2d_asymmetric_pad():
     _close(tn.conv2d(_nchw(x), m, stride=2, padding=(0, 1, 0, 1)), want, nhwc=True)
 
 
+@pytest.mark.parametrize("groups,dilation,k,pad", [
+    (8, 1, 3, 1),      # depthwise (PiDiNet, MLSD)
+    (8, 1, 5, 2),      # depthwise 5x5 (PiDiNet's folded rd layers)
+    (2, 1, 3, 1),      # grouped
+    (1, 5, 3, 5),      # dilated (MLSD's block23)
+    (1, 11, 3, 11),    # dilated (PiDiNet's CDCM)
+    (8, 2, 3, 2)])     # both
+def test_conv2d_grouped_and_dilated(groups, dilation, k, pad):
+    rng = _rng(9)
+    x = rng.standard_normal((2, 13, 11, 8)).astype(np.float32)
+    w = (rng.standard_normal((16, 8 // groups, k, k)) * 0.2).astype(np.float32)
+    m = tnn.Conv2d(8, 16, k, groups=groups, dilation=dilation).requires_grad_(False)
+    with torch.no_grad():
+        m.weight.copy_(torch.from_numpy(w))
+    p = {"kernel": jnp.asarray(w.transpose(2, 3, 1, 0)), "bias": jnp.asarray(m.bias.numpy())}
+    want = jnn.conv2d(jnp.asarray(x), p, padding=pad, dilation=dilation, groups=groups)
+    _close(tn.conv2d(_nchw(x), m, padding=pad, dilation=dilation, groups=groups), want,
+           nhwc=True)
+
+
+def test_batch_norm():
+    rng = _rng(10)
+    x = rng.standard_normal((2, 5, 6, 12)).astype(np.float32) * 3
+    m = tnn.BatchNorm2d(12).eval().requires_grad_(False)
+    with torch.no_grad():
+        m.weight.copy_(torch.from_numpy(1 + 0.3 * rng.standard_normal(12).astype(np.float32)))
+        m.bias.copy_(torch.from_numpy(0.3 * rng.standard_normal(12).astype(np.float32)))
+        m.running_mean.copy_(torch.from_numpy(rng.standard_normal(12).astype(np.float32)))
+        m.running_var.copy_(torch.from_numpy(rng.random(12).astype(np.float32) + 0.5))
+    p = {"scale": jnp.asarray(m.weight.numpy()), "bias": jnp.asarray(m.bias.numpy()),
+         "running_mean": jnp.asarray(m.running_mean.numpy()),
+         "running_var": jnp.asarray(m.running_var.numpy())}
+    want = jnn.batch_norm(jnp.asarray(x), p)
+    got = tn.batch_norm(_nchw(x), m)
+    _close(got, want, nhwc=True, atol=1e-5)
+    _close(got, m(_nchw(x)).numpy(), atol=1e-5)  # torch's own, inference mode
+
+
+@pytest.mark.parametrize("hw", [(8, 8), (7, 9)])
+def test_max_pool_2x2(hw):
+    import jax
+
+    x = _rng(11).standard_normal((1,) + hw + (3,)).astype(np.float32)
+    want = jax.lax.reduce_window(jnp.asarray(x), -jnp.inf, jax.lax.max,
+                                 (1, 2, 2, 1), (1, 2, 2, 1), "VALID")
+    _close(tn.max_pool_2x2(_nchw(x)), want, nhwc=True, atol=0)
+
+
 @pytest.mark.parametrize("bias", [True, False])
 def test_linear(bias):
     rng = _rng(3)

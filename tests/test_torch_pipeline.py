@@ -289,8 +289,8 @@ def test_autoset_hw_and_unported_surfaces(tmp_path):
             _tiny_pipe(pretrained_root=str(root), config_override=PFD_CTL)
     pipe = _tiny_pipe(config_override=PFD_CTL)
     ref = np.zeros((64, 64, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="HED"):
-        pipe.action_inference(ref, ref, "hed", h=64, w=64, steps=2)
+    with pytest.raises(NotImplementedError, match="seg"):
+        pipe.action_inference(ref, ref, "seg", h=64, w=64, steps=2)
 
 
 def test_control_request_matches_pfd_tpu_through_kernels(monkeypatch):
@@ -342,6 +342,78 @@ def test_control_request_matches_pfd_tpu_through_kernels(monkeypatch):
     plain_img = pipe.action_inference(ref_img, None, "canny", True, 256, 256, 2.0, 42, steps=4)
     assert len(plain_img) == 1 and sorted(calls) == [16] * 12 + [1024] * 12
     assert np.abs(plain_img[0] - got).max() > 1e-2
+
+
+def _structured_hint(rng, shape=(200, 300, 3)):
+    imctl = np.zeros(shape, np.float32)
+    imctl[50:150, 80:220] = 1.0
+    imctl[90:110, 120:260] = 0.5
+    return imctl + 0.02 * rng.random(shape, dtype=np.float32)
+
+
+def test_hed_request_matches_pfd_tpu(tmp_path):
+    """``action_inference(ref, imctl, "hed", ...)``: HED's weights are read
+    from the upstream-layout file under the pipeline's ``pretrained_root``
+    (norm (1, 3, 1, 1)); the hint equals pfd_tpu's ``preprocess(...,
+    params=)`` on the same weights (99.9% of its 8-bit levels, the rest one
+    apart) and the image pfd_tpu's SeeCoder -> CFG DDIM with that hint ->
+    VAE decode within max-abs 2e-3 (plain attention on both sides, a
+    128x128 request, 4 steps)."""
+    from pfd_tpu_torch.annotators.nets import hed as thed, pretrained_path
+    from tests.test_torch_annotator_nets import assert_hints_match
+
+    jm = jreg.get(PFD_CTL["type"])(**PFD_CTL["args"])
+    params = numpy_params(jm, 0)
+    rng = np.random.default_rng(9)
+    ref_img = rng.random((64, 64, 3), dtype=np.float32)
+    imctl = _structured_hint(rng)
+    tree = thed.init_params(0, gain=2 ** 0.5)
+    sd = params_from_jax(tree)
+    sd["norm"] = sd["norm"].reshape(1, 3, 1, 1)
+    path = pretrained_path("hed", "ControlNetHED.pth", root=str(tmp_path))
+    os.makedirs(os.path.dirname(path))
+    torch.save(sd, path)
+
+    pipe = _tiny_pipe(config_override=PFD_CTL, self_attn_fn=None, pretrained_root=str(tmp_path))
+    pipe.net.load_state_dict(params_from_jax(params), strict=True)
+    got, hint = pipe.action_inference(ref_img, imctl, "hed", True, 128, 128, 2.0, 42, steps=4)
+
+    want_hint = jann.preprocess(jann.resize_image(imctl, (128, 128), method="bicubic"),
+                                method="hed", size=(128, 128), params=tree)
+    assert_hints_match(hint, want_hint)
+    x_start = torch.randn((1, 4, 16, 16), generator=torch.Generator().manual_seed(42))
+    x_start = x_start.numpy().transpose(0, 2, 3, 1)
+    c = jax.jit(jm.ctx_encode)(params, jnp.asarray(ref_img)[None])
+    x, _ = JDDIM(jm).sample(
+        params, jax.random.PRNGKey(0), x_start.shape, x_info={"xt": jnp.asarray(x_start)},
+        c_info={"conditioning": c, "unconditional_conditioning": jnp.zeros_like(c),
+                "unconditional_guidance_scale": 2.0, "control": jnp.asarray(want_hint)[None]},
+        steps=4, eta=0.0)
+    want = np.asarray(jax.jit(jm.vae_decode)(params, x))[0]
+    assert 0.02 < want.std()
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-3)
+
+
+def test_the_diffuser_weights_never_reach_a_network(monkeypatch, tmp_path):
+    """pfd_tpu hands its composite params to ``preprocess`` as the
+    network's weights (pipeline.py:332-333); the port passes none, only
+    its ``pretrained_root`` and device, so a network reads its own file."""
+    from pfd_tpu_torch import annotators as tann_mod
+
+    seen = []
+    real = tann_mod.preprocess
+    monkeypatch.setattr(tann_mod, "preprocess",
+                        lambda x, **kw: seen.append(kw) or real(x, **dict(kw, method="canny")))
+    pipe = _tiny_pipe(config_override=PFD_CTL, self_attn_fn=None, pretrained_root=str(tmp_path))
+    ref = np.zeros((64, 64, 3), np.float32)
+    for method in ("hed", "depth", "openpose_withfacehand"):
+        pipe.action_inference(ref, ref + 0.5, method, h=64, w=64, steps=2)
+    assert [k.get("params") for k in seen] == [None] * 3
+    assert {(k["root"], k["device"]) for k in seen} == {(str(tmp_path), torch.device("cpu"))}
+    assert [k["method"] for k in seen] == ["hed", "depth", "openpose_withfacehand"]
+    # without the files, the networks do not run on anything else
+    with pytest.raises(FileNotFoundError, match="ControlNetHED.pth"):
+        real(ref, method="hed", root=str(tmp_path), device="cpu")
 
 
 @pytest.mark.parametrize("name", ["pfd_seecoder", "pfd_seecoder_pa",
