@@ -196,11 +196,37 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``LaunchPlan``'s K1 and K2, and each network's image differing from
    canny's; one int8 request with the depth hint at ``LaunchPlan``'s
    ``conv_int8``, K4, K2 and K1 count, equal to its eager twin;
-14. a ``kernels`` JSON line (``launches``: the graphed requests of phase
+14. (run after phase 10, on phase 5's bf16 pipeline: config #1's path, no
+   hint) the CLIP and OpenCLIP context encoders, multi-context mixing and
+   Euler-ancestral sampling at 512^2, b1, CFG 2.0: K2 at the new key counts
+   (77: a CLIP text context, 83 of the resident tile's keys masked; 257: a
+   CLIP image context, K1's key loop with a one-key last tile) at ds1 and
+   ds2 against its plain version, with the softmax row sums (all-ones
+   values: 1 within one bf16 ulp); the eleven encoders at published width
+   (CLIP ViT-L/14 vision, plain, masked and position-agnostic, and text:
+   SD-v1, projected, customized embedding; OpenCLIP ViT-H-14 text:
+   penultimate, projected, tokenizers v1, v2 and v3, v3 with rank-4 LoRA
+   adapters, and visual with and without masks) from numpy-seeded weights in
+   fp32, each on the card within relative L2 1e-5 of the host's run of the
+   same weights and inputs, with its forward ms (CUDA events, median of 3),
+   and v3's adapters against its merged weights; then five requests, each a
+   finite image in [0, 1], the same seed bit for bit, the 10-step final
+   latent through the kernels within ``compare_eps``'s bound of plain
+   attention, at ``LaunchPlan``'s K1 and K2 count (``contexts``), with its
+   s/img: ``clip_image`` (DDIM-50 on the reference's 257 CLIP image tokens,
+   zero unconditional context), ``clip_text`` (DDIM-50 on fixed ids' 77 CLIP
+   text tokens, the empty prompt's as the unconditional context),
+   ``multi_attn`` (DDIM-50, SeeCoder of the reference at 0.6 and CLIP image
+   of the hint image at 0.4, ``"attention"`` mixing: each long block twice),
+   ``multi_layer`` (the same, ``"layer"`` mixing, 10 steps, the pathways
+   from the generator) and ``euler_a`` (Euler-ancestral, 50 steps, eta 1.0,
+   on SeeCoder's context); the encoders are freed at its end;
+15. a ``kernels`` JSON line (``launches``: the graphed requests of phase
    8c, F for the bf16 kernels, G for the int8 ones and E for K5; every
    serving request's counts, the turbo ones', the graphed ones' and phases
-   12's and 13's too, in ``launches_by_request``),
-   the card's name and power limit, then the device JSON as the last line.
+   12's, 13's and 14's too, in ``launches_by_request``; K2's rows phase 14's
+   too), the card's name and power limit, then the device JSON as the last
+   line.
 
 Imports neither JAX nor ``pfd_tpu``.
 """
@@ -740,7 +766,7 @@ class LaunchPlan:
                     n["conv"] += convs(unet.data_blocks[op[1]])
                     res = res // 2 if kind == "down" else res * 2 if kind == "up" else res
                 elif op[0] == "c":
-                    n["conv"] += convs(unet.context_blocks[op[1]])
+                    n["ctx_conv"] += convs(unet.context_blocks[op[1]])
                     if res * res >= 1024:
                         n["ds1" if res == self.lat else "ds2"] += 1
             return n
@@ -785,9 +811,12 @@ class LaunchPlan:
             return [("full" if i % encoder_interval == 0 else "dec", False) for i in range(steps)]
         return [("full", False)] * steps
 
-    def expected(self, steps=50, control=False, quantized=False, attn8=False, kv=False, **turbo):
+    def expected(self, steps=50, control=False, quantized=False, attn8=False, kv=False,
+                 contexts=1, **turbo):
         """{counter: launches} of one request (``launch_counts()``'s keys);
-        ``attn8``: the int8 self-attention, K4 (True) or K5 ("full")."""
+        ``attn8``: the int8 self-attention, K4 (True) or K5 ("full");
+        ``contexts``: the times each context block runs a call (multicontext
+        ``"attention"`` mixing runs it once per context, ``"layer"`` once)."""
         self_attn = {False: "flash_attention", True: "flash_attention_pv8",
                      "full": "flash_attention_int8"}[attn8]
         n = dict.fromkeys(("flash_attention", "cross_attention", "flash_attention_pv8",
@@ -797,10 +826,10 @@ class LaunchPlan:
             if call == "full" and control:
                 parts.append(self.ctl)
             for p in parts:
-                n["cross_attention"] += p["ds1"] + p["ds2"]
-                n["cross_attention" if kv and reuse else self_attn] += p["ds1"]
-                n[self_attn] += p["ds2"]
-                n["conv_int8"] += p["conv"] if quantized else 0
+                n["cross_attention"] += (p["ds1"] + p["ds2"]) * contexts
+                n["cross_attention" if kv and reuse else self_attn] += p["ds1"] * contexts
+                n[self_attn] += p["ds2"] * contexts
+                n["conv_int8"] += p["conv"] + p["ctx_conv"] * contexts if quantized else 0
         n["flash_attention"] += 1  # the VAE's mid-block attention
         if quantized:
             n["conv_int8"] += self.vae_convs + (self.hint_convs if control else 0)
@@ -1962,6 +1991,330 @@ def _preprocess_stack(card, ref, hint_src, root):
     return served
 
 
+# phase 14: a fixed prompt's CLIP token ids (start, words, end of text) and
+# the empty prompt's, each padded with end-of-text ids to 77; the custom
+# tokens of the customized tokenizers take the ids after the vocabulary's
+CLIP_PROMPT_IDS = [49406, 320, 1125, 539, 320, 2368, 530, 518, 3144, 49407]
+CLIP_VOCAB = 49408
+CLIP_EOT = 49407
+
+
+def clip_ids(ids, n=77):
+    import numpy as np
+    return np.array([list(ids) + [CLIP_EOT] * (n - len(ids))], np.int64)
+
+
+def clip_encoders(seed=0):
+    """Phase 14's encoders on the host at published widths, from numpy-seeded
+    trees (``models/clip.py``'s inits, carried across by ``params_from_jax``):
+    CLIP ViT-L/14 vision (24 x 1024, 16 heads, patch 14, 224^2, projection
+    768) and text (12 x 768, 12 heads, vocabulary 49408, 77 positions,
+    projection 768), OpenCLIP ViT-H-14 text (24 x 1024, 16 heads) and visual
+    (32 x 1280, 16 heads, embed 1024, exact GELU). The eleven encoders share
+    their tower's modules; the customized ones add their learned tables
+    (N(0, 0.02^2), as ``pfd_tpu``'s ``init_custom``). Returns {name: module}."""
+    import gc
+
+    import numpy as np
+    import torch
+    from pfd_tpu_torch import registry
+    from pfd_tpu_torch.io.convert import params_from_jax
+    from pfd_tpu_torch.models import clip
+    from pfd_tpu_torch.models.build import materialize
+
+    rng = np.random.default_rng(seed)
+
+    def meta(name, **args):
+        with torch.device("meta"):
+            return registry.get(name)(**args)
+
+    def load(name, tree, **args):
+        m = materialize(meta(name, **args), "cpu")
+        m.load_state_dict(params_from_jax(tree), strict=True)
+        return m
+
+    def share(name, base, **args):
+        m = meta(name, **args)
+        for key in list(m._modules) + list(m._parameters):
+            if key in base._modules or key in base._parameters:
+                setattr(m, key, getattr(base, key))
+        for key, mod in list(m._modules.items()):
+            if isinstance(mod, torch.nn.Embedding) and mod.weight.is_meta:
+                table = rng.standard_normal(tuple(mod.weight.shape), dtype=np.float32) * 0.02
+                setattr(m, key, torch.nn.Embedding.from_pretrained(torch.from_numpy(table)))
+        if any(p.is_meta for p in m.parameters()):
+            raise AssertionError(f"{name}: a parameter is neither shared nor drawn")
+        return m
+
+    enc = {}
+    enc["clip_image"] = load("clip_image_context_encoder", clip.init_clip_vision(rng))
+    enc["clip_image_pa"] = share("clip_image_context_encoder_position_agnostic",
+                                 enc["clip_image"])
+    gc.collect()
+    enc["clip_text"] = load("clip_text_context_encoder", clip.init_clip_text(rng))
+    enc["clip_text_sdv1"] = share("clip_text_context_encoder_sdv1", enc["clip_text"])
+    enc["clip_text_ce"] = share("clip_text_sdv1_customized_embedding", enc["clip_text"])
+    gc.collect()
+    enc["openclip_text"] = load("openclip_text_context_encoder", clip.init_openclip_text(rng))
+    enc["openclip_text_sdv2"] = share("openclip_text_context_encoder_sdv2",
+                                      enc["openclip_text"], layer="penultimate")
+    for v, kw in (("v1", {}), ("v2", {}), ("v3", {"texpand": 4, "lora_rank": 4})):
+        enc[f"openclip_text_{v}"] = share(
+            f"openclip_text_context_encoder_sdv2_customized_tokenizer_{v}",
+            enc["openclip_text"], customized_tokens=["<a>", "<b>"], **kw)
+    gc.collect()
+    enc["openclip_image"] = load("openclip_image_context_encoder",
+                                 clip.init_openclip_visual(rng))
+    gc.collect()
+    for m in enc.values():
+        m.eval().requires_grad_(False)
+    return enc
+
+
+def clip_inputs(ref, hint_src):
+    """Phase 14's encoder inputs (host tensors): the reference and hint
+    images NCHW, a 0/1 mask of the hint's bright shapes, the prompt's and the
+    empty prompt's ids, the customized-embedding pair (4 marker slots) and
+    the customized tokenizers' id triples (two custom tokens, texpand 1 and
+    4; ``pfd_tpu``'s ``_split_custom_tokens`` and ``_pad_rows``)."""
+    import numpy as np
+    import torch
+    from pfd_tpu_torch.models import clip
+
+    def nchw(a):
+        return torch.from_numpy(np.ascontiguousarray(a.transpose(2, 0, 1)))[None]
+
+    ce_ids = clip_ids([49406, 320, 0, 1, 2, 3, 2368, CLIP_EOT])
+    ce_mask = np.zeros_like(ce_ids)
+    ce_mask[0, 2:6] = 1
+    rows = [[49406, 320, CLIP_VOCAB, 539, CLIP_VOCAB + 1, 2368, CLIP_EOT]]
+
+    def triple(texpand):
+        r, c, m = clip._split_custom_tokens(rows, CLIP_VOCAB, texpand)
+        return (clip._pad_rows(r, 77, eot=CLIP_EOT), clip._pad_rows(c, 77),
+                clip._pad_rows(m, 77))
+
+    return {"ref": nchw(ref), "hint": nchw(hint_src),
+            "mask": nchw((hint_src[..., :1] > 0.25).astype(np.float32)),
+            "ids": clip_ids(CLIP_PROMPT_IDS), "empty": clip_ids([49406]),
+            "ce": (ce_ids, ce_mask), "t1": triple(1), "t4": triple(4)}
+
+
+def check_row_sums(qshape, skv, gen):
+    """K2's softmax row sums: with all-ones values its output is
+    sum(p) / l, 1 wherever no masked key leaks into a row (the resident
+    tile's padding at 77 keys, the key loop's one-key tail at 257). A
+    leak biases the output by far more than one bf16 ulp above 1 (2^-7)."""
+    import torch
+    from pfd_tpu_torch.ops import flash_attention as fa
+
+    b, h, sq, d = qshape
+    q = torch.randn(qshape, generator=gen, device="cuda").bfloat16()
+    k = torch.randn((b, h, skv, d), generator=gen, device="cuda").bfloat16()
+    ones = torch.ones((b, h, skv, d), device="cuda", dtype=torch.bfloat16)
+    err = (fa.cross_attention(q, k, ones).float() - 1).abs().max().item()
+    err_plain = (fa.attention_plain(q, k, ones).float() - 1).abs().max().item()
+    print(f"K2 row sums {list(qshape)} skv={skv}: max |o - 1| kernel {err:.3e}, plain "
+          f"{err_plain:.3e} (limit {2 ** -7:.3e})", flush=True)
+    if not max(err, err_plain) <= 2 ** -7:
+        raise AssertionError(f"K2 {qshape} skv={skv}: row sums off 1 by {err}")
+    return err
+
+
+def clip_paths(card, pipe, lp, ref, hint_src, mufu_rate, gen, sms):
+    """Phase 14: the CLIP and OpenCLIP context encoders at published width,
+    multi-context mixing and Euler-ancestral sampling at 512^2, b1, CFG 2.0,
+    on phase 5's bf16 pipeline, through K1 and K2; K2 at the new key counts.
+    Returns (K2's new rows, {request: launches})."""
+    import torch
+
+    t_phase = time.perf_counter()
+    try:
+        return _clip_paths(card, pipe, lp, ref, hint_src, mufu_rate, gen, sms)
+    finally:
+        torch.cuda.empty_cache()
+        print(f"phase 14 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def _clip_paths(card, pipe, lp, ref, hint_src, mufu_rate, gen, sms):
+    import gc
+
+    import numpy as np
+    import torch
+    from pfd_tpu_torch.diffusion.kdiffusion import KDiffusionSampler
+    from pfd_tpu_torch.ops import flash_attention as fa
+    from pfd_tpu_torch.training import lora
+
+    # K2 at the CLIP contexts' key counts: 77 (83 of the resident tile's 160
+    # keys masked) and 257 (K1's key loop, a one-key last tile)
+    k2_rows = []
+    for qshape, skv in [((2, 8, 4096, 40), 77), ((2, 8, 1024, 80), 77),
+                        ((2, 8, 4096, 40), 257), ((2, 8, 1024, 80), 257)]:
+        k2_rows.append(check_kernel("K2", fa.cross_attention, qshape, skv, mufu_rate, gen,
+                                    fa.cross_variant(qshape[0] * qshape[1], qshape[2], skv,
+                                                     qshape[3], sms)))
+        k2_rows[-1]["row_sum_err"] = check_row_sums(qshape, skv, gen)
+
+    # the encoders: the host's run, then the card's, of the same weights and inputs
+    t0 = time.perf_counter()
+    enc = clip_encoders()
+    inp = clip_inputs(ref, hint_src)
+    n_params = {k: sum(p.numel() for p in m.parameters()) / 1e6 for k, m in enc.items()}
+    print(f"phase 14 encoders built on the host in {time.perf_counter() - t0:.1f} s (M "
+          f"parameters with the shared towers: {json.dumps(n_params)})", flush=True)
+    adapters = enc["openclip_text_v3"].init_lora(torch.Generator().manual_seed(3))
+    lgen = torch.Generator().manual_seed(4)
+    for a in adapters.values():  # trained-looking adapters: B away from its zero init
+        a["lora_B"] = 0.02 * torch.randn(a["lora_B"].shape, generator=lgen)
+
+    def calls(dev, ad):
+        def on(t):
+            return t.to(dev) if torch.is_tensor(t) else t
+        return {
+            "clip_image": lambda: enc["clip_image"].encode(on(inp["ref"])),
+            "clip_image masked": lambda: enc["clip_image"].encode(on(inp["ref"]), on(inp["mask"])),
+            "clip_image_position_agnostic": lambda: enc["clip_image_pa"].encode(on(inp["ref"])),
+            "clip_text_sdv1": lambda: enc["clip_text_sdv1"].encode(inp["ids"]),
+            "clip_text": lambda: enc["clip_text"].encode(inp["ids"]),
+            "clip_text_sdv1_customized_embedding": lambda: enc["clip_text_ce"].encode(inp["ce"]),
+            "openclip_text_sdv2 penultimate": lambda: enc["openclip_text_sdv2"].encode(inp["ids"]),
+            "openclip_text": lambda: enc["openclip_text"].encode(inp["ids"]),
+            "openclip_text_v1": lambda: enc["openclip_text_v1"].encode(inp["t1"]),
+            "openclip_text_v2": lambda: enc["openclip_text_v2"].encode(inp["t1"]),
+            "openclip_text_v3": lambda: enc["openclip_text_v3"].encode(inp["t4"]),
+            "openclip_text_v3 lora4": lambda: enc["openclip_text_v3"].encode(inp["t4"],
+                                                                             adapters=ad),
+            "openclip_image": lambda: enc["openclip_image"].encode(on(inp["ref"])),
+            "openclip_image masked": lambda: enc["openclip_image"].encode(on(inp["ref"]),
+                                                                          on(inp["mask"])),
+        }
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        host = {k: fn() for k, fn in calls("cpu", adapters).items()}
+    print(f"phase 14 encoders' host run: {time.perf_counter() - t0:.1f} s", flush=True)
+    for m in enc.values():
+        m.to("cuda")
+    ad_card = {k: {n: t.to("cuda") for n, t in a.items()} for k, a in adapters.items()}
+    card_calls = calls("cuda", ad_card)
+    rows = {}
+    with torch.no_grad():
+        for name, fn in card_calls.items():
+            out = fn()
+            times = []
+            for _ in range(3):
+                s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                s.record()
+                fn()
+                e.record()
+                torch.cuda.synchronize()
+                times.append(s.elapsed_time(e))
+            rel = rel_l2(out, host[name])
+            rows[name] = {"shape": list(out.shape), "rel_l2_card_vs_host": rel,
+                          "ms": statistics.median(times), "finite": bool(torch.isfinite(out).all())}
+            print(f"encoder {name}: {json.dumps(rows[name])}", flush=True)
+            if not (rel <= 1e-5 and rows[name]["finite"]):
+                raise AssertionError(f"encoder {name}: card against host rel_l2 {rel}")
+        # v3's adapters against its merged weights, loaded in place and put back
+        v3 = enc["openclip_text_v3"]
+        merged = lora.merge(v3, ad_card)
+        saved = {k: v.detach().clone() for k, v in v3.state_dict().items() if k in merged}
+        v3.load_state_dict(merged, strict=False)
+        out_merged = v3.encode(inp["t4"])
+        v3.load_state_dict(saved, strict=False)
+        out_ad = card_calls["openclip_text_v3 lora4"]()
+        rel = rel_l2(out_ad, out_merged)
+        print(f"openclip_text_v3: adapters against merged weights rel_l2 {rel:.3e}, "
+              f"bit for bit {torch.equal(out_ad, out_merged)}; against no adapters "
+              f"{rel_l2(out_ad, card_calls['openclip_text_v3']()):.3e}", flush=True)
+        if not rel <= 1e-6:
+            raise AssertionError(f"openclip_text_v3: adapters against merged rel_l2 {rel}")
+        c_clip_img = card_calls["clip_image"]()
+        c_clip_hint = enc["clip_image"].encode(inp["hint"].to("cuda"))
+        c_text = card_calls["clip_text_sdv1"]()
+        u_text = enc["clip_text_sdv1"].encode(inp["empty"])
+        c_see = pipe.encode_context(ref)
+    del enc, host, card_calls, ad_card, adapters, merged, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the five named requests, on phase 5's bf16 pipeline
+    net = pipe.net
+    see = {"conditioning": c_see, "unconditional_conditioning": pipe.negative_context(c_see),
+           "unconditional_guidance_scale": 2.0}
+    mix = [{"type": "image", "conditioning": c, "unconditional_conditioning": torch.zeros_like(c),
+            "unconditional_guidance_scale": 2.0, "ratio": r}
+           for c, r in ((c_see, 0.6), (c_clip_hint, 0.4))]
+
+    def ddim(c, u):
+        def run(attn, steps):
+            x = pipe.start_latent(42, 512, 512, steps)[0]
+            ci = {"conditioning": c, "unconditional_conditioning": u,
+                  "unconditional_guidance_scale": 2.0}
+            return pipe.sampler.sample_fn(x, ci, pipe.sampler.make_tables(steps),
+                                          self_attn_fn=attn)[0]
+        return run
+
+    def multi(mixing):
+        def run(attn, steps):
+            g = torch.Generator(device="cuda").manual_seed(42)
+            x = torch.randn((1, 4, 64, 64), generator=g, device="cuda")
+            return pipe.sampler.sample_multicontext(x.shape, {"xt": x}, mix, steps=steps,
+                                                    mixing_type=mixing, generator=g,
+                                                    self_attn_fn=attn)[0]
+        return run
+
+    def euler(attn, steps):
+        g = torch.Generator(device="cuda").manual_seed(42)
+        return KDiffusionSampler(net).sample_euler_ancestral((1, 4, 64, 64), see, steps=steps,
+                                                             eta=1.0, generator=g,
+                                                             self_attn_fn=attn)
+
+    requests = {"clip_image": (ddim(c_clip_img, torch.zeros_like(c_clip_img)), 50, 1),
+                "clip_text": (ddim(c_text, u_text), 50, 1),
+                "multi_attn": (multi("attention"), 50, 2),
+                "multi_layer": (multi("layer"), 10, 1),
+                "euler_a": (euler, 50, 1)}
+    print(f"phase 14 contexts: clip_image {list(c_clip_img.shape)}, clip_text "
+          f"{list(c_text.shape)}, SeeCoder {list(c_see.shape)}, hint's clip_image "
+          f"{list(c_clip_hint.shape)}", flush=True)
+
+    def serve_one(label, sample, steps, contexts):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            img = net.vae_decode(sample(fa.self_attn_fn, steps), "image")
+        img = img[0].permute(1, 2, 0).float().cpu().numpy()
+        s = time.perf_counter() - t0
+        launches = launch_counts()
+        check_image(img, label)
+        want = lp.expected(steps=steps, contexts=contexts)
+        if launches != want:
+            raise AssertionError(f"request {label}: launches {launches}, want {want}")
+        return img, s, launches
+
+    served, summary = {}, {}
+    for label, (sample, steps, contexts) in requests.items():
+        img, s, launches = serve_one(label, sample, steps, contexts)
+        img2, s2, _ = serve_one(label, sample, steps, contexts)
+        if not np.array_equal(img, img2):
+            raise AssertionError(f"request {label}: the same seed is not bit-identical")
+        with torch.no_grad():
+            lat_k = sample(fa.self_attn_fn, 10).float()
+            lat_p = sample(None, 10).float()
+        rel = compare_eps(f"request {label}'s 10-step final latent, kernels vs plain attention",
+                          lat_k, lat_p)
+        served[label] = launches
+        summary[label] = {"steps": steps, "s_per_img": [s, s2], "launches": launches,
+                          "latent_rel_l2_vs_plain_10": rel, "image_mean": float(img.mean()),
+                          "image_std": float(img.std())}
+        print(f"request {label}: {json.dumps(summary[label])}", flush=True)
+    print(f"phase 14 on {card}: {json.dumps({k: v['s_per_img'] for k, v in summary.items()})}",
+          flush=True)
+    return k2_rows, served
+
+
 def main() -> int:
     import torch
 
@@ -2414,6 +2767,11 @@ def main() -> int:
     # ---- 10. the kernel labs ---------------------------------------------------
     lab_launches = run_labs()
 
+    # ---- 14. the CLIP/OpenCLIP encoders, multi-context, Euler-ancestral --------
+    # on phase 5's pipeline, before phase 11 frees it
+    k2_clip_rows, clip_served = clip_paths(card, pipe, lp, ref, hint_src, mufu_rate, gen, sms)
+    k2_rows += k2_clip_rows
+
     # ---- 11. the quality gates -------------------------------------------------
     del pipe, pipe8, net, net8, p, h_mid, hs, h_deep, hs_1, key_step, reuse_step
     torch.cuda.empty_cache()
@@ -2425,11 +2783,11 @@ def main() -> int:
     # ---- 13. config #4: the annotator networks into the ControlNet path --------
     net_served = preprocess_stack(card, ref, hint_src)
 
-    # ---- 14. summary ---------------------------------------------------------
+    # ---- 15. summary ---------------------------------------------------------
     served = {"A": launches, "D": launches_d, "E": launches_e, "F": launches_f,
               "G": launches_g, **{k: turbo_served[k] for k in ("H", "H_kv", "H_tome", "I", "J",
                                                                "J0")}, **graph_served,
-              **zoo_served, **net_served}
+              **zoo_served, **net_served, **clip_served}
     # the main path's launches: the graphed requests F (bf16), G (int8) and E
     # (K5), each held to the kernels the profiler saw run
     launches_f, launches_g = graph_served["graphed F"], graph_served["graphed G"]

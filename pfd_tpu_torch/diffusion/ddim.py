@@ -11,6 +11,11 @@ ahead by :meth:`DDIMSampler.eta_noise` (a captured graph draws nothing):
 torch cannot replay ``jax.random``, so the tests pass the start latent
 (and the img2img noise) in explicitly.
 
+``sample_multicontext`` (ddim.py:75-140) samples over several context
+streams mixed per context block (``apply_model_multicontext``), one
+guidance scale shared by all; its ``"layer"`` pathways and its noise come
+from the caller's generator or are passed in (``multicontext_draws``).
+
 The guidance scale is a Python number or a 0-d fp32 tensor on the
 latent's device (an input of a captured graph, as ``pfd_tpu`` traces it);
 both give the same numbers bit for bit, since a number is rounded to fp32
@@ -59,6 +64,27 @@ import numpy as np
 import torch
 
 from pfd_tpu_torch.diffusion import schedules as sched_lib
+
+
+def ddim_step(xt, row, e_t):
+    """One DDIM update without its noise: (x_prev in fp32, pred_x0) from eps
+    ``e_t`` and a table ``row`` (t, alpha, alpha_prev, sqrt(1 - alpha),
+    sigma), whose entries are fp32 scalars, as in the pfd_tpu scan."""
+    _, a_t, a_prev, s1m, sigma = (np.float32(v) for v in row)
+    xf = xt.float()
+    pred_x0 = (xf - float(s1m) * e_t) / float(np.sqrt(a_t))
+    dir_coef = float(np.sqrt(np.maximum(np.float32(1.0) - a_prev - sigma ** 2, 0.0)))
+    return float(np.sqrt(a_prev)) * pred_x0 + dir_coef * e_t, pred_x0
+
+
+def step_rows(tables, n_steps=None):
+    """The loop's rows, last timestep first: (n, 5) fp32 of (t, alpha,
+    alpha_prev, sqrt(1 - alpha), sigma)."""
+    n_steps = len(tables.timesteps) if n_steps is None else int(n_steps)
+    idxs = np.arange(n_steps)[::-1]
+    return np.stack([tables.timesteps[idxs].astype(np.float32), tables.alphas[idxs],
+                     tables.alphas_prev[idxs], tables.sqrt_one_minus_alphas[idxs],
+                     tables.sigmas[idxs]], axis=1).astype(np.float32)
 
 
 class DDIMSampler:
@@ -112,6 +138,86 @@ class DDIMSampler:
                               temperature=temperature, x_type=x_type, c_type=c_type,
                               self_attn_fn=self_attn_fn, **turbo)
 
+    def multicontext_draws(self, c_info_list, steps, eta, shape, mixing_type="attention",
+                           generator=None, device=None, x_type="image"):
+        """The draws ``sample_multicontext``'s loop makes from ``generator``
+        after the start latent, step by step: the ``"layer"`` pathways
+        (``choose_pathways``) and, for eta > 0, the noise. Returns
+        (choices: (n_steps, n_context_blocks) or None, eta_noise:
+        (n_steps, *shape) or None)."""
+        n = len(self.make_tables(steps, eta).timesteps)
+        choices, noise = [], []
+        for _ in range(n):
+            if mixing_type == "layer":
+                choices.append(self.model.choose_pathways(c_info_list, generator, device,
+                                                          x_type))
+            if eta > 0:
+                noise.append(torch.randn(shape, generator=generator, device=device,
+                                         dtype=torch.float32))
+        return (torch.stack(choices) if choices else None,
+                torch.stack(noise) if noise else None)
+
+    @torch.no_grad()
+    def sample_multicontext(self, shape, x_info, c_info_list, *, steps=50, eta=0.0,
+                            temperature=1.0, x_type="image", mixing_type="attention",
+                            generator=None, device=None, choices=None, eta_noise=None,
+                            self_attn_fn=None):
+        """Multi-context DDIM (``pfd_tpu`` ddim.py:75-140): several context
+        streams, c_info_list: [{'type', 'conditioning',
+        'unconditional_conditioning', 'unconditional_guidance_scale',
+        'ratio'}], mixed per context block by ``apply_model_multicontext``;
+        one guidance scale shared by all (a different one raises), CFG where
+        it is not 1. The start latent is ``x_info['xt']`` or drawn from
+        ``generator`` (on its device unless ``device`` is given); then ``choices`` (row i: step i's ``"layer"``
+        pathways) and ``eta_noise`` (row i: step i's normals) where given,
+        else ``multicontext_draws`` from ``generator``. With no CFG eps is
+        not scaled (unlike ``sample_fn``'s quirk). Returns (final latent,
+        {'pred_x0': the last x0 estimate})."""
+        tables = self.make_tables(steps, eta)
+        scales = {float(ci["unconditional_guidance_scale"]) for ci in c_info_list}
+        if len(scales) != 1:
+            raise ValueError("a different guidance scale between contexts is not allowed")
+        scale = float(np.float32(scales.pop()))
+        use_cfg = scale != 1.0
+        x_info = dict(x_info or {})
+        if device is None and generator is not None:
+            device = generator.device
+        if x_info.get("xt") is not None:
+            x = x_info["xt"]
+        else:
+            x = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        rows = step_rows(tables)
+        if (choices is None and mixing_type == "layer") or (
+                eta_noise is None and np.any(rows[:, 4] != 0.0)):
+            drawn = self.multicontext_draws(c_info_list, steps, eta, tuple(x.shape),
+                                            mixing_type, generator, x.device, x_type)
+            choices = drawn[0] if choices is None else choices
+            eta_noise = drawn[1] if eta_noise is None else eta_noise
+        if use_cfg:
+            ci_list = [{"type": ci["type"], "ratio": ci["ratio"],
+                        "c": torch.cat([ci["unconditional_conditioning"], ci["conditioning"]])}
+                       for ci in c_info_list]
+        else:
+            ci_list = [{"type": ci["type"], "ratio": ci["ratio"], "c": ci["conditioning"]}
+                       for ci in c_info_list]
+        b = x.shape[0]
+        pred_x0 = None
+        for i, row in enumerate(rows):
+            ts = torch.full((b,), int(row[0]), dtype=torch.long, device=x.device)
+            x_in, t_in = (torch.cat([x, x]), torch.cat([ts, ts])) if use_cfg else (x, ts)
+            e = self.model.apply_model_multicontext(
+                {"type": x_type, "x": x_in}, t_in, ci_list, mixing_type,
+                choices=None if choices is None else choices[i],
+                self_attn_fn=self_attn_fn).float()
+            if use_cfg:
+                e_uc, e_c = e.chunk(2, dim=0)
+                e = e_uc + scale * (e_c - e_uc)
+            x_prev, pred_x0 = ddim_step(x, row, e)
+            if eta_noise is not None:
+                x_prev = x_prev + float(row[4]) * eta_noise[i] * temperature
+            x = x_prev.to(x.dtype)
+        return x, {"pred_x0": pred_x0}
+
     def sample_fn(self, x, c_info, tables, n_steps=None, *, generator=None,
                   temperature=1.0, noise_dropout=0.0, x_type="image", c_type="image",
                   self_attn_fn=None, encoder_interval=1, cfg_interval=1, deep_interval=1,
@@ -147,13 +253,8 @@ class DDIMSampler:
             ci_full["c"] = torch.cat([uncond, cond], dim=0)
         has_control = control is not None
 
-        total = len(tables.timesteps)
-        n_steps = total if n_steps is None else int(n_steps)
-        idxs = np.arange(n_steps)[::-1]
-        rows = np.stack([tables.timesteps[idxs].astype(np.float32),
-                         tables.alphas[idxs], tables.alphas_prev[idxs],
-                         tables.sqrt_one_minus_alphas[idxs], tables.sigmas[idxs]],
-                        axis=1).astype(np.float32)
+        n_steps = len(tables.timesteps) if n_steps is None else int(n_steps)
+        rows = step_rows(tables, n_steps)
         b = x.shape[0]
         # eta == 0 makes every sigma 0: no draw at all, as pfd_tpu skips its
         # dead normal when the whole table is zero
@@ -173,21 +274,18 @@ class DDIMSampler:
             return e_uc + scale * (e_c - e_uc)
 
         def update(xt, row, e_t):
-            """(x_prev, pred_x0) from eps ``e_t``; the table entries are fp32
-            scalars, as in the pfd_tpu scan."""
-            _, a_t, a_prev, s1m, sigma = (np.float32(v) for v in row)
-            xf = xt.float()
-            pred_x0 = (xf - float(s1m) * e_t) / float(np.sqrt(a_t))
-            dir_coef = float(np.sqrt(np.maximum(np.float32(1.0) - a_prev - sigma ** 2, 0.0)))
-            x_prev = float(np.sqrt(a_prev)) * pred_x0 + dir_coef * e_t
+            """(x_prev, pred_x0) from eps ``e_t`` (``ddim_step``), with the
+            eta noise."""
+            x_prev, pred_x0 = ddim_step(xt, row, e_t)
+            sigma = np.float32(row[4])
             if not no_eta_noise:
                 draw = (next(draws) if draws is not None else
-                        torch.randn(xf.shape, generator=generator, device=xf.device,
+                        torch.randn(x_prev.shape, generator=generator, device=x_prev.device,
                                     dtype=torch.float32))
                 noise = float(sigma) * draw
                 noise = noise * temperature
                 if noise_dropout > 0.0:  # on the eta-noise (ddim.py:167-168)
-                    keep = torch.rand(xf.shape, generator=generator, device=xf.device
+                    keep = torch.rand(x_prev.shape, generator=generator, device=x_prev.device
                                       ) < 1.0 - noise_dropout
                     noise = torch.where(keep, noise / (1.0 - noise_dropout),
                                         torch.zeros_like(noise))

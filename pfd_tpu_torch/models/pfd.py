@@ -17,10 +17,17 @@ blocks: ``apply_model_encoder`` (the ControlNet runs here) and
 ``apply_model_decoder``; DeepCache's ``deep_split_skips``,
 ``apply_model_encoder_shallow`` (no hint), ``apply_model_decoder_deep`` and
 ``apply_model_decoder_shallow``.
+
+``apply_model_multicontext`` (pfd.py:246-317) mixes several context
+streams per context block: ``"attention"`` sums every context's block
+output weighted by its ratio, ``"layer"`` runs one pathway per block, chosen
+with probabilities ``ratios`` (``choose_pathways``). Each context's block
+runs its own self-attention, as ``pfd_tpu``'s do.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -70,11 +77,13 @@ class PromptFreeDiffusion(nn.Module):
             z = z / scale
         return self.vae[which].decode(z)
 
-    def ctx_encode(self, x, which="image"):
-        """NCHW image in [0, 1] -> (B, 148, 768) SeeCoder tokens."""
+    def ctx_encode(self, x, which="image", **kwargs):
+        """NCHW image in [0, 1] -> (B, 148, 768) SeeCoder tokens (or any
+        registered context encoder's; ``kwargs`` such as ``masks`` pass
+        through, pfd.py:103-108)."""
         if which.startswith("vae_"):
-            return self.vae[which[4:]].encode(x, sample=False)
-        return self.ctx[which].encode(x)
+            return self.vae[which[4:]].encode(x, sample=False, **kwargs)
+        return self.ctx[which].encode(x, **kwargs)
 
     def _extract(self, table, t, ndim):
         out = torch.as_tensor(table, dtype=torch.float32, device=t.device)[t]
@@ -109,6 +118,65 @@ class PromptFreeDiffusion(nn.Module):
         return unet(x, timesteps, c_info["c"], self_attn_fn=self_attn_fn,
                     control_residuals=self.control_residuals(x, timesteps, c_info,
                                                              self_attn_fn), **kw)
+
+    # ---- multicontext (pfd.py:246-317) ---------------------------------------
+
+    def context_block_count(self, x_type="image"):
+        return len(self.diffuser[x_type].plan.context_specs)
+
+    @staticmethod
+    def mix_ratios(c_info_list):
+        """The contexts' ratios normalised to sum 1, in fp32 as ``pfd_tpu``'s."""
+        r = np.array([ci["ratio"] for ci in c_info_list], np.float32)
+        return r / r.sum()
+
+    def choose_pathways(self, c_info_list, generator=None, device=None, x_type="image"):
+        """``"layer"`` mixing's draw: a (n_context_blocks,) index tensor of
+        the context each block runs, with probabilities ``mix_ratios``,
+        from ``generator`` (``pfd_tpu`` draws with ``jax.random.choice``,
+        which torch cannot replay: the tests pass its draws in)."""
+        p = torch.as_tensor(self.mix_ratios(c_info_list), device=device)
+        return torch.multinomial(p, self.context_block_count(x_type), replacement=True,
+                                 generator=generator)
+
+    def apply_model_multicontext(self, x_info, timesteps, c_info_list,
+                                 mixing_type="attention", *, choices=None, generator=None,
+                                 self_attn_fn=None):
+        """Several context streams, c_info_list: [{'type', 'c', 'ratio'}],
+        mixed per context block (module docstring). ``"layer"`` takes its
+        pathways from ``choices`` or draws them from ``generator``
+        (``choose_pathways``) and runs only the chosen one per block: the
+        value ``pfd_tpu``'s ``lax.switch`` over every branch selects.
+        ``"attention"`` forms the weighted sum in fp32 and casts it back to
+        the compute dtype, so the walk stays in it (``pfd_tpu``'s fp32
+        ratios would promote a bf16 walk to fp32 from the first block on)."""
+        x_type, x = x_info["type"], x_info["x"]
+        if mixing_type not in ("attention", "layer"):
+            raise ValueError(mixing_type)
+        ratios = self.mix_ratios(c_info_list)
+        unet, kw = self._unet(x_type, x_type, timesteps)
+        pol = unet.policy
+        blocks = [self.diffuser[ci["type"]].context_blocks for ci in c_info_list]
+        contexts = [pol.cast(ci["c"]) for ci in c_info_list]
+        if mixing_type == "layer":
+            if choices is None:
+                choices = self.choose_pathways(c_info_list, generator, x.device, x_type)
+            picks = [int(i) for i in (choices.tolist() if torch.is_tensor(choices)
+                                      else np.asarray(choices).tolist())]
+
+        def run_context(i, h):
+            if mixing_type == "layer":
+                j = picks[i]
+                return blocks[j][i][0](h, contexts[j], self_attn_fn=self_attn_fn)
+            mixed = None
+            for cb, c, r in zip(blocks, contexts, ratios):
+                o = cb[i][0](h, c, self_attn_fn=self_attn_fn).float() * float(r)
+                mixed = o if mixed is None else mixed + o
+            return mixed.to(h.dtype)
+
+        emb = pol.cast(kw["emb"])
+        return unet._walk(unet.plan.ops, pol.cast(x), [], kw["data_blocks"], None, emb, None,
+                          self_attn_fn, run_context=run_context)
 
     # ---- the split forwards of the turbo samplers (pfd.py:153-224) ---------
 

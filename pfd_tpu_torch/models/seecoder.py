@@ -30,30 +30,8 @@ from torch import nn
 from pfd_tpu_torch import registry
 from pfd_tpu_torch.models.build import zero_init
 from pfd_tpu_torch.ops import nn as F
+from pfd_tpu_torch.ops.nn import TorchMHA
 from pfd_tpu_torch.policy import Policy, FP32
-
-
-class TorchMHA(nn.Module):
-    """Parameters of ``nn.MultiheadAttention``: packed ``in_proj_weight``
-    (3E, E) and ``in_proj_bias``, plus ``out_proj``."""
-
-    def __init__(self, dim):
-        super().__init__()
-        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
-        self.in_proj_bias = nn.Parameter(torch.empty(3 * dim))
-        self.out_proj = nn.Linear(dim, dim)
-
-    def project(self, x, i):
-        """The i-th of the packed q|k|v projections of ``x``."""
-        e = self.out_proj.weight.shape[0]
-        w = self.in_proj_weight[i * e:(i + 1) * e].to(x.dtype)
-        return TF.linear(x, w, self.in_proj_bias[i * e:(i + 1) * e].to(x.dtype))
-
-    def forward(self, q_in, k_in, v_in, n_heads, policy: Policy):
-        q, k, v = (F.split_heads(self.project(t, i), n_heads)
-                   for i, t in enumerate((q_in, k_in, v_in)))
-        out = F.dot_product_attention(q, k, v, softmax_dtype=policy.softmax_dtype)
-        return F.linear(F.merge_heads(out), self.out_proj)
 
 
 class DecoderLayer(nn.Module):
@@ -266,11 +244,12 @@ class QueryTransformer(nn.Module):
                                               self.transformer_crossatt_layers,
                                               self.transformer_feedforward_layers)):
             lvl = i % self.num_feature_levels
-            h1 = ca.multihead_attn(lquery + lq_pos, keys[lvl], fea2d[lvl],
-                                   self.nheads, pol)
+            h1 = ca.multihead_attn(lquery + lq_pos, keys[lvl], fea2d[lvl], self.nheads,
+                                   softmax_dtype=pol.softmax_dtype)
             lquery = F.layer_norm(lquery + h1, ca.norm, norm_dtype=nd)
             qkv = torch.cat([gquery, lquery], dim=1)
-            h1 = sa.self_attn(qkv + pos, qkv + pos, qkv, self.nheads, pol)
+            h1 = sa.self_attn(qkv + pos, qkv + pos, qkv, self.nheads,
+                              softmax_dtype=pol.softmax_dtype)
             qout = F.layer_norm(qkv + h1, sa.norm, norm_dtype=nd)
             h1 = F.linear(torch.relu(F.linear(qout, ffl.linear1)), ffl.linear2)
             qout = F.layer_norm(qout + h1, ffl.norm, norm_dtype=nd)

@@ -207,14 +207,19 @@ class UNetModel2DNext(nn.Module):
         context = pol.cast(context) if context is not None else None
         return db, cb, pol.cast(emb), context
 
-    def _walk(self, ops, h, hs, db, cb, emb, context, self_attn_fn, n_saves=None):
+    def _walk(self, ops, h, hs, db, cb, emb, context, self_attn_fn, n_saves=None,
+              run_context=None):
         """Run the opcodes ``ops`` from ``h``: a save appends h to ``hs`` (the
-        walk ends at the ``n_saves``-th), a load concatenates the last skip."""
+        walk ends at the ``n_saves``-th), a load concatenates the last skip;
+        ``run_context(i, h)``, where given, runs the i-th context block
+        (multicontext mixing)."""
         plan, pol = self.plan, self.policy
         for op in ops:
             kind = op[0]
             if kind == "d":
                 h = apply_data_block(db[op[1]], plan.data_specs[op[1]], h, emb, pol)
+            elif kind == "c" and run_context is not None:
+                h = run_context(op[1], h)
             elif kind == "c":
                 h = cb[op[1]][0](h, context, self_attn_fn=self_attn_fn)
             elif kind == "save":

@@ -39,6 +39,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from pfd_tpu_torch.ops import int8_conv, int8_matmul, quant
 
@@ -261,3 +262,34 @@ def dot_product_attention(q, k, v, *, scale=None, softmax_dtype=torch.float32,
         logits = logits + bias.to(softmax_dtype)
     probs = torch.softmax(logits, dim=-1)
     return torch.matmul(probs.to(q.dtype), v)
+
+
+class TorchMHA(nn.Module):
+    """Parameters of ``nn.MultiheadAttention``: packed ``in_proj_weight``
+    (3E, E) and ``in_proj_bias``, plus ``out_proj`` (SeeCoder's decoder and
+    query transformer, OpenCLIP's towers)."""
+
+    def __init__(self, dim):
+        super().__init__()
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
+        self.in_proj_bias = nn.Parameter(torch.empty(3 * dim))
+        self.out_proj = nn.Linear(dim, dim)
+
+    def project(self, x, i):
+        """The i-th of the packed q|k|v projections of ``x``."""
+        e = self.out_proj.weight.shape[0]
+        w = self.in_proj_weight[i * e:(i + 1) * e].to(x.dtype)
+        return F.linear(x, w, self.in_proj_bias[i * e:(i + 1) * e].to(x.dtype))
+
+    def forward(self, q_in, k_in, v_in, n_heads, *, softmax_dtype=torch.float32, bias=None):
+        q, k, v = (split_heads(self.project(t, i), n_heads)
+                   for i, t in enumerate((q_in, k_in, v_in)))
+        out = dot_product_attention(q, k, v, softmax_dtype=softmax_dtype, bias=bias)
+        return linear(merge_heads(out), self.out_proj)
+
+
+def torch_mha(x_q, x_kv, m: TorchMHA, n_heads, *, softmax_dtype=torch.float32, bias=None):
+    """``torch.nn.MultiheadAttention``'s math (``pfd_tpu`` nn.py:388-404):
+    the packed q|k|v in-projection with its bias, attention with an
+    optional additive ``bias`` (a causal mask), the out-projection."""
+    return m(x_q, x_kv, x_kv, n_heads, softmax_dtype=softmax_dtype, bias=bias)

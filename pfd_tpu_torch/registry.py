@@ -19,6 +19,8 @@ _MODULE_FOR_PREFIX = {
     "seecoder": "pfd_tpu_torch.models.seecoder",
     "pfd": "pfd_tpu_torch.models.pfd",
     "controlnet": "pfd_tpu_torch.models.controlnet",
+    "clip": "pfd_tpu_torch.models.clip",
+    "openclip": "pfd_tpu_torch.models.clip",
 }
 
 

@@ -52,6 +52,25 @@ def test_cross_plain_matches_pallas(s, skv, d):
     assert tfa.cross_attention.launches == before
 
 
+@pytest.mark.parametrize("skv,d", [(77, 40), (77, 80), (257, 40), (257, 80)])
+def test_cross_plain_matches_pallas_at_clip_context_lengths(skv, d):
+    """K2 over a CLIP text context (77 keys: 83 of the 160-key resident tile
+    masked on the card) and a CLIP image context (257 = 2 x 128 + 1: K1's
+    key loop with a one-key last tile), against pfd_tpu's kernel padding
+    its keys to 128 and 384; with all-ones values the output is the
+    softmax's row sum, 1 wherever no padded key leaks in."""
+    q, k, v = _qkv(1, 2, 256, skv, d, seed=skv + d)
+    want = jfa.cross_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=256)
+    got = tfa.cross_attention(*_t(q, k, v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-4)
+    ones = np.ones_like(v)
+    sums = tfa.cross_attention(*_t(q, k, ones))
+    np.testing.assert_allclose(sums.numpy(), 1.0, rtol=0, atol=1e-5)
+    want_sums = jfa.cross_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(ones),
+                                    block_q=256)
+    np.testing.assert_allclose(np.asarray(want_sums), 1.0, rtol=0, atol=1e-5)
+
+
 def test_plain_bf16_tracks_fp32():
     """The bf16 plain version (what the card's kernels are held to) stays
     within bf16 rounding of the fp32 one."""

@@ -963,3 +963,77 @@ def test_hed_request_graphed_equals_eager(tmp_path):
     assert np.isfinite(got[0]).all() and 0 <= got[0].min() and got[0].max() <= 1
     assert 0 < got[1].mean() < 1
     assert not np.array_equal(got[0], request("canny")[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qshape,skv", [((2, 8, 4096, 40), 77), ((2, 8, 1024, 80), 77),
+                                        ((2, 8, 4096, 40), 257), ((2, 8, 1024, 80), 257)])
+def test_cross_kernel_at_clip_context_lengths(qshape, skv):
+    """K2 at the CLIP contexts' key counts at ds1 and ds2: 77 (83 of the
+    resident 160-key tile masked) and 257 (K1's key loop, whose last tile
+    holds one key), against its plain version; with all-ones values the
+    output is the softmax's row sum, 1 within one bf16 ulp (2^-7) unless a
+    masked key leaks in."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(skv + qshape[3])
+    b, h, _, d = qshape
+    q, k, v = _randn(qshape, g), _randn((b, h, skv, d), g), _randn((b, h, skv, d), g)
+    before = fa.cross_attention.launches
+    got = fa.cross_attention(q, k, v)
+    want = fa.attention_plain(q, k, v)
+    ones = torch.ones_like(v)
+    sums = fa.cross_attention(q, k, ones)
+    torch.cuda.synchronize()
+    assert fa.cross_attention.launches == before + 2
+    assert (got.float() - want.float()).abs().max().item() <= fa.kernel_tolerance(want)
+    assert (sums.float() - 1).abs().max().item() <= 2 ** -7
+
+
+@pytest.mark.cuda
+def test_clip_image_request_launches_the_plan():
+    """A bf16 request on a tiny CLIP image encoder's 257 tokens (224^2 at
+    patch 14) through the tiny pipeline at 128^2, 5 DDIM steps: a finite
+    image in [0, 1], the same seed bit for bit, K1 and K2 at
+    ``chip_smoke.LaunchPlan``'s count (K2 over 257 keys takes K1's key
+    loop)."""
+    _need_cuda()
+    import chip_smoke
+    from pfd_tpu_torch.models.build import build_model
+
+    pipe, ref = _graph_pipe("bf16")
+    enc = build_model({"type": "clip_image_context_encoder", "args": dict(
+        hidden=64, layers=2, heads=4, intermediate=128, projection_dim=128)}, device="cuda")
+    with torch.no_grad():
+        c = enc.encode(torch.as_tensor(ref, device="cuda").permute(2, 0, 1)[None])
+    assert c.shape == (1, 257, 128)
+
+    def request():
+        x = pipe.start_latent(5, 128, 128, 5)[0]
+        before = fa.launches()
+        img = pipe.sample_decode(c, pipe.negative_context(c), x, 2.0, 5)
+        torch.cuda.synchronize()
+        return img, {k: v - before[k] for k, v in fa.launches().items()}
+
+    img, launches = request()
+    assert torch.isfinite(img).all() and img.min() >= 0 and img.max() <= 1
+    # the tiny VAE is f=4: the 128^2 request's latent is 32^2, the plan's size / 8
+    assert launches == chip_smoke.LaunchPlan(pipe.net, size=8 * 32).expected(steps=5)
+    assert launches["cross_attention"] > 0
+    assert torch.equal(img, request()[0])
+
+
+@pytest.mark.cuda
+def test_openclip_visual_tower_on_the_card_matches_the_host():
+    """The OpenCLIP ViT-H-14 visual tower at published width (32 x 1280, exact
+    GELU), fp32: the card's output within relative L2 1e-5 of the host's,
+    same weights and pixels (no TF32 in its matmuls or its patch conv)."""
+    _need_cuda()
+    from pfd_tpu_torch.models.build import build_model
+
+    enc = build_model({"type": "openclip_image_context_encoder", "args": {}}, device="cpu")
+    pix = torch.randn((1, 3, 224, 224), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        want = enc._tower(pix)
+        got = enc.to("cuda")._tower(pix.cuda())
+    assert got.shape == (1, 257, 1024)
+    assert _rel_l2(got, want) <= 1e-5

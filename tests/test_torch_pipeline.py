@@ -449,6 +449,8 @@ def test_port_imports_no_jax():
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "       or n == 'pfd_tpu' or n.startswith('pfd_tpu.')]\n"
         "assert not bad, bad\n"
+        "bad = [n for n in sys.modules if n.split('.')[0] in ('transformers', 'open_clip')]\n"
+        "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith('pfd_tpu_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
