@@ -221,12 +221,51 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``multi_layer`` (the same, ``"layer"`` mixing, 10 steps, the pathways
    from the generator) and ``euler_a`` (Euler-ancestral, 50 steps, eta 1.0,
    on SeeCoder's context); the encoders are freed at its end;
-15. a ``kernels`` JSON line (``launches``: the graphed requests of phase
+15. (run after phases 12 and 13, their graph pools released) the training
+   path at full width, printing ``torch.cuda.memory_allocated`` at its start:
+   (a) the guards: K1 on a bf16 input that requires grad raises; a bf16 VAE
+   encoder forward at 512^2 with grad enabled launches no K1 (plain
+   attention) and gives a finite, non-zero input gradient;
+   ``ops.nn.conv2d_raw``'s fp32 backward and second derivative at
+   full-width UNet convs (``CONV_ROWS``: grad input at (2,320,64,64) -> 320,
+   grad weight at (2,640,32,32) -> 640, the second derivative at
+   (2,320,64,64)), within relative L2 1e-5 of a float64 host reference,
+   each beside a control row with cuDNN's TF32 allowed that must read above
+   it in the quantity its row holds;
+   (b) ``DiffusionBatcher`` over ``data.synthetic(512, seed=0)``, batch 2, on
+   a bf16 ``pfd_seecoder`` VAE and SeeCoder: 9 batches, x0 (2,4,64,64) and
+   cond (2,148,768) finite, K1 once a batch at (2,1,4096,512) (its launches
+   are ``train_batch`` in the ``kernels`` line), t and noise those of numpy
+   ``default_rng(0)``; (c) config #1's diffuser alone (``openai_unet_2d_v1``,
+   859.5 M parameters, FP32, seeded and de-zeroed) through ``Trainer.fit``:
+   AdamW over ``pfd_parameter_groups`` with clipping at 1.0 and a
+   ``LambdaWarmUpCosine`` schedule, 4 steps of 2 micro-batches of 2 at 512^2,
+   EMA, a log line a step, the evaluator (the held-out batch's loss under
+   the EMA weights) and a checkpoint at step 4 in a temporary directory
+   (removed at the end): every loss and grad_norm finite, the EMA shadows
+   differ from the parameters and lie inside their trajectory's envelope, a
+   fresh model's ``resume`` restores every tensor bit for bit; the step
+   seconds (median of steps 2-4), images/s, peak allocated GB, the
+   checkpoint's GB and write and read seconds; (d) one ``make_train_step``
+   step at b1, 256^2 on the card and on the host from the same weights and
+   batch: loss within relative 1e-5, the pre-clip gradient within relative
+   L2 1e-4; (e) two steps with only ``diffuser_image_context`` trainable:
+   every other parameter bit for bit, every trained tensor moved; (f) the
+   VAE's GAN step (``autokl_v2`` FP32, LPIPS at VGG16 widths, the
+   discriminator at ndf 64 x 3 layers, numpy-seeded) at b2, 256^2:
+   ``generator_loss`` and ``discriminator_loss`` finite, ``d_weight``
+   finite, gradients non-zero, one AdamW step each moving every tensor, and
+   each side's ms; then ``generator_loss`` at b1, 128^2 with ``d_weight``
+   unclamped (the discriminator's last conv x1e3): the gradients of
+   ``d_weight`` (second order) and of the loss within relative L2 1e-3 of
+   a float64 host run, beside a control row with TF32 in every fp32 conv
+   that must read above it (``gan_second_order_rows``);
+16. a ``kernels`` JSON line (``launches``: the graphed requests of phase
    8c, F for the bf16 kernels, G for the int8 ones and E for K5; every
    serving request's counts, the turbo ones', the graphed ones' and phases
-   12's, 13's and 14's too, in ``launches_by_request``; K2's rows phase 14's
-   too), the card's name and power limit, then the device JSON as the last
-   line.
+   12's, 13's, 14's and 15's too, in ``launches_by_request``; K2's rows
+   phase 14's too), the card's name and power limit, then the device JSON as
+   the last line.
 
 Imports neither JAX nor ``pfd_tpu``.
 """
@@ -258,35 +297,6 @@ GUARDED = ("flash_attention_pv8", "flash_attention_int8", "conv_int8", "matmul_i
 
 def sh(cmd):
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
-
-
-# torch dtype -> .safetensors dtype name, for write_safetensors
-SAFETENSORS_NAMES = {"float64": "F64", "float32": "F32", "float16": "F16", "int64": "I64",
-                     "int32": "I32", "int16": "I16", "int8": "I8", "uint8": "U8", "bool": "BOOL"}
-
-
-def write_safetensors(path, tensors):
-    """Write ``{key: CPU tensor}`` as a ``.safetensors`` file (the card's host
-    has no package for it): an 8-byte little-endian header length, the JSON
-    header (padded with spaces to a multiple of 8 bytes), then each tensor's
-    bytes in order. Returns the bytes written."""
-    import numpy as np
-
-    header, offset, arrays = {}, 0, []
-    for key, t in tensors.items():
-        a = np.ascontiguousarray(t.detach().cpu().numpy())
-        header[key] = {"dtype": SAFETENSORS_NAMES[str(t.dtype).removeprefix("torch.")],
-                       "shape": list(a.shape), "data_offsets": [offset, offset + a.nbytes]}
-        offset += a.nbytes
-        arrays.append(a)
-    raw = json.dumps(header, separators=(",", ":")).encode()
-    raw += b" " * (-len(raw) % 8)
-    with open(path, "wb") as f:
-        f.write(len(raw).to_bytes(8, "little"))
-        f.write(raw)
-        for a in arrays:
-            f.write(a.reshape(-1).view(np.uint8).data)
-    return 8 + len(raw) + offset
 
 
 def cuda_ms(fn, iters):
@@ -1360,6 +1370,7 @@ def write_zoo(root):
     {name: (path, {key of the part's module: the tensor written})}."""
     import torch
     from pfd_tpu_torch import config, zoo
+    from pfd_tpu_torch.io.loader import save_safetensors
     from pfd_tpu_torch.models.build import build_model, dezero_
     from pfd_tpu_torch.policy import FP32
 
@@ -1379,7 +1390,7 @@ def write_zoo(root):
         os.makedirs(os.path.dirname(path), exist_ok=True)
         t0 = time.perf_counter()
         if fmt == "safetensors":
-            n = write_safetensors(path, file_sd)
+            n = save_safetensors(path, file_sd)
         else:
             torch.save(file_sd, path)
             n = os.path.getsize(path)
@@ -2315,6 +2326,475 @@ def _clip_paths(card, pipe, lp, ref, hint_src, mufu_rate, gen, sms):
     return k2_rows, served
 
 
+# phase 15: the training path. The full-width diffuser (config #1's
+# openai_unet_2d_v1 plan alone, as __graft_entry__.py builds its
+# diffuser-only pfd), the batcher's encoders, and its held-out batch; the
+# card-against-host step runs at b1, 256^2 (32^2 latents)
+TRAIN_STEPS, TRAIN_GRAD_ACC, TRAIN_MICRO = 4, 2, 2
+HOST_LATENT = 32
+
+
+# (a)'s fp32 conv rows: (name, x shape, out channels, what is held). At
+# (2,320,64,64) cuDNN's TF32-allowed weight gradient picks an algorithm
+# without TF32 (it reads as fp32's), so grad weight is held where it does
+# not: the full-width UNet's level-2 conv, (2,640,32,32) -> 640
+CONV_ROWS = (("ds1_backward", (2, 320, 64, 64), 320, "grad_input"),
+             ("ds2_backward", (2, 640, 32, 32), 640, "grad_weight"),
+             ("ds1_second_derivative", (2, 320, 64, 64), 320, "second"))
+
+
+def conv_backward_rows(gen):
+    """``ops.nn.conv2d_raw``'s backward and second derivative at full-width
+    UNet convs, fp32, 3x3 (``CONV_ROWS``), against a float64 host reference,
+    each beside a control row with cuDNN's TF32 allowed: ``conv2d_raw``
+    within relative L2 1e-5 everywhere, the control above 1e-5 in the
+    quantity its row holds. The second derivative is that of
+    ``|dL/dx|^2 + |dL/dw|^2`` (``L = <conv(x, w), gy>``) to x and w, as the
+    GAN loss's adaptive weight differentiates a gradient."""
+    import torch
+    import torch.nn.functional as F
+    from pfd_tpu_torch.ops import nn as tnn
+
+    def grads(conv, x, w, gy, second):
+        x, w = x.clone().requires_grad_(), w.clone().requires_grad_()
+        gx, gw = torch.autograd.grad(conv(x, w), (x, w), gy, create_graph=second)
+        if second:
+            gx, gw = torch.autograd.grad(gx.square().sum() + gw.square().sum(), (x, w))
+        return gx, gw
+
+    bad = []
+    for name, shape, cout, held in CONV_ROWS:
+        second = held == "second"
+        x = torch.randn(shape, generator=gen, device="cuda")
+        w = torch.randn((cout, shape[1], 3, 3), generator=gen, device="cuda") / (9 * shape[1]) ** 0.5
+        gy = torch.randn((shape[0], cout) + shape[2:], generator=gen, device="cuda")
+        ref = grads(lambda a, b: F.conv2d(a, b, padding=1), x.double().cpu(), w.double().cpu(),
+                    gy.double().cpu(), second)
+        rows = {}
+        for label, conv, flags in (
+                ("conv2d_raw", lambda a, b: tnn.conv2d_raw(a, b, padding=1), {}),
+                ("F.conv2d_tf32", lambda a, b: F.conv2d(a, b, padding=1),
+                 {"enabled": True, "allow_tf32": True})):
+            with torch.backends.cudnn.flags(**flags) if flags else contextlib.nullcontext():
+                gx, gw = grads(conv, x, w, gy, second)
+                torch.cuda.synchronize()
+            keys = ("second_x", "second_w") if second else ("grad_input", "grad_weight")
+            rows[label] = {keys[0] + "_rel_l2": rel_l2(gx, ref[0]),
+                           keys[1] + "_rel_l2": rel_l2(gw, ref[1])}
+            print(json.dumps({"phase": 15, "conv_backward": label, "row": name,
+                              "shape": [*shape, cout], **rows[label]}), flush=True)
+        if max(rows["conv2d_raw"].values()) > 1e-5:
+            bad.append(f"{name}: conv2d_raw is off float64: {rows['conv2d_raw']}")
+        control = rows["F.conv2d_tf32"]
+        held_keys = [k for k in control if k.startswith(held)]
+        if min(control[k] for k in held_keys) <= 1e-5:
+            bad.append(f"{name}: the TF32 control's {held} does not read above 1e-5, so the "
+                       f"bound cannot tell TF32 apart: {control}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
+# (f)'s second-order row: b1 at 128^2 (the host's float64 run takes ~15 s
+# there), the discriminator's last conv scaled so that ``d_weight`` stays
+# under its 1e4 clamp and its gradient flows
+GAN_HOST_RES, GAN_DISC_SCALE, GAN_GRAD_LIMIT = 128, 1e3, 1e-3
+
+
+def gan_second_order_rows(card):
+    """``generator_loss`` on the full-width ``autokl_v2`` VAE (FP32), LPIPS and
+    the discriminator, b1 at ``GAN_HOST_RES``^2, with ``d_weight`` unclamped:
+    the gradients of ``d_weight`` (the second-order path: it differentiates
+    two gradient norms) and of the loss against a float64 host run of the
+    same weights and inputs, within relative L2 ``GAN_GRAD_LIMIT``, beside a
+    control row with cuDNN's TF32 allowed in every fp32 conv that must read
+    above it. The limit is not tighter because LPIPS and the discriminator
+    are piecewise linear (ReLU, leaky ReLU, max pool, and the L1 term):
+    fp32 rounding moves a pre-activation within ~1e-6 of zero across its
+    kink, which changes the gradient by a step no precision removes (the
+    conv rows of (a) hold the conv's second derivative itself to 1e-5)."""
+    import numpy as np
+    import torch
+    from pfd_tpu_torch import config
+    from pfd_tpu_torch.models import autokl_losses as losses
+    from pfd_tpu_torch.models.build import build_model
+    from pfd_tpu_torch.ops import nn as tnn
+    from pfd_tpu_torch.policy import FP32, Policy
+
+    fp64 = Policy(torch.float64, torch.float64, torch.float64, torch.float64, False)
+    res = GAN_HOST_RES
+    vae = build_model(config.model_cfg("autokl_v2"), policy=FP32, device="cuda",
+                      generator=np.random.default_rng(10))
+    host = build_model(config.model_cfg("autokl_v2"), policy=fp64, device="cpu")
+    host.load_state_dict({k: v.cpu() for k, v in vae.state_dict().items()})
+
+    def nets(device, dtype):
+        lp = losses.init_lpips(np.random.default_rng(11), device=device).to(dtype)
+        disc = losses.init_discriminator(np.random.default_rng(12), device=device).to(dtype)
+        with torch.no_grad():
+            disc.main[str(max(int(k) for k in disc.main))].weight.mul_(GAN_DISC_SCALE)
+        return lp, disc
+
+    imgs = np.random.default_rng(13).random((1, 3, res, res))
+    noise = np.random.default_rng(14).standard_normal((1, 4, res // 8, res // 8))
+
+    def grads(net, device, dtype):
+        lp, disc = nets(device, dtype)
+        net.requires_grad_(True)
+        params = list(net.parameters())
+        t0 = time.perf_counter()
+        loss, aux = losses.generator_loss(
+            lp, disc, net, torch.from_numpy(imgs).to(device, dtype), global_step=10,
+            noise=torch.from_numpy(noise).to(device, dtype))
+        flat = []
+        for out, keep in ((aux["d_weight"], True), (loss, False)):
+            gs = torch.autograd.grad(out, params, retain_graph=keep, allow_unused=True)
+            flat.append(torch.cat([(g if g is not None else torch.zeros_like(p)).flatten()
+                                   for g, p in zip(gs, params)]).double().cpu())
+        if device == "cuda":
+            torch.cuda.synchronize()
+        net.requires_grad_(False)
+        return aux["d_weight"].item(), flat, time.perf_counter() - t0
+
+    d_host, ref, host_s = grads(host, "cpu", torch.float64)
+    rows = {}
+    no_tf32 = tnn._no_tf32
+    for label in ("conv2d_raw", "tf32_control"):
+        if label == "tf32_control":  # every fp32 conv, forward to second order, in TF32
+            tnn._no_tf32 = lambda: torch.backends.cudnn.flags(enabled=True, allow_tf32=True)
+        try:
+            d_card, got, card_s = grads(vae, "cuda", torch.float32)
+        finally:
+            tnn._no_tf32 = no_tf32
+        rows[label] = {"d_weight": d_card, "d_weight_grad_rel_l2": rel_l2(got[0], ref[0]),
+                       "loss_grad_rel_l2": rel_l2(got[1], ref[1]), "card_s": card_s}
+    print(json.dumps({"phase": 15, "vae_gan_second_order": f"b1 at {res}^2, discriminator's "
+                      f"last conv x{GAN_DISC_SCALE:g}", "d_weight_host": d_host,
+                      "host_s": host_s, **rows, "limit": GAN_GRAD_LIMIT, "card": card}),
+          flush=True)
+    clean, control = rows["conv2d_raw"], rows["tf32_control"]
+    if not d_host < 1e4:
+        raise AssertionError(f"d_weight {d_host} is at its clamp: no gradient flows through it")
+    if max(clean["d_weight_grad_rel_l2"], clean["loss_grad_rel_l2"]) > GAN_GRAD_LIMIT:
+        raise AssertionError(f"the GAN loss's gradients are off float64: {clean}")
+    if min(control["d_weight_grad_rel_l2"], control["loss_grad_rel_l2"]) <= GAN_GRAD_LIMIT:
+        raise AssertionError(f"the TF32 control reads within {GAN_GRAD_LIMIT}: {control}")
+
+
+def training_path(card, gen):
+    """Phase 15: the training path at full width (module docstring), its
+    checkpoint in a temporary directory (removed at the end). Returns the
+    batcher's launches."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="pfd_train_")
+    try:
+        return _training_path(card, gen, root)
+    finally:
+        shutil.rmtree(root)
+
+
+def _training_path(card, gen, root):
+    import numpy as np
+    import torch
+    from pfd_tpu_torch import config, data, registry
+    from pfd_tpu_torch.io import checkpoint as ckpt_lib
+    from pfd_tpu_torch.models import autokl_losses as losses
+    from pfd_tpu_torch.models.build import build_model, dezero_, materialize
+    from pfd_tpu_torch.ops import flash_attention as fa
+    from pfd_tpu_torch.parallel import train as train_lib
+    from pfd_tpu_torch.policy import BF16, FP32
+    from pfd_tpu_torch.training import ema as ema_lib
+    from pfd_tpu_torch.training import optimizers, schedulers
+    from pfd_tpu_torch.training.harness import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    print(f"phase 15: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated at its start "
+          f"({card})", flush=True)
+
+    def seeded(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    def synced():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    # ---- (a) the guards -------------------------------------------------------
+    q = torch.randn((1, 1, 4096, 512), generator=gen, device="cuda").bfloat16()
+    before = fa.launches()
+    try:
+        fa.flash_attention(q.clone().requires_grad_(), q, q)
+    except RuntimeError as e:
+        print(f"phase 15 guard: K1 on a requires-grad input raises: {e}", flush=True)
+    else:
+        raise AssertionError("K1 took an input that requires grad")
+    enc_cfg = config.model_cfg("pfd_seecoder")
+    enc_cfg["args"]["diffuser_cfg_list"] = []
+    enc = build_model(enc_cfg, policy=BF16, device="cuda", generator=seeded(0))
+    dezero_(enc, seeded(1))
+    x = torch.rand((1, 3, 512, 512), generator=gen, device="cuda").requires_grad_()
+    mean, _ = enc.vae["image"].encode_moments(x)
+    mean.float().square().mean().backward()
+    torch.cuda.synchronize()
+    if fa.launches() != before:
+        raise AssertionError(f"the VAE encoder under grad launched {fa.launches()}, "
+                             f"before {before}")
+    gnorm = x.grad.float().norm().item()
+    if not (np.isfinite(gnorm) and gnorm > 0):
+        raise AssertionError(f"the VAE encoder's input gradient is {gnorm}")
+    print(f"phase 15 guard: bf16 VAE encoder at 512^2 under grad: no K1 launch (plain "
+          f"attention), |dx| {gnorm:.4e}", flush=True)
+    conv_backward_rows(gen)
+
+    # ---- (b) the batcher: the bf16 VAE (K1 in its mid-block) and SeeCoder -----
+    seen = []
+    hook = enc.vae["image"].encoder.mid.attn_1.register_forward_pre_hook(
+        lambda m, a: seen.append(tuple(a[0].shape)))
+    batcher = iter(data.DiffusionBatcher(enc, data.synthetic(512, seed=0), TRAIN_MICRO, seed=0,
+                                         device="cuda"))
+    rng = np.random.default_rng(0)
+    reset_counts()
+    batches, t0 = [], synced()
+    for i in range(TRAIN_STEPS * TRAIN_GRAD_ACC + 1):
+        k1 = fa.flash_attention.launches
+        b = next(batcher)
+        torch.cuda.synchronize()
+        t_want = rng.integers(0, 1000, (TRAIN_MICRO,))
+        n_want = rng.standard_normal((TRAIN_MICRO, 64, 64, 4)).astype(np.float32)
+        if fa.flash_attention.launches != k1 + 1 or seen[-1] != (TRAIN_MICRO, 512, 64, 64):
+            raise AssertionError(f"batch {i}: K1 launches {fa.flash_attention.launches - k1} "
+                                 f"(want 1), mid-block input {seen[-1]}")
+        if (tuple(b["x0"].shape) != (TRAIN_MICRO, 4, 64, 64)
+                or tuple(b["cond"].shape) != (TRAIN_MICRO, 148, 768)
+                or not all(bool(torch.isfinite(b[k]).all()) for k in ("x0", "cond"))):
+            raise AssertionError(f"batch {i}: x0 {tuple(b['x0'].shape)}, cond "
+                                 f"{tuple(b['cond'].shape)}, or not finite")
+        if (not np.array_equal(b["t"].cpu().numpy(), t_want)
+                or not np.array_equal(b["noise"].cpu().numpy(), n_want.transpose(0, 3, 1, 2))):
+            raise AssertionError(f"batch {i}: t or noise is not numpy default_rng(0)'s")
+        batches.append(b)
+    s_batches = synced() - t0
+    hook.remove()
+    batch_launches = launch_counts()
+    print(f"phase 15 batcher: {len(batches)} batches of {TRAIN_MICRO} at 512^2, K1 once each "
+          f"at (2,1,4096,512): {batch_launches}, {s_batches / len(batches):.3f} s a batch "
+          f"({card})", flush=True)
+    del enc, x, mean, batcher
+
+    # ---- (c) the full-width trainer: config #1's diffuser alone ---------------
+    cfg_d = {"type": "pfd", "args": dict(
+        vae_cfg_list=[], ctx_cfg_list=[],
+        diffuser_cfg_list=[["image", config.model_cfg("openai_unet_2d_v1")]],
+        beta_linear_start=0.00085, beta_linear_end=0.012, timesteps=1000)}
+    model = build_model(cfg_d, policy=FP32, device="cuda", generator=seeded(2))
+    dezero_(model, seeded(3))
+    n_params = sum(p.numel() for p in model.parameters())
+    labels = optimizers.pfd_parameter_groups(model)
+
+    def make_opt():
+        sched = schedulers.LambdaWarmUpCosine(1e-4, 2, 0.1, 1.0, 0.1, TRAIN_STEPS)
+        return optimizers.build_optimizer("adamw", {"lr": 1e-4}, labels=labels,
+                                          learning_rate=sched, grad_clip=1.0)
+
+    cfg = TrainConfig(max_steps=TRAIN_STEPS, grad_acc=TRAIN_GRAD_ACC, use_ema=True,
+                      log_every=1, eval_every=TRAIN_STEPS, ckpt_every=TRAIN_STEPS,
+                      ckpt_dir=os.path.join(root, "ckpt"), log_dir=os.path.join(root, "logs"))
+    trainer = Trainer(model, make_opt(), cfg, device="cuda")
+    state = trainer.init_state()
+    lo = {n: p.detach().clone() for n, p in state.params.items()}
+    hi = {n: p.detach().clone() for n, p in state.params.items()}
+
+    def envelope():
+        with torch.no_grad():
+            for n, p in state.params.items():
+                torch.minimum(lo[n], p, out=lo[n])
+                torch.maximum(hi[n], p, out=hi[n])
+
+    def stream():  # the stacked micro-batches; between steps, the trajectory's envelope
+        for i in range(TRAIN_STEPS):
+            mbs = batches[i * TRAIN_GRAD_ACC:(i + 1) * TRAIN_GRAD_ACC]
+            yield {k: torch.stack([mb[k] for mb in mbs]) for k in mbs[0]}
+            envelope()
+
+    held = batches[-1]
+    held_losses = []
+
+    def evaluator(params, step):
+        with torch.no_grad(), ema_lib.swapped(model, params):
+            held_losses.append(float(model.p_losses(held["x0"], held["t"], held["cond"],
+                                                    held["noise"])[0]))
+        return {"held_loss": held_losses[-1]}
+
+    step_s, ckpt_s = [], []
+
+    def timed(fn, out):
+        def run(*a, **kw):
+            t0 = synced()
+            r = fn(*a, **kw)
+            out.append(synced() - t0)
+            return r
+        return run
+
+    torch.cuda.reset_peak_memory_stats()
+    step_fn, save_fn = train_lib.train_step, ckpt_lib.save_train_state
+    train_lib.train_step, ckpt_lib.save_train_state = timed(step_fn, step_s), timed(save_fn, ckpt_s)
+    try:
+        t0 = synced()
+        state = trainer.fit(state, stream(), evaluator=evaluator)
+        s_fit = synced() - t0
+    finally:
+        train_lib.train_step, ckpt_lib.save_train_state = step_fn, save_fn
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    recs = [json.loads(line) for line in open(os.path.join(cfg.log_dir, "metrics.jsonl"))]
+    steps = [r for r in recs if "loss" in r]
+    if (state.step != TRAIN_STEPS or len(steps) != TRAIN_STEPS or not all(
+            np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in steps)
+            or not np.isfinite(held_losses).all()):
+        raise AssertionError(f"trainer: step {state.step}, records {recs}")
+    shadow = trainer.ema_state["shadow"]
+    with torch.no_grad():
+        outside = sum(int(((shadow[n] < lo[n] - 1e-6) | (shadow[n] > hi[n] + 1e-6)).sum())
+                      for n in shadow)
+        moved = sum(not torch.equal(shadow[n], p) for n, p in state.params.items())
+    if outside or moved < 0.9 * len(shadow):
+        raise AssertionError(f"EMA: {outside} values outside the trajectory's envelope, "
+                             f"{moved} of {len(shadow)} shadows differ from the parameters")
+    del lo, hi
+    for p in state.params.values():
+        p.grad = None
+    step_dir = os.path.join(cfg.ckpt_dir, str(TRAIN_STEPS))
+    ckpt_gb = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir)) / 1e9
+
+    # a fresh model resumes from the checkpoint: every tensor bit for bit
+    model2 = build_model(cfg_d, policy=FP32, device="cuda", generator=seeded(4))
+    trainer2 = Trainer(model2, make_opt(), TrainConfig(ckpt_dir=cfg.ckpt_dir), device="cuda")
+    t0 = synced()
+    restored = trainer2.resume(trainer2.init_state())
+    s_read = synced() - t0
+    a, b = state.opt_state.state_dict(), restored.opt_state.state_dict()
+    same = (restored.step == TRAIN_STEPS and a["param_groups"] == b["param_groups"]
+            and all(torch.equal(p, state.params[n]) for n, p in restored.params.items())
+            and all(torch.equal(v, b["state"][i][k]) for i, s in a["state"].items()
+                    for k, v in s.items()))
+    if not same:
+        raise AssertionError("resume did not restore the state bit for bit")
+    del model2, trainer2, restored, a, b
+    med = statistics.median(step_s[1:])
+    print(json.dumps({"phase": 15, "trainer": "openai_unet_2d_v1 fp32, AdamW + clip 1.0 "
+                      "(LambdaWarmUpCosine), EMA, grad_acc 2 x micro-batch 2 at 512^2",
+                      "parameters_M": n_params / 1e6, "step_s": step_s,
+                      "step_s_median_2_4": med,
+                      "images_per_s": TRAIN_GRAD_ACC * TRAIN_MICRO / med,
+                      "fit_s": s_fit, "peak_allocated_GB": peak_gb,
+                      "losses": [r["loss"] for r in steps],
+                      "grad_norms": [r["grad_norm"] for r in steps],
+                      "held_loss_ema": held_losses, "checkpoint_GB": ckpt_gb,
+                      "checkpoint_write_s": ckpt_s, "checkpoint_read_s": s_read,
+                      "resume": "bit for bit", "card": card}), flush=True)
+    del trainer, state, shadow
+    torch.cuda.empty_cache()
+
+    # ---- (d) the card against the host: one step at b1, 256^2 ----------------
+    hl = HOST_LATENT
+    rng = np.random.default_rng(7)
+    batch = {"x0": rng.standard_normal((1, 4, hl, hl)).astype(np.float32),
+             "cond": rng.standard_normal((1, 148, 768)).astype(np.float32),
+             "t": np.array([500]), "noise": rng.standard_normal((1, 4, hl, hl)).astype(np.float32)}
+    with torch.device("meta"):
+        host = registry.get(cfg_d["type"])(**cfg_d["args"], policy=FP32)
+    host = materialize(host, "cpu")
+    host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    out = {}
+    for dev, m in (("cpu", host), ("cuda", model)):
+        init, step = train_lib.make_train_step(m, train_lib.make_optimizer(grad_clip=None), dev)
+        st = init()
+        t0 = synced()
+        _, metrics = step(st, batch)
+        out[dev] = ({k: float(v) for k, v in metrics.items()}, synced() - t0)
+    num = den = 0.0
+    hp = dict(host.named_parameters())
+    for n, p in model.named_parameters():
+        g, gh = p.grad.double().cpu(), hp[n].grad.double()
+        num += float((g - gh).square().sum())
+        den += float(gh.square().sum())
+    grad_rel = (num / den) ** 0.5
+    loss_rel = abs(out["cuda"][0]["loss"] - out["cpu"][0]["loss"]) / abs(out["cpu"][0]["loss"])
+    print(json.dumps({"phase": 15, "card_vs_host": f"one step, b1, {8 * hl}^2",
+                      "loss_card": out["cuda"][0]["loss"], "loss_host": out["cpu"][0]["loss"],
+                      "loss_rel": loss_rel, "grad_rel_l2": grad_rel,
+                      "grad_norm_card": out["cuda"][0]["grad_norm"],
+                      "grad_norm_host": out["cpu"][0]["grad_norm"],
+                      "step_s_card": out["cuda"][1], "step_s_host": out["cpu"][1],
+                      "card": card}), flush=True)
+    if not (loss_rel <= 1e-5 and grad_rel <= 1e-4):
+        raise AssertionError(f"card against host: loss {loss_rel:.3e} (limit 1e-5), gradient "
+                             f"{grad_rel:.3e} (limit 1e-4)")
+    del host, hp
+    for p in model.parameters():
+        p.grad = None
+
+    # ---- (e) the train mask: only diffuser_image_context trains ---------------
+    mask = {n: lab == "diffuser_image_context" for n, lab in labels.items()}
+    init, step = train_lib.make_train_step(model, train_lib.make_optimizer(), "cuda",
+                                           train_mask=mask)
+    st = init()
+    before = {n: p.detach().clone() for n, p in st.params.items()}
+    for i in range(2):
+        st, _ = step(st, dict(batch, t=np.array([200 + 300 * i])))
+    frozen_same = all(torch.equal(p, before[n]) for n, p in st.params.items() if not mask[n])
+    trained_moved = all(not torch.equal(p, before[n]) for n, p in st.params.items() if mask[n])
+    n_train = sum(p.numel() for n, p in st.params.items() if mask[n])
+    print(f"phase 15 mask: {n_train / 1e6:.1f} M of {n_params / 1e6:.1f} M parameters train "
+          f"(diffuser_image_context); after 2 steps the others are bit for bit "
+          f"{frozen_same}, every trained tensor moved {trained_moved}", flush=True)
+    if not (frozen_same and trained_moved):
+        raise AssertionError("the train mask let a frozen parameter move or a trained one stay")
+    del model, st, before, init, step
+    torch.cuda.empty_cache()
+
+    # ---- (f) the VAE's GAN step at full width, b2, 256^2 ----------------------
+    vae = build_model(config.model_cfg("autokl_v2"), policy=FP32, device="cuda",
+                      generator=np.random.default_rng(10))
+    lp = losses.init_lpips(np.random.default_rng(11), device="cuda")
+    disc = losses.init_discriminator(np.random.default_rng(12), device="cuda")
+    imgs = torch.from_numpy(np.random.default_rng(13).random((2, 3, 256, 256),
+                                                             dtype=np.float32)).cuda()
+    noise = seeded(14)
+    rows = {}
+    for side, net in (("generator", vae), ("discriminator", disc)):
+        net.requires_grad_(True)
+        opt = optimizers.build_optimizer("adamw", {"lr": 1e-4})
+        opt_state = opt.init(dict(net.named_parameters()))
+        t0 = synced()
+        if side == "generator":
+            loss, aux = losses.generator_loss(lp, disc, vae, imgs, global_step=10,
+                                              generator=noise)
+        else:
+            loss, aux = losses.discriminator_loss(disc, vae, imgs, global_step=10,
+                                                  generator=noise)
+        loss.backward()
+        ms = (synced() - t0) * 1e3
+        gnorm = float(optimizers.global_norm(p.grad for p in net.parameters()))
+        w0 = [p.detach().clone() for p in net.parameters()]
+        opt.update(opt_state)
+        moved = sum(not torch.equal(a, p) for a, p in zip(w0, net.parameters()))
+        rows[side] = {"loss": loss.item(), **{k: v.item() for k, v in aux.items()},
+                      "grad_norm": gnorm, "ms": ms, "tensors_moved": moved}
+        net.requires_grad_(False)
+        if not (np.isfinite(list(rows[side].values())).all() and gnorm > 0
+                and moved == len(w0)):
+            raise AssertionError(f"the VAE GAN step, {side}: {rows[side]}")
+        del loss, aux, opt_state, w0
+    print(json.dumps({"phase": 15, "vae_gan": "autokl_v2 fp32, LPIPS (VGG16), "
+                      "NLayerDiscriminator ndf 64 x 3, b2 at 256^2, first call each",
+                      **rows, "card": card}), flush=True)
+    del vae, lp, disc, imgs
+    torch.cuda.empty_cache()
+    gan_second_order_rows(card)
+    print(f"phase 15 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return batch_launches
+
+
 def main() -> int:
     import torch
 
@@ -2783,11 +3263,14 @@ def main() -> int:
     # ---- 13. config #4: the annotator networks into the ControlNet path --------
     net_served = preprocess_stack(card, ref, hint_src)
 
-    # ---- 15. summary ---------------------------------------------------------
+    # ---- 15. the training path ---------------------------------------------------
+    train_served = training_path(card, gen)
+
+    # ---- 16. summary ---------------------------------------------------------
     served = {"A": launches, "D": launches_d, "E": launches_e, "F": launches_f,
               "G": launches_g, **{k: turbo_served[k] for k in ("H", "H_kv", "H_tome", "I", "J",
                                                                "J0")}, **graph_served,
-              **zoo_served, **net_served, **clip_served}
+              **zoo_served, **net_served, **clip_served, "train_batch": train_served}
     # the main path's launches: the graphed requests F (bf16), G (int8) and E
     # (K5), each held to the kernels the profiler saw run
     launches_f, launches_g = graph_served["graphed F"], graph_served["graphed G"]

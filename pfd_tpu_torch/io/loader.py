@@ -5,7 +5,8 @@ flat ``{key: CPU tensor}`` state dict in torch layout, as the reference's
 ``load_sd_from_file`` does (app.py:82-92). The ``.safetensors`` reader is the
 port's own: the format is an 8-byte little-endian header length, a JSON
 header of ``{key: {dtype, shape, data_offsets}}`` and the raw little-endian
-bytes, so no package is needed to read it.
+bytes, so no package is needed to read it, nor to write it
+(``save_safetensors``).
 
 The per-part mappers take such a dict to the keys of the sub-module it
 loads into (``module.load_state_dict(sd, strict=True)``). The port keeps
@@ -46,6 +47,13 @@ SAFETENSORS_DTYPES = {
     "I16": "<i2", "I8": "i1", "U8": "u1", "BOOL": "?",
 }
 
+# torch dtype -> .safetensors dtype name (save_safetensors)
+SAFETENSORS_NAMES = {
+    torch.float64: "F64", torch.float32: "F32", torch.float16: "F16", torch.int64: "I64",
+    torch.int32: "I32", torch.int16: "I16", torch.int8: "I8", torch.uint8: "U8",
+    torch.bool: "BOOL",
+}
+
 
 def load_safetensors(path: str) -> dict[str, torch.Tensor]:
     """A ``.safetensors`` file -> ``{key: CPU tensor}`` (module docstring).
@@ -70,6 +78,32 @@ def load_safetensors(path: str) -> dict[str, torch.Tensor]:
         arr = raw[start:end].view(np.dtype(SAFETENSORS_DTYPES[info["dtype"]]))
         out[key] = torch.from_numpy(arr.reshape(info["shape"]))
     return out
+
+
+def save_safetensors(path: str, tensors: dict) -> int:
+    """Write ``{key: tensor}`` (any device) as a ``.safetensors`` file, the
+    mirror of ``load_safetensors``: the header lists the tensors in the
+    dict's order, each one's bytes follow in that order, and the header is
+    padded with spaces to a multiple of 8 bytes. Returns the bytes written."""
+    header, offset, arrays = {}, 0, []
+    for key, t in tensors.items():
+        dtype = SAFETENSORS_NAMES.get(t.dtype)
+        if dtype is None:
+            raise ValueError(f"tensor {key!r} has dtype {t.dtype}, which the .safetensors "
+                             f"writer does not take")
+        a = np.ascontiguousarray(t.detach().cpu().numpy())
+        header[key] = {"dtype": dtype, "shape": list(a.shape),
+                       "data_offsets": [offset, offset + a.nbytes]}
+        offset += a.nbytes
+        arrays.append(a)
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for a in arrays:
+            f.write(a.reshape(-1).view(np.uint8).data)
+    return 8 + len(raw) + offset
 
 
 def load_sd_file(path: str) -> dict[str, torch.Tensor]:

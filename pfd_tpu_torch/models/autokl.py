@@ -6,9 +6,14 @@ decode = post_quant_conv -> Decoder -> (x+1)/2 -> clamp [0, 1]
 
 The mid-block attention is one head of d = 512 channels over the latent grid
 (4096 tokens at 512^2). On a CUDA tensor with at least 1024 tokens that K1
-takes (bf16: ``ops.flash_attention.kernel_takes``) it runs K1
-(``ops.flash_attention.flash_attention``); on the CPU, and in fp32, it runs
-plain attention, as ``pfd_tpu`` switches on its backend (autokl.py:49-52).
+takes (bf16, and no autograd recording the call:
+``ops.flash_attention.kernel_takes``) it runs K1
+(``ops.flash_attention.flash_attention``); on the CPU, in fp32, and under a
+training step's autograd it runs plain attention, as ``pfd_tpu`` switches on
+its backend (autokl.py:49-52).
+
+``kl`` is the posterior's KL to the standard normal (the VAE's training
+loss, ``pfd_tpu`` autokl.py:256-261).
 """
 
 from __future__ import annotations
@@ -66,7 +71,7 @@ class AttnBlock(nn.Module):
             return F.conv2d(h, m).flatten(2).transpose(1, 2)[:, None]
 
         q, k, v = tokens(self.q), tokens(self.k), tokens(self.v)
-        if hh * ww >= 1024 and x.is_cuda and fa.kernel_takes(q, fa.K1_MAX_D):
+        if hh * ww >= 1024 and x.is_cuda and fa.kernel_takes(q, k, v, fa.K1_MAX_D):
             o = fa.with_padded_head(fa.flash_attention, q, k, v)
         else:
             o = F.dot_product_attention(q, k, v, softmax_dtype=self.policy.softmax_dtype)
@@ -215,6 +220,13 @@ class AutoencoderKL(nn.Module):
         noise = torch.randn(mean.shape, generator=generator, device=mean.device,
                             dtype=torch.float32).to(mean.dtype)
         return mean + std * noise
+
+    @staticmethod
+    def kl(mean, logvar):
+        """KL to the standard normal, summed over the non-batch dims, in
+        fp32 (distributions.py:41-47) -> (B,)."""
+        m, lv = mean.float(), logvar.float()
+        return 0.5 * (m ** 2 + torch.exp(lv) - 1.0 - lv).sum(dim=(1, 2, 3))
 
     def decode(self, z, clamp=True):
         z = F.conv2d(self.policy.cast(z), self.post_quant_conv)

@@ -18,6 +18,11 @@ blocks: ``apply_model_encoder`` (the ControlNet runs here) and
 ``apply_model_encoder_shallow`` (no hint), ``apply_model_decoder_deep`` and
 ``apply_model_decoder_shallow``.
 
+``p_losses`` (pfd.py:319-344) is the training loss: ``q_sample`` noises x0
+at t, the UNet predicts eps (or x0, ``parameterization``), and ``get_loss``
+(l1 or l2) is averaged per sample in fp32, weighted by ``l_simple_weight``
+and, through the schedule's ``lvlb_weights``, ``l_elbo_weight``.
+
 ``apply_model_multicontext`` (pfd.py:246-317) mixes several context
 streams per context block: ``"attention"`` sums every context's block
 output weighted by its ratio, ``"layer"`` runs one pathway per block, chosen
@@ -41,10 +46,14 @@ class PromptFreeDiffusion(nn.Module):
     def __init__(self, vae_cfg_list, ctx_cfg_list, diffuser_cfg_list,
                  latent_scale_factor=None, beta_linear_start=1e-4,
                  beta_linear_end=2e-2, timesteps=1000, use_ema=False,
-                 global_layer_ptr=None, parameterization="eps",
+                 global_layer_ptr=None, parameterization="eps", loss_type="l2",
+                 l_simple_weight=1.0, l_elbo_weight=0.0,
                  v_posterior=0.0, policy: Policy = FP32, **kwargs):
         super().__init__()
         self.policy = policy
+        self.loss_type = loss_type
+        self.l_simple_weight = l_simple_weight
+        self.l_elbo_weight = l_elbo_weight
 
         self.vae = nn.ModuleDict({n: self._build(c) for n, c in vae_cfg_list})
         self.ctx = nn.ModuleDict({n: self._build(c) for n, c in ctx_cfg_list})
@@ -118,6 +127,33 @@ class PromptFreeDiffusion(nn.Module):
         return unet(x, timesteps, c_info["c"], self_attn_fn=self_attn_fn,
                     control_residuals=self.control_residuals(x, timesteps, c_info,
                                                              self_attn_fn), **kw)
+
+    # ---- the training loss (pfd.py:319-344) ----------------------------------
+
+    def get_loss(self, pred, target, mean=True):
+        if self.loss_type == "l1":
+            loss = (target - pred).abs()
+        elif self.loss_type == "l2":
+            loss = (target - pred) ** 2
+        else:
+            raise NotImplementedError(self.loss_type)
+        return loss.mean() if mean else loss
+
+    def p_losses(self, x0, t, cond, noise, *, x_type="image", c_type="image",
+                 self_attn_fn=None):
+        """The eps- (or x0-) parameterised loss with VLB weighting -> (loss,
+        {"loss_simple", "loss_vlb"}), in fp32. x0, noise: NCHW latents; t:
+        (B,) int timesteps; cond: context tokens."""
+        x_noisy = self.q_sample(x0, t, noise)
+        model_out = self.apply_model({"type": x_type, "x": x_noisy}, t,
+                                     {"type": c_type, "c": cond}, self_attn_fn=self_attn_fn)
+        target = noise if self.parameterization == "eps" else x0
+        loss_simple = self.get_loss(model_out.float(), target.float(), mean=False)
+        loss_simple = loss_simple.mean(dim=tuple(range(1, loss_simple.ndim)))
+        loss = loss_simple.mean() * self.l_simple_weight
+        lvlb = self._extract(self.schedule.lvlb_weights, t, 1) * loss_simple
+        loss = loss + self.l_elbo_weight * lvlb.mean()
+        return loss, {"loss_simple": loss_simple.mean(), "loss_vlb": lvlb.mean()}
 
     # ---- multicontext (pfd.py:246-317) ---------------------------------------
 

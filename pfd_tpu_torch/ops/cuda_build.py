@@ -7,6 +7,10 @@ source, the shared header and the flags, so an edited source is rebuilt and a
 stale library is never loaded. Nothing is built at import: the first launch
 (or ``build()``) builds, and ``build()`` starts one ``nvcc`` per source, all
 together.
+
+The kernels are forward-only: a wrapper writes into a fresh tensor through
+raw pointers, so its output has no ``grad_fn``. Every launch wrapper calls
+``forward_only`` first, and raises where autograd would record the call.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pfd_tpu_torch"
@@ -112,3 +118,21 @@ def entry(name: str):
         fn.restype = ctypes.c_int
         _loaded[name] = (lib, fn)
     return _loaded[name][1]
+
+
+def records_grad(*tensors) -> bool:
+    """Whether autograd records a call on ``tensors`` (None allowed): grad
+    enabled and one of them requiring grad."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in tensors)
+
+
+def forward_only(name: str, *tensors) -> None:
+    """Raise ``RuntimeError`` where autograd records the call
+    (``records_grad``): a kernel's output would be detached from its inputs
+    and the gradient silently wrong. The dispatchers route such calls to
+    plain attention instead (``flash_attention.kernel_takes``)."""
+    if records_grad(*tensors):
+        raise RuntimeError(f"{name}: the CUDA kernels are forward-only, and an input "
+                           "requires grad while grad is enabled; run it under "
+                           "torch.no_grad() or through plain attention")

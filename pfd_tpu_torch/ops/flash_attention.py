@@ -46,12 +46,16 @@ The dispatchers ``self_attn_fn``, ``cross_attn_fn`` and
 ``self_attn_fn_int8`` pick a wrapper by sequence length (``pfd_tpu``'s
 thresholds), zero-pad heads to a multiple of 8 (``with_padded_head``) and
 send what no kernel takes on the card (a dtype other than bf16, a head
-wider than the kernel's limit) to plain attention (``kernel_takes``).
+wider than the kernel's limit) to plain attention (``kernel_takes``). The
+kernels are forward-only, so a call that autograd records (grad enabled and
+q, k or v requiring grad) goes to plain attention too, on either device, as
+``pfd_tpu`` trains through plain attention.
 
 Each wrapper
 - on a CPU tensor computes its plain PyTorch version of the same function
   (the tests' path, and the oracle on the card);
 - on a CUDA tensor checks device, dtype, shape, contiguity and alignment,
+  refuses an input that autograd records (``cuda_build.forward_only``),
   launches its kernel on the current stream and counts the launch in
   ``<wrapper>.launches``, or raises. It never falls back to the plain version.
 
@@ -247,6 +251,8 @@ def flash_attention(q, k, v, *, scale=None, quant=False, pipelined=False):
                          "with pipelined=True")
     if quant and q.shape[3] % 128 == 0:
         quant = False
+    if q.device.type == "cuda":  # the int8 modes' quantize would detach q, k, v first
+        cuda_build.forward_only("flash_attention", q, k, v)
     if quant:
         return _flash_quant(q, k, v, scale, "full" if quant is True else quant)
     if pipelined:
@@ -265,6 +271,7 @@ def _launch_self_attention(name, q, k, v, scale):
     """Launch K1 or K3 (``csrc/<name>.cu``, one C signature) on CUDA q, k, v."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
+    cuda_build.forward_only(name, q, k, v)
     _check_cuda(q, k, v, max_d=K1_MAX_D)
     b, h, s, d = q.shape
     o = torch.empty_like(q)
@@ -350,6 +357,7 @@ def cross_attention(q, k, v, *, scale=None):
         return attention_plain(q, k, v, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"cross_attention runs on cpu or cuda, not {q.device}")
+    cuda_build.forward_only("cross_attention", q, k, v)
     _check_cuda(q, k, v, max_d=CROSS_MAX_D)
     b, h, sq, d = q.shape
     o = torch.empty_like(q)
@@ -496,6 +504,7 @@ def launch_pv8(q, k, v8t, qscale):
     """K4's kernel alone on CUDA q, k and ``v8t = v8_keys_major(v8)`` (what
     ``flash_attention_pv8`` launches, uncounted; ``chip_smoke.py`` times it
     apart from the layout's copy)."""
+    cuda_build.forward_only("flash_attention_pv8", q, k)
     _check_int8_launch(q.shape, q.dtype, ((q, "q"), (k, "k"), (v8t, "v8t")))
     b, h, s, d = q.shape
     if v8t.shape != (b, h, d, -(-s // PV8_KEY_GROUP) * PV8_KEY_GROUP):
@@ -534,6 +543,7 @@ def launch_int8(q8, k8, v8t, c):
     it apart from the layouts' copies). Returns acc / l in bf16."""
     if q8.device.type != "cuda":
         raise ValueError(f"launch_int8 runs on cuda, not {q8.device}")
+    cuda_build.forward_only("flash_attention_int8", c)
     b, h, d, s32 = v8t.shape
     s = q8.shape[2]
     dq = -(-d // 16) * 16
@@ -581,10 +591,13 @@ def _on_card(t):
     return t.device.type == "cuda"
 
 
-def kernel_takes(q, max_d, quant=False):
-    """Whether a dispatcher hands ``q`` to a kernel's wrapper: on the CPU
-    always; on the card when q is bf16 and its padded head at most
+def kernel_takes(q, k, v, max_d, quant=False):
+    """Whether a dispatcher hands q, k, v to a kernel's wrapper: never where
+    autograd records the call (the kernels are forward-only); else on the
+    CPU always, and on the card when q is bf16 and its padded head at most
     ``max_d`` wide."""
+    if cuda_build.records_grad(q, k, v):
+        return False
     if not _on_card(q):
         return True
     return q.dtype == torch.bfloat16 and padded_head(q.shape[3], quant) <= max_d
@@ -610,7 +623,7 @@ def cross_attn_fn(q, k, v, *, min_seq=1024, max_kv=512):
     """K2 for long q over a short K/V, plain attention otherwise (the
     thresholds of ``pfd_tpu`` flash_attention.py:514-521), or where K2
     does not take q (``kernel_takes``)."""
-    if q.shape[2] >= min_seq and k.shape[2] <= max_kv and kernel_takes(q, CROSS_MAX_D):
+    if q.shape[2] >= min_seq and k.shape[2] <= max_kv and kernel_takes(q, k, v, CROSS_MAX_D):
         return with_padded_head(cross_attention, q, k, v)
     return nn.dot_product_attention(q, k, v)
 
@@ -620,7 +633,7 @@ def self_attn_fn(q, k, v, *, min_seq=1024):
     threshold of ``pfd_tpu`` flash_attention.py:524-544; its TPU block and
     lane-padding picks are not carried over), or where K1 does not take q
     (``kernel_takes``)."""
-    if q.shape[2] >= min_seq and q.shape[2] == k.shape[2] and kernel_takes(q, K1_MAX_D):
+    if q.shape[2] >= min_seq and q.shape[2] == k.shape[2] and kernel_takes(q, k, v, K1_MAX_D):
         return with_padded_head(flash_attention, q, k, v)
     return nn.dot_product_attention(q, k, v)
 
@@ -633,7 +646,7 @@ def self_attn_fn_int8(q, k, v, *, min_seq=1024, mode="pv"):
     (``kernel_takes``)."""
     if q.shape[2] >= min_seq and q.shape[2] == k.shape[2]:
         quant = bool(mode) and q.shape[3] % 128 != 0
-        if kernel_takes(q, INT8_MAX_D if quant else K1_MAX_D, quant):
+        if kernel_takes(q, k, v, INT8_MAX_D if quant else K1_MAX_D, quant):
             return with_padded_head(functools.partial(flash_attention, quant=mode), q, k, v,
                                     quant)
     return nn.dot_product_attention(q, k, v)

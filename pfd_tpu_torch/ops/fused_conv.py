@@ -162,6 +162,7 @@ def conv3x3_fused(x, weight, a, c, bias, residual=None):
         return conv3x3_fused_plain(x, weight, a, c, bias, residual)
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_fused runs on cpu or cuda, not {x.device}")
+    cuda_build.forward_only("conv3x3_bf16", x, weight, a, c, bias, residual)
     if x.dtype != torch.bfloat16 or (residual is not None and residual.dtype != torch.bfloat16):
         raise TypeError(f"the CUDA conv3x3 kernel takes bfloat16, got {x.dtype}")
     cout = weight.shape[0]

@@ -37,7 +37,7 @@ def pool_kv(x, hw, pool):
 def pooled_attention(q, k, v, *, kernel=True):
     """Attention of q over a short pooled K/V: K2 where it takes q, plain
     attention (fp32 softmax) otherwise."""
-    if kernel and fa.kernel_takes(q, fa.CROSS_MAX_D):
+    if kernel and fa.kernel_takes(q, k, v, fa.CROSS_MAX_D):
         return fa.with_padded_head(fa.cross_attention, q, k, v)
     return nn.dot_product_attention(q, k, v)
 

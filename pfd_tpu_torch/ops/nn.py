@@ -41,7 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pfd_tpu_torch.ops import int8_conv, int8_matmul, quant
+from pfd_tpu_torch.ops import cuda_build, int8_conv, int8_matmul, quant
 
 
 def _w(m, x):
@@ -67,21 +67,90 @@ def _conv_q(x, w8, scale, *, stride, padding):
     return _dequant(y, sx, scale, x, 1)
 
 
+def _no_tf32():
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                       deterministic=cudnn.deterministic, allow_tf32=False)
+
+
+class _Conv2dFP32(torch.autograd.Function):
+    """An fp32 conv whose backward runs under the same flags as its forward:
+    the flags of a ``with`` around the forward have closed by the time
+    autograd runs the backward. The backward is ``_Conv2dFP32Grad``, so a
+    second derivative (the GAN loss's adaptive weight differentiates a
+    gradient) runs without TF32 too."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding, dilation, groups):
+        ctx.save_for_backward(x, weight)
+        ctx.conf = (stride, padding, dilation, groups)
+        ctx.bias_sizes = None if bias is None else list(bias.shape)
+        with _no_tf32():
+            return F.conv2d(x, weight, bias, stride, padding, dilation, groups)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, weight = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        mask = (need_x, need_w, need_b and ctx.bias_sizes is not None)
+        gx, gw, gb = _Conv2dFP32Grad.apply(gy, x, weight, ctx.bias_sizes, ctx.conf, mask)
+        return gx, gw, gb, None, None, None, None
+
+
+class _Conv2dFP32Grad(torch.autograd.Function):
+    """``aten.convolution_backward`` (grad input, weight and bias of the conv
+    ``conf`` at ``gy``) without TF32, differentiable through
+    ``aten._convolution_double_backward`` without TF32. A third derivative,
+    which no path takes, would run under the global flags."""
+
+    @staticmethod
+    def forward(ctx, gy, x, weight, bias_sizes, conf, mask):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(gy, x, weight)
+        ctx.conf = conf
+        stride, padding, dilation, groups = conf
+        with _no_tf32():
+            return tuple(torch.ops.aten.convolution_backward(
+                gy, x, weight, bias_sizes, stride, padding, dilation, False, [0, 0], groups,
+                list(mask)))
+
+    @staticmethod
+    def backward(ctx, ggx, ggw, ggb):
+        gy, x, weight = ctx.saved_tensors
+        stride, padding, dilation, groups = ctx.conf
+        if ggx is None and ggw is None and ggb is None:
+            return None, None, None, None, None, None
+        with _no_tf32():
+            g_gy, g_x, g_w = torch.ops.aten._convolution_double_backward(
+                ggx, ggw, ggb, gy, weight, x, stride, padding, dilation, False, [0, 0],
+                groups, list(ctx.needs_input_grad[:3]))
+        return g_gy, g_x, g_w, None, None, None
+
+
+def conv2d_fp32(x, weight, bias=None, *, stride=1, padding=0, dilation=1, groups=1):
+    """``F.conv2d`` with cuDNN's TF32 off in the forward, the backward and
+    the second derivative (``_Conv2dFP32``), on either device."""
+    pair = torch.nn.modules.utils._pair
+    return _Conv2dFP32.apply(x, weight, bias, list(pair(stride)), list(pair(padding)),
+                             list(pair(dilation)), groups)
+
+
 def conv2d_raw(x, weight, bias=None, *, stride=1, padding=0, dilation=1, groups=1):
     """``F.conv2d``, in full fp32 where ``x`` is an fp32 CUDA tensor: cuDNN
     runs fp32 convs in TF32 by default (``torch.backends.cudnn.allow_tf32``),
     about 1e-3 relative off fp32, while the FP32 policy and ``pfd_tpu``'s
     fp32 are fp32 throughout. The guard covers grouped (depthwise) and
-    dilated convs too. Matmuls need no guard: their TF32 flag
-    (``torch.backends.cuda.matmul.allow_tf32``) is off by default and the
-    port never sets it."""
+    dilated convs too, and, where autograd records the conv, its backward
+    and second derivative (``conv2d_fp32``). The CPU has no TF32. Matmuls
+    need no guard: their TF32 flag (``torch.backends.cuda.matmul.allow_tf32``)
+    is off by default and the port never sets it."""
     kw = {"stride": stride, "padding": padding, "dilation": dilation, "groups": groups}
-    if x.is_cuda and x.dtype == torch.float32:
-        cudnn = torch.backends.cudnn
-        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                         deterministic=cudnn.deterministic, allow_tf32=False):
-            return F.conv2d(x, weight, bias, **kw)
-    return F.conv2d(x, weight, bias, **kw)
+    if not (x.is_cuda and x.dtype == torch.float32):
+        return F.conv2d(x, weight, bias, **kw)
+    if cuda_build.records_grad(x, weight, bias):
+        return conv2d_fp32(x, weight, bias, **kw)
+    with _no_tf32():
+        return F.conv2d(x, weight, bias, **kw)
 
 
 def conv2d(x, m, *, stride=1, padding=0, dilation=1, groups=1):

@@ -1,13 +1,36 @@
-"""Image metrics (the port of ``pfd_tpu/training/evaluator.py``'s SSIM).
+"""Evaluator registry + image metrics (PSNR / SSIM), the port of
+``pfd_tpu/training/evaluator.py``.
 
-Only ``ssim`` is ported: the quality gates (``tools/e2e_gate.py``,
-``tools/quant_gate.py``) score with it. The evaluator registry and the
-batch metric dict of ``pfd_tpu`` belong to training, which is not ported.
+The reference's eval plumbing expects a registered get_evaluator() computing
+per-batch metrics (utils.py:372-418), but its lib/evaluator module does not
+exist. This is the working interface (``training.harness.Trainer``'s
+evaluator hook), with the metrics the quality gates score with
+(``tools/e2e_gate.py``, ``tools/quant_gate.py``: SSIM). Plain numpy.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+_EVALUATORS = {}
+
+
+def register(name):
+    def deco(fn):
+        _EVALUATORS[name] = fn
+        return fn
+    return deco
+
+
+def get_evaluator(name):
+    return _EVALUATORS[name]
+
+
+def psnr(a: np.ndarray, b: np.ndarray, data_range=1.0) -> float:
+    mse = np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2)
+    if mse == 0:
+        return float("inf")
+    return float(10 * np.log10(data_range ** 2 / mse))
 
 
 def _gaussian_window(size=11, sigma=1.5):
@@ -40,3 +63,15 @@ def ssim(a: np.ndarray, b: np.ndarray, data_range=1.0) -> float:
     m = ((2 * mu_ab + c1) * (2 * s_ab + c2)) / (
         (mu_aa + mu_bb + c1) * (s_aa + s_bb + c2))
     return float(m.mean())
+
+
+@register("image_quality")
+def image_quality_evaluator(pred, target, data_range=1.0):
+    """Batch metric dict for the Trainer's evaluator hook: mean PSNR and SSIM
+    over a batch of channels-last images."""
+    pred = np.asarray(pred)
+    target = np.asarray(target)
+    return {
+        "psnr": float(np.mean([psnr(p, t, data_range) for p, t in zip(pred, target)])),
+        "ssim": float(np.mean([ssim(p, t, data_range) for p, t in zip(pred, target)])),
+    }

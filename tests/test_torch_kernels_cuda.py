@@ -688,19 +688,18 @@ def test_tome_attention_is_captured(kernel):
 
 @pytest.mark.cuda
 def test_safetensors_reader_loads_into_a_cuda_module(tmp_path):
-    """A fp16 ``.safetensors`` checkpoint (written by ``chip_smoke``'s writer:
-    the card's host has no safetensors package), read by the port's reader
-    and loaded strictly into a bf16 module on the card: each parameter is
-    the file's tensor cast to bf16."""
+    """A fp16 ``.safetensors`` checkpoint (written by the port's writer: the
+    card's host has no safetensors package), read by the port's reader and
+    loaded strictly into a bf16 module on the card: each parameter is the
+    file's tensor cast to bf16."""
     _need_cuda()
-    import chip_smoke
     from pfd_tpu_torch.io import loader
 
     g = torch.Generator().manual_seed(0)
     sd = {"weight": torch.randn(32, 64, 3, 3, generator=g).half(),
           "bias": torch.randn(32, generator=g).half()}
     path = str(tmp_path / "conv.safetensors")
-    chip_smoke.write_safetensors(path, sd)
+    loader.save_safetensors(path, sd)
     got = loader.load_sd_file(path)
     conv = torch.nn.Conv2d(64, 32, 3, device="cuda", dtype=torch.bfloat16)
     conv.load_state_dict(got, strict=True)
@@ -1037,3 +1036,163 @@ def test_openclip_visual_tower_on_the_card_matches_the_host():
         got = enc.to("cuda")._tower(pix.cuda())
     assert got.shape == (1, 257, 1024)
     assert _rel_l2(got, want) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_inputs_that_autograd_records():
+    """The kernels are forward-only: each float wrapper (K1, K2, K3, K4, K5
+    through its quantize, the bf16 conv3x3) raises on an input that requires
+    grad while grad is enabled, before any launch, and launches as before
+    under no_grad."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (_randn((1, 2, 1024, 40), g) for _ in range(3))
+    x = _randn((1, 16, 8, 8), g)
+    w = _randn((16, 16, 3, 3), g)
+    k148, v148 = k[:, :, :148].contiguous(), v[:, :, :148].contiguous()
+    calls = [lambda a: fa.flash_attention(a, k, v), lambda a: fa.cross_attention(a, k148, v148),
+             lambda a: fa.flash_attention_pipe(a, k, v),
+             lambda a: fa.flash_attention(a, k, v, quant="pv"),
+             lambda a: fa.flash_attention(a, k, v, quant=True)]
+    before = fa.launches()
+    for call in calls:
+        with pytest.raises(RuntimeError, match="forward-only"):
+            call(q.clone().requires_grad_())
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fused_conv.conv3x3_bf16(x.clone().requires_grad_(), w)
+    torch.cuda.synchronize()
+    assert fa.launches() == before
+    with torch.no_grad():
+        for call in calls:
+            call(q.clone().requires_grad_())
+        fused_conv.conv3x3_bf16(x.clone().requires_grad_(), w)
+    torch.cuda.synchronize()
+    assert fa.launches()["flash_attention"] == before["flash_attention"] + 1
+
+
+@pytest.mark.cuda
+def test_dispatchers_and_the_vae_route_recorded_calls_to_plain_attention():
+    """A bf16 call that autograd records goes to plain attention, with no
+    launch and a finite, non-zero gradient: the dispatchers, and the VAE's
+    mid-block attention over 1,024 tokens; without grad the same calls
+    launch K1."""
+    _need_cuda()
+    from pfd_tpu_torch.models.build import build_model
+    from pfd_tpu_torch.policy import BF16
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = (_randn((1, 2, 1024, 40), g) for _ in range(3))
+    qg = q.clone().requires_grad_()
+    before = fa.launches()
+    fa.self_attn_fn(qg, k, v).float().sum().backward()
+    fa.cross_attn_fn(qg, k[:, :, :148], v[:, :, :148]).float().sum().backward()
+    vae = build_model(_TINY_PFD["args"]["vae_cfg_list"][0][1], policy=BF16, device="cuda")
+    x = torch.rand((1, 3, 128, 128), generator=g, device="cuda").requires_grad_()
+    vae.encode_moments(x)[0].float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert fa.launches() == before
+    for t in (qg.grad, x.grad):
+        assert torch.isfinite(t).all() and t.float().abs().sum() > 0
+    with torch.no_grad():
+        vae.encode_moments(x)
+    torch.cuda.synchronize()
+    assert fa.launches()["flash_attention"] == before["flash_attention"] + 1
+
+
+def _conv_case(seed, shape=(2, 320, 32, 32), cout=320):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=g)
+    w = torch.randn((cout, shape[1], 3, 3), generator=g) / (9 * shape[1]) ** 0.5
+    b = torch.randn(cout, generator=g)
+    gy = torch.randn((shape[0], cout) + shape[2:], generator=g)
+    return x, w, b, gy
+
+
+@pytest.mark.cuda
+def test_conv2d_raw_backward_runs_without_tf32():
+    """The fp32 conv's backward on the card, with cuDNN's TF32 flag on (its
+    default): grad input, weight and bias within relative L2 1e-5 of a
+    float64 host reference; ``F.conv2d``'s own backward under the same flag
+    misses by more than 1e-5 in grad input and in grad weight each (at this
+    shape cuDNN's weight gradient takes TF32; at (2,320,64,64) it does
+    not), so the limit tells the two apart in both."""
+    _need_cuda()
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        x, w, b, gy = _conv_case(2)
+        ts = [t.double().requires_grad_() for t in (x, w, b)]
+        want = torch.autograd.grad(torch.nn.functional.conv2d(*ts, padding=1), ts, gy.double())
+
+        def grads(conv):
+            tc = [t.cuda().requires_grad_() for t in (x, w, b)]
+            return torch.autograd.grad(conv(*tc), tc, gy.cuda())
+
+        got = grads(lambda a, c, d: tnn.conv2d_raw(a, c, d, padding=1))
+        assert max(_rel_l2(a, c) for a, c in zip(got, want)) <= 1e-5
+        tf32 = grads(lambda a, c, d: torch.nn.functional.conv2d(a, c, d, padding=1))
+        assert _rel_l2(tf32[0], want[0]) > 1e-5
+        assert _rel_l2(tf32[1], want[1]) > 1e-5
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+def test_conv2d_raw_second_derivative_runs_without_tf32():
+    """The derivative of the fp32 conv's gradient (``|dL/dx|^2 + |dL/dw|^2``
+    to x and w, as the GAN loss's adaptive weight takes one) on the card
+    with cuDNN's TF32 flag on: within relative L2 1e-5 of float64, where
+    ``F.conv2d``'s double backward under the same flag misses by more."""
+    _need_cuda()
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        x, w, _, gy = _conv_case(3)
+
+        def second(conv, x, w, gy):
+            x, w = x.clone().requires_grad_(), w.clone().requires_grad_()
+            gx, gw = torch.autograd.grad(conv(x, w), (x, w), gy, create_graph=True)
+            return torch.autograd.grad(gx.square().sum() + gw.square().sum(), (x, w))
+
+        want = second(lambda a, c: torch.nn.functional.conv2d(a, c, padding=1),
+                      x.double(), w.double(), gy.double())
+        got = second(lambda a, c: tnn.conv2d_raw(a, c, padding=1), x.cuda(), w.cuda(), gy.cuda())
+        assert max(_rel_l2(a, c) for a, c in zip(got, want)) <= 1e-5
+        tf32 = second(lambda a, c: torch.nn.functional.conv2d(a, c, padding=1),
+                      x.cuda(), w.cuda(), gy.cuda())
+        assert min(_rel_l2(a, c) for a, c in zip(tf32, want)) > 1e-5
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+def test_tiny_train_step_on_the_card_matches_the_cpu():
+    """One ``make_train_step`` step of a tiny FP32 diffuser on the card and on
+    the CPU from the same weights and batch: the loss within relative 1e-5,
+    the gradient (every trained tensor, before clipping) within relative L2
+    1e-4; the card's step takes no kernel (plain attention in training)."""
+    _need_cuda()
+    import copy
+
+    import numpy as np
+    from pfd_tpu_torch.models.build import build_model, dezero_
+    from pfd_tpu_torch.parallel import train as train_lib
+    from pfd_tpu_torch.policy import FP32
+
+    cfg = {"type": "pfd", "args": dict(_TINY_PFD["args"], vae_cfg_list=[], ctx_cfg_list=[],
+                                       latent_scale_factor=None)}
+    net = dezero_(build_model(cfg, policy=FP32, device="cpu"), torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(4)
+    batch = {"x0": rng.standard_normal((2, 4, 32, 32)).astype(np.float32),
+             "cond": rng.standard_normal((2, 16, 128)).astype(np.float32),
+             "t": np.array([3, 900]), "noise": rng.standard_normal((2, 4, 32, 32)).astype(np.float32)}
+    out = {}
+    before = fa.launches()
+    for dev, m in (("cpu", net), ("cuda", copy.deepcopy(net).cuda())):
+        init, step = train_lib.make_train_step(m, train_lib.make_optimizer(grad_clip=None), dev)
+        _, metrics = step(init(), batch)
+        out[dev] = (float(metrics["loss"]), torch.cat([p.grad.flatten().double().cpu()
+                                                       for p in m.parameters()]))
+    assert fa.launches() == before
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
+    assert _rel_l2(out["cuda"][1], out["cpu"][1]) <= 1e-4

@@ -232,17 +232,16 @@ def test_fp16_to_bf16_load_matches_pfd_tpu_cast():
 
 
 def test_chip_smokes_writer_is_read_by_the_library(tmp_path):
-    """``chip_smoke.write_safetensors`` (the card's host has no safetensors
-    package) writes files that ``safetensors`` and the port read alike."""
-    import chip_smoke
-
+    """The writer ``chip_smoke.py`` writes its zoo with,
+    ``loader.save_safetensors`` (the card's host has no safetensors
+    package), writes files that ``safetensors`` and the port read alike."""
     g = torch.Generator().manual_seed(1)
     tensors = {"w": torch.randn(3, 5, generator=g).half(), "b": torch.randn(7, generator=g),
                "idx": torch.arange(5), "flag": torch.tensor([True, False]),
                "i8": torch.randint(-100, 100, (3,), generator=g, dtype=torch.int8),
                "empty": torch.zeros(0, 2)}
     path = str(tmp_path / "w.safetensors")
-    n = chip_smoke.write_safetensors(path, tensors)
+    n = loader.save_safetensors(path, tensors)
     assert n == os.path.getsize(path)
     want = load_file(path)
     _assert_same(loader.load_sd_file(path), want)
