@@ -17,6 +17,13 @@ Flax ``nn.Embed`` table, ``embedding``, becomes ``nn.Embedding``'s
 ``text_projection``) keep their names and layouts, as the port's
 ``nn.Parameter`` of each is used the same way.
 
+The classic, 0-d and legacy UNets' trees (``models/unet_{classic,0d,
+variants}.py``) take the same walk: their kernel-1 QKV convs are stored WIO
+``(1, I, O)`` and become ``nn.Conv1d``'s ``(O, I, 1)``, the attention
+pool's ``positional_embedding`` keeps its ``(C, T+1)`` layout, the VD UNet's
+``unet_image`` / ``unet_text`` subtrees are paths like any other, and the
+unit registry's Fourier bank (``ops/units.py``, ``params()``) is ``emb``.
+
 ``params_from_jax`` turns that into torch tensors ready for
 ``module.load_state_dict(sd, strict=True)``. The Swin buffers the JAX side
 never stores (``relative_position_index``, ``attn_mask``; convert.py:49-53)

@@ -123,18 +123,26 @@ class SpatialTransformer(nn.Module):
         self.proj_out = zero_init(nn.Conv2d(inner, in_channels, 1))
 
     def forward(self, x, context, self_attn_fn=None):
-        """NCHW spatial transformer (attention.py:309-371, conv projections)."""
-        pol = self.policy
-        b, c, hh, ww = x.shape
-        x_in = x
-        x = F.group_norm(x, self.norm, eps=1e-6, norm_dtype=pol.norm_dtype)
-        x = F.conv2d(x, self.proj_in)
-        inner = x.shape[1]
-        x = x.flatten(2).transpose(1, 2)
-        for blk in self.transformer_blocks:
-            x = blk(x, context, self.n_heads, pol, self_attn_fn=self_attn_fn)
-        x = x.transpose(1, 2).reshape(b, inner, hh, ww)
-        return F.conv2d(x, self.proj_out) + x_in
+        return spatial_transformer(x, context, self.norm, self.proj_in,
+                                   self.transformer_blocks, self.proj_out, self.n_heads,
+                                   self.policy, self_attn_fn)
+
+
+def spatial_transformer(x, context, norm, proj_in, transformer_blocks, proj_out, n_heads,
+                        policy: Policy, self_attn_fn=None):
+    """NCHW spatial transformer (attention.py:309-371, conv projections) on
+    the given layers: ``SpatialTransformer``'s, or one branch of the
+    dual-context UNet's (``unet_classic.DualSpatialTransformer``)."""
+    b, c, hh, ww = x.shape
+    x_in = x
+    x = F.group_norm(x, norm, eps=1e-6, norm_dtype=policy.norm_dtype)
+    x = F.conv2d(x, proj_in)
+    inner = x.shape[1]
+    x = x.flatten(2).transpose(1, 2)
+    for blk in transformer_blocks:
+        x = blk(x, context, n_heads, policy, self_attn_fn=self_attn_fn)
+    x = x.transpose(1, 2).reshape(b, inner, hh, ww)
+    return F.conv2d(x, proj_out) + x_in
 
 
 class Downsample(nn.Module):

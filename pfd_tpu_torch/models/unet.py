@@ -16,8 +16,10 @@ ControlNet's residuals folded into the state) followed by ``apply_decoder``
 (``apply_encoder_shallow``, ``apply_decoder_deep``,
 ``apply_decoder_shallow``), as ``pfd_tpu``'s do (unet.py:265-395).
 
-Only the ``openai_unet_2d_next`` layout is ported; the classic, 0-d and
-variant UNets of ``pfd_tpu`` are not on the serving path.
+The classic-layout, 0-d and legacy UNets register from their own modules
+(``unet_classic``, ``unet_0d``, ``unet_variants``), imported at the end of
+this one as in ``pfd_tpu`` (unet.py:398-401), so that every ``openai_unet*``
+type resolves through the registry's prefix.
 """
 
 from __future__ import annotations
@@ -312,3 +314,9 @@ class UNetModel2DNext(nn.Module):
         the first n_shallow skips."""
         return self.apply_decoder(h, hs_shallow, timesteps, context,
                                   ops=self.decoder_split()[1], **kw)
+
+
+# register the classic-layout, 0-d and legacy variants
+from pfd_tpu_torch.models import unet_classic  # noqa: E402,F401
+from pfd_tpu_torch.models import unet_0d  # noqa: E402,F401
+from pfd_tpu_torch.models import unet_variants  # noqa: E402,F401

@@ -1196,3 +1196,37 @@ def test_tiny_train_step_on_the_card_matches_the_cpu():
     assert fa.launches() == before
     assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
     assert _rel_l2(out["cuda"][1], out["cpu"][1]) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_classic_unet_through_the_kernels_matches_plain_attention():
+    """The classic-layout UNet (``openai_unet``) in bf16 at a small width
+    (64 channels, heads of 16) on a 32^2 latent: with ``self_attn_fn`` its
+    first level's 1,024 tokens take K1 and K2 (3 transformer blocks: K1 3,
+    K2 3) and its eps is within ``chip_smoke.compare_eps``'s bound of the
+    same call through plain attention; the dual-context UNet at ``which``
+    = 0.5 launches both branches (K1 6, K2 6)."""
+    _need_cuda()
+    import chip_smoke
+    from pfd_tpu_torch.models.build import build_model, dezero_
+    from pfd_tpu_torch.policy import BF16
+
+    args = dict(chip_smoke.TINY_SD, model_channels=64)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((2, 4, 32, 32), generator=g, device="cuda")
+    t = torch.tensor([981, 21], device="cuda")
+    c = torch.randn((2, 9, 64), generator=g, device="cuda").bfloat16()
+    for name, kw, n in (("openai_unet", {}, 3), ("openai_unet_dual_context",
+                                                  {"which": 0.5}, 6)):
+        m = dezero_(build_model({"type": name, "args": args}, policy=BF16, device="cuda"), g)
+        ctx = [c, c.flip(1)] if kw else c
+        with torch.no_grad():
+            before = fa.launches()
+            e_k = m(x, t, ctx, self_attn_fn=fa.self_attn_fn, **kw)
+            torch.cuda.synchronize()
+            launches = {k: v - before[k] for k, v in fa.launches().items()}
+            e_p = m(x, t, ctx, **kw)
+        assert launches["flash_attention"] == n and launches["cross_attention"] == n
+        assert e_p.float().abs().max() > 1e-2
+        chip_smoke.compare_eps(f"{name} eps, kernels vs plain attention", e_k.float(),
+                               e_p.float())
