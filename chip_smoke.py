@@ -290,12 +290,42 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    GroupNorms see groups of one value, where the host gives 0 and the card
    rounding times 1/sqrt(eps); that row is printed), the first module off
    by 1e-6 named on a failure;
-17. a ``kernels`` JSON line (``launches``: the graphed requests of phase
+17. (run after phase 16, its models and graph pools released; the memory
+   allocated at its start printed) the multi-device path, the VAE lab and
+   the golden harness, its files in a temporary root (removed at the end):
+   K1 at the tp=2 shard (2,4,4096,4096,40) and K2 at the sp=2
+   self-attention (2,8,2048,4096,40) and (2,8,512,1024,80) against their
+   plain versions, with their rows; (a) ``tools/vae_lab.run`` at b8, 512^2:
+   the int8, bf16 and int8 stride-4 decodes, each finite, the int8 rows
+   launching ``conv_int8`` and every row K1, with their ms; (b)
+   ``tools/golden_examples.run``: the tiny smoke's cases 0 and 7 recorded,
+   then compared at SSIM 1.0; then at full width (fp16, random de-zeroed
+   weights, an empty pretrained root, K1/K2 through ``self_attn_fn``) on
+   synthetic images written at cases 0's and 7's asset paths with an anime
+   negative context: recorded, then compared at SSIM >= 0.95, whether bit
+   for bit and the s/img printed; (c) ``distributed.initialize`` over NCCL
+   at world size 1 and ``make_mesh()``: every group None, the sharded
+   ``openai_unet_2d_v1`` bf16 eps at 512^2 (latent (2,4,64,64), a
+   (2,148,768) context) through the kernels equal to the one-device eps bit
+   for bit at K1 10 / K2 10, and one FP32 sharded AdamW step at 256^2, b2
+   (lr ``mesh_check.LR``), within relative 1e-5 (loss, ``grad_norm``) and
+   relative L2 1e-5 per parameter of ``parallel/train``'s one-device step
+   (whether bit for bit printed, and a second one-device step's distance
+   from the first), the one-device side from ``tools/mesh_check.reference``;
+   (d) two spawned processes on the one card over gloo
+   (``tools/mesh_check.run``), at dp2, tp2 and sp2 (``MESH_LAYOUTS``): each
+   rank's K1/K2 launches (``MESH_LAUNCHES``: K1 at 4 heads under tp2, K2 for
+   the self-attention under sp2), and ``mesh_check.check``: each rank's eps
+   within ``compare_eps``'s bound of (c)'s, its step's loss and
+   ``grad_norm`` within relative 1e-5 of (c)'s one-device step and rank 0's
+   parameters within relative L2 1e-5; each layout's step seconds,
+   labelled a layout check;
+18. a ``kernels`` JSON line (``launches``: the graphed requests of phase
    8c, F for the bf16 kernels, G for the int8 ones and E for K5; every
    serving request's counts, the turbo ones', the graphed ones' and phases
-   12's, 13's, 14's, 15's and 16's too, in ``launches_by_request``; K2's rows
-   phase 14's too), the card's name and power limit, then the device JSON as
-   the last line.
+   12's, 13's, 14's, 15's, 16's and 17's too, in ``launches_by_request``;
+   K1's and K2's rows phase 17's, K2's phase 14's too), the card's name and
+   power limit, then the device JSON as the last line.
 
 Imports neither JAX nor ``pfd_tpu``.
 """
@@ -3139,6 +3169,236 @@ def _classic_unets(card, gen, root):
     return served
 
 
+# ---- 17. the multi-device path, the VAE lab and the golden harness -------------
+
+MESH_LAYOUTS = {"dp2": (2, 1, 1), "tp2": (1, 1, 2), "sp2": (1, 2, 1)}  # (dp, sp, tp)
+# an eps call at 512^2 (b2): ds1 and ds2 hold 10 transformer blocks at S >= 1024.
+# tp2 and dp2 run them all on every rank; split over 'seq' each self-attention
+# is a rank's queries over the gathered keys, which K2 takes (Sq != Skv)
+MESH_LAUNCHES = {"dp2": {"flash_attention": 10, "cross_attention": 10},
+                 "tp2": {"flash_attention": 10, "cross_attention": 10},
+                 "sp2": {"flash_attention": 0, "cross_attention": 20}}
+
+
+def write_golden_assets(assets):
+    """Synthetic images at golden cases 0's and 7's asset paths (an RGB
+    reference with structure and a canny-like hint of white lines at the
+    case's size) and an anime negative context (``assets/anime_ug.pth``)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from pfd_tpu_torch.tools.golden_examples import EXAMPLES
+    rng = np.random.default_rng(17)
+    for i in (0, 7):
+        im_p, ctl_p, _, _, h, w = EXAMPLES[i][:6]
+        yy, xx = np.mgrid[0:512, 0:512] / 512.0
+        ref = np.stack([np.sin(6 * xx + i), np.cos(5 * yy), xx * yy], -1) * 0.4 + 0.5
+        ref = ref + 0.05 * rng.standard_normal(ref.shape)
+        hint = np.zeros((h, w, 3))
+        for _ in range(12):
+            r, c0 = rng.integers(0, h), rng.integers(0, w // 2)
+            hint[r, c0:c0 + w // 3] = 1.0
+            c, r0 = rng.integers(0, w), rng.integers(0, h // 2)
+            hint[r0:r0 + h // 3, c] = 1.0
+        for rel, arr in ((im_p, ref), (ctl_p, hint)):
+            path = os.path.join(assets, rel)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            Image.fromarray((np.clip(arr, 0, 1) * 255).astype(np.uint8)).save(path)
+    os.makedirs(os.path.join(assets, "assets"), exist_ok=True)
+    torch.save(torch.from_numpy(rng.standard_normal((4, 768)).astype(np.float32)),
+               os.path.join(assets, "assets", "anime_ug.pth"))
+
+
+def multi_card(card, mufu_rate, gen):
+    """Phase 17 (module docstring), its files in a temporary root (removed
+    at the end). Returns (K1 rows, K2 rows, {request: launches})."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="pfd_mesh_")
+    try:
+        return _multi_card(card, mufu_rate, gen, root)
+    finally:
+        shutil.rmtree(root)
+
+
+def _multi_card(card, mufu_rate, gen, root):
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from pfd_tpu_torch.models.build import dezero_
+    from pfd_tpu_torch.ops import flash_attention as fa
+    from pfd_tpu_torch.parallel import distributed, sharding
+    from pfd_tpu_torch.parallel.mesh import make_mesh
+    from pfd_tpu_torch.policy import BF16, FP32
+    from pfd_tpu_torch.tools import golden_examples, mesh_check, vae_lab
+
+    t_phase = time.perf_counter()
+    print(f"phase 17: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated at its start "
+          f"({card})", flush=True)
+    served = {}
+
+    def counted(label, fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        served[label] = launch_counts()
+        return out
+
+    # ---- the kernels at the shapes the mesh gives them ----------------------------
+    k1_rows = [check_kernel("K1", fa.flash_attention, (2, 4, 4096, 40), 4096, mufu_rate, gen)]
+    k2_rows = [check_kernel("K2", fa.cross_attention, s, skv, mufu_rate, gen,
+                            fa.cross_variant(s[0] * s[1], s[2], skv, s[3],
+                                             torch.cuda.get_device_properties(0)
+                                             .multi_processor_count))
+               for s, skv in (((2, 8, 2048, 40), 4096), ((2, 8, 512, 80), 1024))]
+
+    # ---- (a) the VAE lab's rows at b8, 512^2 ------------------------------------------
+    t0 = time.perf_counter()
+    ms, lab_launches, images = vae_lab.run(8, 512, 3)
+    for row, img in images.items():
+        n = lab_launches[row]
+        if not (torch.isfinite(img.float()).all() and n.get("flash_attention", 0) >= 1
+                and (n.get("conv_int8", 0) > 0) == row.startswith("int8")):
+            raise AssertionError(f"phase 17 (a) {row}: launches {n}, finite "
+                                 f"{bool(torch.isfinite(img.float()).all())}")
+        served[f"vae_lab {row}"] = {k: n.get(k, 0) for k in fa.SERVING}
+    del images
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": 17, "vae_lab": {f"vae_decode_ms_{k}": v for k, v in ms.items()},
+                      "batch": 8, "size": 512, "launches": lab_launches, "card": card}),
+          flush=True)
+    print(f"phase 17 (a) took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- (b) the golden harness: tiny, then full width on synthetic assets ------------
+    t0 = time.perf_counter()
+    tiny = golden_examples.pipeline(os.path.join(root, "tiny"), tiny_smoke=True)
+    for record in (True, False):
+        res = golden_examples.run(None, os.path.join(root, "tiny"),
+                                  os.path.join(root, "goldens_tiny"), record=record,
+                                  tiny_smoke=True, cases=[0, 7], pipe=tiny)
+    if not all(r["ssim"] == 1.0 for r in res.values()):
+        raise AssertionError(f"phase 17 (b) tiny: {res}")
+    del tiny
+    assets, empty = os.path.join(root, "assets"), os.path.join(root, "pretrained")
+    os.makedirs(empty)
+    write_golden_assets(assets)
+    pipe = golden_examples.pipeline(empty, self_attn_fn=fa.self_attn_fn)
+    dezero_(pipe.net, torch.Generator(device="cuda").manual_seed(1))
+    served_imgs, infer = [], pipe.action_inference
+
+    def keep(*args, **kw):  # the harness keeps no compare image: keep each one here
+        out = infer(*args, **kw)
+        served_imgs.append(np.asarray(out[0]))
+        return out
+
+    pipe.action_inference = keep
+    golden = {}
+    for record in (True, False):
+        for i in (0, 7):
+            t1 = time.perf_counter()
+            res = counted(f"golden {i} {'record' if record else 'compare'}",
+                          lambda: golden_examples.run(assets, empty, os.path.join(root, "goldens"),
+                                                      record=record, cases=[i], pipe=pipe))
+            golden.setdefault(i, {})["record_s" if record else "s_per_img"] = (
+                time.perf_counter() - t1)
+            if not record:
+                golden[i]["ssim"] = res[i]["ssim"]
+    for i in (0, 7):
+        img = np.load(os.path.join(root, "goldens", f"example_{i:02d}.npy"))
+        h, w = golden_examples.EXAMPLES[i][4:6]
+        golden[i]["shape"] = list(img.shape)
+        if not (img.shape == (h, w, 3) and np.isfinite(img).all() and img.std() > 0.01
+                and golden[i]["ssim"] >= 0.95):
+            raise AssertionError(f"phase 17 (b) case {i}: {golden[i]}")
+    # served in the order record 0, record 7, compare 0, compare 7
+    for i, (rec, cmp) in zip((0, 7), zip(served_imgs[:2], served_imgs[2:])):
+        golden[i]["bit_for_bit"] = bool(np.array_equal(rec, cmp))
+    del pipe.action_inference  # no cycle through the bound method: the pool frees now
+    del pipe, infer, keep, served_imgs
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": 17, "golden_fp16_full_width": golden, "card": card}), flush=True)
+    print(f"phase 17 (b) took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- (c) the mesh at world size 1 over NCCL -----------------------------------------
+    t0 = time.perf_counter()
+    mroot = os.path.join(root, "mesh")
+    os.makedirs(mroot)
+    cfg = mesh_check.default_cfg()
+    e_one, loss1, gnorm1, params1, s1 = counted(
+        "mesh ws1 eps, one device",
+        lambda: mesh_check.reference(mroot, cfg, 2, "cuda", BF16, fa.self_attn_fn))
+    torch.cuda.empty_cache()
+    ref = torch.load(os.path.join(mroot, "ref.pt"), map_location="cuda")
+    distributed.initialize(f"file://{root}/nccl_store", 1, 0)
+    try:
+        mesh = make_mesh()
+        if dist.get_backend() != "nccl" or any(g is not None for g in mesh.groups.values()):
+            raise AssertionError(f"phase 17 (c): backend {dist.get_backend()}, groups "
+                                 f"{mesh.groups}")
+        model = mesh_check.build(cfg, BF16, 170, "cuda")
+        with torch.no_grad():
+            e_mesh = counted("mesh ws1 eps", lambda: sharding.apply_model(
+                model, mesh, ref["x"], ref["t"], ref["c"], self_attn_fn=fa.self_attn_fn).float())
+        del model
+        want = {"flash_attention": 10, "cross_attention": 10}
+        for label in ("mesh ws1 eps, one device", "mesh ws1 eps"):
+            if {k: served[label][k] for k in want} != want:
+                raise AssertionError(f"phase 17 (c) {label}: launches {served[label]}")
+        if not torch.equal(e_one, e_mesh):
+            raise AssertionError("phase 17 (c): the sharded eps at world size 1 is not the "
+                                 f"one-device eps bit for bit "
+                                 f"({(e_one - e_mesh).abs().max().item()})")
+        loss_m, gnorm_m, params_m, s_m = mesh_check.one_step(
+            mesh_check.build(cfg, FP32, 171, "cuda"), mesh, ref["batch"])
+        bitwise = loss_m == loss1 and gnorm_m == gnorm1 and all(
+            torch.equal(params_m[k].cpu(), v) for k, v in params1.items())
+        diff = {"loss_rel": mesh_check.rel(loss_m, loss1),
+                "grad_norm_rel": mesh_check.rel(gnorm_m, gnorm1),
+                "params_rel_l2_max": mesh_check.rel_per_leaf(params_m, params1)}
+        del params_m
+        # the one-device step against itself: what run-to-run rounding leaves
+        _, gnorm_again, params_again, _ = mesh_check.one_step(
+            mesh_check.build(cfg, FP32, 171, "cuda"), "cuda", ref["batch"])
+        diff["one_device_repeat_grad_norm_rel"] = mesh_check.rel(gnorm_again, gnorm1)
+        diff["one_device_repeat_params_rel_l2_max"] = mesh_check.rel_per_leaf(params_again,
+                                                                              params1)
+        del params_again, params1
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps({"phase": 17, "mesh_ws1_nccl": {
+        "eps_bit_for_bit": True, "launches": served["mesh ws1 eps"], "step_bit_for_bit": bitwise,
+        **diff, "loss": loss1, "grad_norm": gnorm1, "lr": mesh_check.LR,
+        "step_s_one_device": s1, "step_s_mesh": s_m}, "card": card}), flush=True)
+    lim = mesh_check.STEP_LIMIT
+    if not (diff["loss_rel"] <= lim and diff["grad_norm_rel"] <= lim
+            and diff["params_rel_l2_max"] <= lim):
+        raise AssertionError(f"phase 17 (c): the sharded step at world size 1 is off the "
+                             f"one-device step by {diff}")
+    print(f"phase 17 (c) took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- (d) world size 2 on the one card over gloo ---------------------------------
+    t0 = time.perf_counter()
+    rows = mesh_check.run(2, mroot, MESH_LAYOUTS, backend="gloo")
+    print(json.dumps({"phase": 17, "mesh_ws2_gloo_one_card": rows,
+                      "note": "a layout check: two processes share one card over gloo; step_s "
+                              "is no speed", "card": card}), flush=True)
+    for name, ranks in rows.items():
+        for row in ranks:
+            want = MESH_LAUNCHES[name]
+            if {k: row["launches"][k] for k in want} != want:
+                raise AssertionError(f"phase 17 (d) {name} rank {row['rank']}: launches "
+                                     f"{row['launches']}, want {want}")
+            served[f"mesh {name} rank {row['rank']}"] = row["launches"]
+    mesh_check.check(rows, 2)
+    print(f"phase 17 (d) took {time.perf_counter() - t0:.1f} s; phase 17 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return k1_rows, k2_rows, served
+
+
 def main() -> int:
     import torch
 
@@ -3613,12 +3873,18 @@ def main() -> int:
     # ---- 16. the classic and legacy UNets, the sdwebui converter -----------------
     classic_served = classic_unets(card, gen)
 
-    # ---- 17. summary ---------------------------------------------------------
+    # ---- 17. the multi-device path, the VAE lab, the golden harness ---------------
+    torch.cuda.empty_cache()
+    k1_mesh, k2_mesh, mesh_served = multi_card(card, mufu_rate, gen)
+    k1_rows += k1_mesh
+    k2_rows += k2_mesh
+
+    # ---- 18. summary ---------------------------------------------------------
     served = {"A": launches, "D": launches_d, "E": launches_e, "F": launches_f,
               "G": launches_g, **{k: turbo_served[k] for k in ("H", "H_kv", "H_tome", "I", "J",
                                                                "J0")}, **graph_served,
               **zoo_served, **net_served, **clip_served, "train_batch": train_served,
-              **classic_served}
+              **classic_served, **mesh_served}
     # the main path's launches: the graphed requests F (bf16), G (int8) and E
     # (K5), each held to the kernels the profiler saw run
     launches_f, launches_g = graph_served["graphed F"], graph_served["graphed G"]

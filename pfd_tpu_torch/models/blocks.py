@@ -6,9 +6,25 @@ Upsample/Downsample (openaimodel.py:89-159) and the time embedding. Module
 and parameter names are the upstream torch ones (``in_layers.0``,
 ``emb_layers.1``, ``out_layers.3``, ``attn1.to_q``, ``ff.net.0.proj``, ...);
 feature maps are NCHW, token sequences (B, S, C).
+
+On a mesh (``parallel/mesh.py``) the transformer block runs Megatron's
+tensor parallelism over 'model': its attention runs this rank's heads
+(``n_heads / tp``, on the column-parallel q/k/v shards of
+``parallel/sharding.py``), the GEGLU its ``[value_r | gate_r]`` shard, and
+each row-parallel product (``to_out.0``, ``ff.net.2``) is summed over the
+group (``reduce_out``) before its bias is added, once; ``copy_in`` ahead of
+the column-parallel products sums their input's gradient. Split over
+'seq', the self-attention gathers K and V from every rank and keeps its
+queries (``flash_attention.gathered_self_attn_fn`` on the kernel path), and
+the kernels' sequence thresholds read the whole sequence. LayerNorm is per
+token and the cross-attention's context is whole on every rank, so both
+stay local. The convs and GroupNorms of the ResBlocks take their 'seq'
+collectives in ``ops/nn.py``.
 """
 
 from __future__ import annotations
+
+import functools
 
 from torch import nn
 
@@ -16,6 +32,8 @@ from pfd_tpu_torch.models.build import zero_init
 from pfd_tpu_torch.ops import flash_attention as fa
 from pfd_tpu_torch.ops import nn as F
 from pfd_tpu_torch.ops import quant
+from pfd_tpu_torch.parallel import distributed
+from pfd_tpu_torch.parallel import mesh as mesh_lib
 from pfd_tpu_torch.policy import Policy
 
 
@@ -48,6 +66,31 @@ class ResBlock(nn.Module):
         return x + h
 
 
+def model_group(column: nn.Linear, n_heads=None):
+    """(this rank's head count, the active mesh's 'model' group) of a
+    tensor-parallel layer whose column-parallel linear is ``column``; a
+    head count tp does not divide, or weights that are not this rank's
+    shards, raise."""
+    mesh = mesh_lib.current()
+    group = None if mesh is None else mesh.group("model")
+    if group is None:
+        return n_heads, None
+    rows, full = column.weight.shape[0], column.out_features
+    if (n_heads or mesh.tp) % mesh.tp or rows * mesh.tp != full:
+        raise ValueError(f"tp={mesh.tp}: {n_heads} heads, {rows} of {full} rows a rank "
+                         f"(place the parameters with sharding.shard_module_)")
+    return n_heads and n_heads // mesh.tp, group
+
+
+def row_parallel(x, m, group):
+    """A row-parallel linear: this rank's product, summed over the 'model'
+    group, then the bias once."""
+    if group is None:
+        return F.linear(x, m)
+    y = distributed.reduce_out(F.linear(x, m, bias=False), group)
+    return y if m.bias is None else y + m.bias.to(y.dtype)
+
+
 class CrossAttention(nn.Module):
     def __init__(self, query_dim, context_dim, inner_dim):
         super().__init__()
@@ -57,12 +100,23 @@ class CrossAttention(nn.Module):
         self.to_out = nn.Sequential(nn.Linear(inner_dim, query_dim), nn.Dropout(0.0))
 
     def forward(self, x_q, x_kv, n_heads, policy: Policy, attn_fn=None):
+        n_heads, group = model_group(self.to_q, n_heads)
+        seq = mesh_lib.axis_group("seq")
         if x_kv is x_q:
             # self-attention: one fused q|k|v matmul (the q/k/v weights stay
             # separate parameters for the checkpoint contract)
+            x_q = distributed.copy_in(x_q, group)
             qkv = F.fused_linear(x_q, [self.to_q, self.to_k, self.to_v])
             q, k, v = (F.split_heads(t, n_heads) for t in qkv.chunk(3, dim=-1))
+            if seq is not None:
+                k, v = (distributed.all_gather(t, 2, seq) for t in (k, v))
+                if attn_fn is fa.self_attn_fn:
+                    attn_fn = fa.gathered_self_attn_fn
+                elif attn_fn is not None:
+                    raise NotImplementedError("split over 'seq', self-attention runs "
+                                              "self_attn_fn or plain attention")
         else:
+            x_q, x_kv = distributed.copy_in(x_q, group), distributed.copy_in(x_kv, group)
             q = F.split_heads(F.linear(x_q, self.to_q), n_heads)
             k = F.split_heads(F.linear(x_kv, self.to_k), n_heads)
             v = F.split_heads(F.linear(x_kv, self.to_v), n_heads)
@@ -70,7 +124,7 @@ class CrossAttention(nn.Module):
             out = F.dot_product_attention(q, k, v, softmax_dtype=policy.softmax_dtype)
         else:
             out = attn_fn(q, k, v)
-        return F.linear(F.merge_heads(out), self.to_out[0])
+        return row_parallel(F.merge_heads(out), self.to_out[0], group)
 
 
 class GEGLU(nn.Module):
@@ -102,10 +156,16 @@ class BasicTransformerBlock(nn.Module):
         h = F.layer_norm(x, self.norm2, norm_dtype=policy.norm_dtype)
         kv = context if context is not None else h
         cross_fn = fa.cross_attn_fn if self_attn_fn is not None else None
+        seq = mesh_lib.axis_group("seq")
+        if cross_fn is not None and seq is not None:
+            cross_fn = functools.partial(fa.split_cross_attn_fn,
+                                         sp=distributed.group_size(seq))
         x = self.attn2(h, kv, n_heads, policy, attn_fn=cross_fn) + x
         h = F.layer_norm(x, self.norm3, norm_dtype=policy.norm_dtype)
-        h = F.geglu(h, self.ff.net[0].proj, approximate=policy.gelu_approx)
-        return F.linear(h, self.ff.net[2]) + x
+        proj = self.ff.net[0].proj
+        _, group = model_group(proj)
+        h = F.geglu(distributed.copy_in(h, group), proj, approximate=policy.gelu_approx)
+        return row_parallel(h, self.ff.net[2], group) + x
 
 
 class SpatialTransformer(nn.Module):

@@ -21,7 +21,11 @@ blocks: ``apply_model_encoder`` (the ControlNet runs here) and
 ``p_losses`` (pfd.py:319-344) is the training loss: ``q_sample`` noises x0
 at t, the UNet predicts eps (or x0, ``parameterization``), and ``get_loss``
 (l1 or l2) is averaged per sample in fp32, weighted by ``l_simple_weight``
-and, through the schedule's ``lvlb_weights``, ``l_elbo_weight``.
+and, through the schedule's ``lvlb_weights``, ``l_elbo_weight``. Split over
+'seq' (``parallel/mesh.py``), each sample's sum is summed over the axis
+before anything else reads it (``distributed.reduce_out``: the rest is
+replicated over the axis), so the loss and the VLB term are the whole
+latent's on every rank of the axis.
 
 ``apply_model_multicontext`` (pfd.py:246-317) mixes several context
 streams per context block: ``"attention"`` sums every context's block
@@ -38,6 +42,8 @@ from torch import nn
 
 from pfd_tpu_torch import registry
 from pfd_tpu_torch.diffusion import schedules as sched_lib
+from pfd_tpu_torch.parallel import distributed
+from pfd_tpu_torch.parallel import mesh as mesh_lib
 from pfd_tpu_torch.policy import Policy, FP32
 
 
@@ -149,7 +155,14 @@ class PromptFreeDiffusion(nn.Module):
                                      {"type": c_type, "c": cond}, self_attn_fn=self_attn_fn)
         target = noise if self.parameterization == "eps" else x0
         loss_simple = self.get_loss(model_out.float(), target.float(), mean=False)
-        loss_simple = loss_simple.mean(dim=tuple(range(1, loss_simple.ndim)))
+        seq = mesh_lib.axis_group("seq")
+        if seq is None:
+            loss_simple = loss_simple.mean(dim=tuple(range(1, loss_simple.ndim)))
+        else:
+            # this rank's rows: each sample's sum over the whole C*H*W first
+            n = loss_simple[0].numel() * distributed.group_size(seq)
+            loss_simple = distributed.reduce_out(
+                loss_simple.sum(dim=tuple(range(1, loss_simple.ndim))), seq) / n
         loss = loss_simple.mean() * self.l_simple_weight
         lvlb = self._extract(self.schedule.lvlb_weights, t, 1) * loss_simple
         loss = loss + self.l_elbo_weight * lvlb.mean()

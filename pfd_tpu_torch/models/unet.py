@@ -33,6 +33,8 @@ from pfd_tpu_torch import registry
 from pfd_tpu_torch.models import blocks
 from pfd_tpu_torch.models.build import zero_init
 from pfd_tpu_torch.ops import nn as F
+from pfd_tpu_torch.parallel import distributed
+from pfd_tpu_torch.parallel import mesh as mesh_lib
 from pfd_tpu_torch.policy import Policy, FP32
 
 
@@ -254,6 +256,7 @@ class UNetModel2DNext(nn.Module):
         The ControlNet's residuals are folded in here: the last into
         ``h_mid``, the others each into its skip (``hs[i] + ccs[i]``, the
         pairs ``forward``'s loads would pop)."""
+        self.check_seq_split(x)
         db, cb, emb, context = self._inputs(timesteps, context, data_blocks,
                                             context_blocks, emb)
         pol, hs = self.policy, []
@@ -265,6 +268,17 @@ class UNetModel2DNext(nn.Module):
             hs = [s + pol.cast(c) for s, c in zip(hs, ccs)]
             h = h + pol.cast(mid)
         return h, tuple(hs)
+
+    def check_seq_split(self, x):
+        """Split over 'seq' (``parallel/mesh.py``), x holds this rank's rows
+        of the latent: every level's local height must be even where it
+        downsamples, so the whole H must divide by sp * 2^(levels - 1)."""
+        seq = mesh_lib.axis_group("seq")
+        downs = sum(1 for s in self.plan.data_specs if s.kind == "down")
+        if seq is not None and x.shape[2] % (2 ** downs):
+            sp = distributed.group_size(seq)
+            raise ValueError(f"split over 'seq' the latent's H ({x.shape[2] * sp}) must "
+                             f"divide by sp * 2^{downs} = {sp * 2 ** downs}")
 
     def apply_decoder(self, h, hs, timesteps, context, *, self_attn_fn=None,
                       data_blocks=None, context_blocks=None, emb=None, ops=None):

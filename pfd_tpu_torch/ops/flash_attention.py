@@ -623,7 +623,30 @@ def cross_attn_fn(q, k, v, *, min_seq=1024, max_kv=512):
     """K2 for long q over a short K/V, plain attention otherwise (the
     thresholds of ``pfd_tpu`` flash_attention.py:514-521), or where K2
     does not take q (``kernel_takes``)."""
-    if q.shape[2] >= min_seq and k.shape[2] <= max_kv and kernel_takes(q, k, v, CROSS_MAX_D):
+    return _cross_route(q, k, v, q.shape[2], min_seq, max_kv)
+
+
+def split_cross_attn_fn(q, k, v, *, sp, min_seq=1024, max_kv=512):
+    """``cross_attn_fn`` for q holding one of ``sp`` equal parts of its
+    sequence (split over 'seq'): the threshold reads the whole sequence,
+    ``sp`` times q's, as ``pfd_tpu``'s global view does."""
+    return _cross_route(q, k, v, q.shape[2] * sp, min_seq, max_kv)
+
+
+def _cross_route(q, k, v, q_len, min_seq, max_kv):
+    if q_len >= min_seq and k.shape[2] <= max_kv and kernel_takes(q, k, v, CROSS_MAX_D):
+        return with_padded_head(cross_attention, q, k, v)
+    return nn.dot_product_attention(q, k, v)
+
+
+def gathered_self_attn_fn(q, k, v, *, min_seq=1024):
+    """``self_attn_fn`` split over 'seq': this rank's queries against the
+    keys and values gathered from every rank (Sq < Skv), so K1, which takes
+    Sq == Skv, gives way to K2, whose key loop takes any number of keys
+    above its resident tile (K1's loop); the threshold reads the whole
+    sequence, k's length. Plain attention below it or where K2 does not
+    take q."""
+    if k.shape[2] >= min_seq and kernel_takes(q, k, v, CROSS_MAX_D):
         return with_padded_head(cross_attention, q, k, v)
     return nn.dot_product_attention(q, k, v)
 

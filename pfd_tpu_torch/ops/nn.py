@@ -31,6 +31,15 @@ the plain form and cuDNN's conv there. In int8 it is not an identity:
 set of codes from the 3x3 ones, so a quantized upsample conv takes the
 phase form, with the kernel requantized once at quantize time
 (``quant.phase_kernel``).
+
+On a mesh with a 'seq' axis (``parallel/mesh.py``; the sharded entry points
+make it active) a feature map is this rank's rows of the latent: a conv
+with a kernel taller than one row takes its halo rows from the neighbouring
+ranks (``distributed.halo_exchange``: zeros at the image's edges, as the
+padding), a stride-2 conv only the row above (the local height is even),
+``upsample_conv2d`` its halo before the 2x; GroupNorm reduces its sums over
+the axis before it forms the moments. Without a mesh, or on a mesh of one
+rank, none of this runs and every op is the one-device op.
 """
 
 from __future__ import annotations
@@ -42,6 +51,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from pfd_tpu_torch.ops import cuda_build, int8_conv, int8_matmul, quant
+from pfd_tpu_torch.parallel import distributed
+from pfd_tpu_torch.parallel import mesh as mesh_lib
 
 
 def _w(m, x):
@@ -158,6 +169,10 @@ def conv2d(x, m, *, stride=1, padding=0, dilation=1, groups=1):
     conv where the module is quantized (module docstring; an int8 conv is
     never grouped or dilated). ``padding`` is an int (symmetric) or
     ``(left, right, top, bottom)``."""
+    seq = mesh_lib.axis_group("seq")
+    if seq is not None and m.weight.shape[-2] > 1:
+        return _conv2d_seq(x, m, seq, stride=stride, padding=padding, dilation=dilation,
+                           groups=groups)
     if quant.is_quantized(m):
         if dilation != 1 or groups != 1:
             raise ValueError("the int8 conv takes no dilation and no groups")
@@ -169,6 +184,28 @@ def conv2d(x, m, *, stride=1, padding=0, dilation=1, groups=1):
         padding = 0
     return conv2d_raw(x, _w(m, x), _b(m, x), stride=stride, padding=padding,
                       dilation=dilation, groups=groups)
+
+
+def _conv2d_seq(x, m, group, *, stride, padding, dilation, groups):
+    """``conv2d`` on this rank's rows of a map split by H over 'seq': the
+    halo rows the kernel reads from the neighbours, then the conv with no
+    H padding. Takes the UNet's convs: odd kernels at stride 1 with
+    "same" padding, and 3x3 at stride 2 with padding 1."""
+    kh = m.weight.shape[-2]
+    if quant.is_quantized(m) or isinstance(padding, tuple) or dilation != 1:
+        raise NotImplementedError("a conv split over 'seq' takes float weights, an int "
+                                  "padding and no dilation")
+    if stride == 1 and kh % 2 == 1 and padding == kh // 2:
+        xh = distributed.halo_exchange(x, group, kh // 2, kh // 2)
+    elif stride == 2 and kh == 3 and padding == 1:
+        if x.shape[-2] % 2:
+            raise ValueError("a stride-2 conv split over 'seq' needs an even local height")
+        xh = distributed.halo_exchange(x, group, 1, 0)
+    else:
+        raise NotImplementedError(f"no 'seq' split for a {kh}-row kernel at stride {stride}, "
+                                  f"padding {padding}")
+    return conv2d_raw(xh, _w(m, x), _b(m, x), stride=stride, padding=(0, padding),
+                      groups=groups)
 
 
 def batch_norm(x, m, *, eps=1e-5):
@@ -194,12 +231,14 @@ def _matmul_q(x, w8, scale):
     return _dequant(y.reshape(*x8.shape[:-1], w8.shape[0]), sx, scale, x, -1)
 
 
-def linear(x, m):
+def linear(x, m, *, bias=True):
+    """``x @ W^T + b``; ``bias=False`` leaves the bias out (a row-parallel
+    product adds it once, after the all-reduce)."""
+    b = _b(m, x) if bias else None
     if quant.is_quantized(m):
         y = _matmul_q(x, m.weight_q, m.weight_scale)
-        b = _b(m, x)
         return y if b is None else y + b
-    return F.linear(x, _w(m, x), _b(m, x))
+    return F.linear(x, _w(m, x), b)
 
 
 def fused_linear(x, ms):
@@ -217,7 +256,21 @@ def fused_linear(x, ms):
 
 
 def group_norm(x, m, *, groups=32, eps=1e-5, norm_dtype=torch.float32):
-    """GroupNorm over NCHW (or N C ...) with statistics in ``norm_dtype``."""
+    """GroupNorm over NCHW (or N C ...) with statistics in ``norm_dtype``;
+    split over 'seq', the mean and then the centred second moment are
+    summed over the axis (two passes, as ``F.group_norm`` centres)."""
+    seq = mesh_lib.axis_group("seq")
+    if seq is not None:
+        b, c = x.shape[:2]
+        xg = x.to(norm_dtype).reshape(b, groups, -1)
+        n = xg.shape[-1] * distributed.group_size(seq)
+        mean = distributed.all_reduce_sum(xg.sum(-1), seq) / n
+        xc = xg - mean[..., None]
+        var = distributed.all_reduce_sum((xc * xc).sum(-1), seq) / n
+        y = (xc * torch.rsqrt(var + eps)[..., None]).reshape(x.shape)
+        shape = (1, c) + (1,) * (x.ndim - 2)
+        y = y * m.weight.to(norm_dtype).reshape(shape) + m.bias.to(norm_dtype).reshape(shape)
+        return y.to(x.dtype)
     y = F.group_norm(x.to(norm_dtype), groups, m.weight.to(norm_dtype),
                      m.bias.to(norm_dtype), eps)
     return y.to(x.dtype)
@@ -229,13 +282,18 @@ def group_norm_affine(x, scale, bias, *, groups=32, eps=1e-5, shift=None):
 
     ``shift`` is an optional (B, C) channelwise add before the norm (the
     ResBlock time embedding), folded into the statistics so ``x + shift`` is
-    never formed (``pfd_tpu`` nn.py:170-202, blocks.py:57-61)."""
+    never formed (``pfd_tpu`` nn.py:170-202, blocks.py:57-61). Split over
+    'seq', the sums are summed over the axis."""
     b, cch = x.shape[0], x.shape[1]
     n_red = x[0, 0].numel()
     red = tuple(range(2, x.ndim))
     xf = x.float()
     s1 = xf.sum(red)
     s2 = (xf * xf).sum(red)
+    seq = mesh_lib.axis_group("seq")
+    if seq is not None:
+        s1, s2 = distributed.all_reduce_sum(torch.stack([s1, s2]), seq).unbind(0)
+        n_red *= distributed.group_size(seq)
     e = torch.zeros_like(s1) if shift is None else shift.float()
     cg = cch // groups
     m1_c = s1 / n_red + e
@@ -289,6 +347,13 @@ def upsample_conv2d(x, m):
     ``pfd_tpu``'s int8 phase form (module docstring): one 2x2 int8 conv
     over the 1-padded input into 4*K phase channels ordered (p, q, K),
     dequantized with the phase scales, then interleaved, then the bias."""
+    seq = mesh_lib.axis_group("seq")
+    if seq is not None:
+        if quant.is_quantized(m):
+            raise NotImplementedError("an upsample conv split over 'seq' takes float weights")
+        # the neighbours' edge rows, then the 2x: one upsampled row each side
+        up = F.interpolate(distributed.halo_exchange(x, seq), scale_factor=2.0, mode="nearest")
+        return conv2d_raw(up[:, :, 1:-1], _w(m, x), _b(m, x), padding=(0, 1))
     if not quant.is_quantized(m):
         return conv2d(F.interpolate(x, scale_factor=2.0, mode="nearest"), m, padding=1)
     if "phase_q" not in m._buffers:

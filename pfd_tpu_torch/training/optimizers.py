@@ -130,12 +130,15 @@ class Optimizer:
         return OptState(self.cls(groups, lr=self._lr(1.0, 0), **self.kwargs), params)
 
     @torch.no_grad()
-    def update(self, state: OptState) -> None:
+    def update(self, state: OptState, norm=None) -> None:
         """Clip the gradients the parameters hold, then one step of every
-        group at its count's learning rate."""
+        group at its count's learning rate. ``norm``: their global norm
+        where the caller computed it (over 'model' shards, the sharded
+        step's), else ``global_norm`` of them."""
         if self.grad_clip:
             grads = [p.grad for p in state.params.values() if p.grad is not None]
-            norm = global_norm(grads)
+            if norm is None:
+                norm = global_norm(grads)
             if not bool(norm < self.grad_clip):
                 for g in grads:
                     g.div_(norm.to(g.dtype)).mul_(self.grad_clip)

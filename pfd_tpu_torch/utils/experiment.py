@@ -6,9 +6,12 @@ The working equivalent of the reference's cfg_helper entry machinery:
 get_command_line_args (cfg_helper.py:335-423), experiment-id minting from
 wall clock (:309-324), log-dir layout + config archiving (:425-640), resume
 cfg reconstruction (:354-369). ``--tp`` and ``--coordinator`` are
-``pfd_tpu``'s multi-device flags: the port trains on one device
-(``parallel/train.py``), so it takes ``--tp 1`` and no coordinator and
-refuses anything else.
+``pfd_tpu``'s multi-device flags; ``mesh_from_args`` consumes them: it joins
+the process group at the coordinator (``parallel.distributed.initialize``,
+the rank and world size from ``RANK`` and ``WORLD_SIZE`` as ``torchrun``
+sets them) and lays its ranks out with ``--tp`` model-parallel
+(``parallel.mesh.make_mesh``), the mesh the sharded train step and
+``Trainer`` take.
 """
 
 from __future__ import annotations
@@ -40,10 +43,19 @@ def get_command_line_args(argv=None):
     p.add_argument("--tp", type=int, default=1, help="model-parallel degree")
     p.add_argument("--coordinator", type=str, default=None,
                    help="multi-host coordinator address")
-    args = p.parse_args(argv)
-    if args.tp != 1 or args.coordinator is not None:
-        p.error("the port trains on one device: --tp must be 1 and --coordinator unset")
-    return args
+    return p.parse_args(argv)
+
+
+def mesh_from_args(args, device=None):
+    """The mesh of ``--coordinator`` and ``--tp``: the process group joined
+    (a no-op without a coordinator), then ``make_mesh(tp=args.tp)`` over its
+    ranks, data-parallel over the rest; a ``--tp`` the world does not take
+    raises."""
+    from pfd_tpu_torch.parallel import distributed
+    from pfd_tpu_torch.parallel.mesh import make_mesh
+
+    distributed.initialize(args.coordinator)
+    return make_mesh(tp=args.tp, device=device)
 
 
 def init_experiment(args, cfg: dict | None = None) -> dict:

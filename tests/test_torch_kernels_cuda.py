@@ -44,7 +44,8 @@ def _randn(shape, gen):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 8, 4096, 40), (2, 8, 1024, 80), (1, 1, 4096, 512),
-                                   (1, 2, 1000, 40), (2, 8, 2304, 160)])
+                                   (1, 2, 1000, 40), (2, 8, 2304, 160),
+                                   (2, 4, 4096, 40)])  # ds1 at tp=2: 4 of 8 heads a rank
 def test_flash_kernel_matches_plain(shape):
     _need_cuda()
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -88,7 +89,10 @@ def test_flash_kernels_every_head_dim_and_ragged_s(d, s, bh):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("qshape,skv", [((2, 8, 4096, 40), 148), ((2, 8, 1024, 80), 148),
-                                        ((1, 2, 1024, 160), 512)])
+                                        ((1, 2, 1024, 160), 512),
+                                        # the sp=2 self-attention at ds1 and ds2: a rank's
+                                        # queries over the keys gathered from both ranks
+                                        ((2, 8, 2048, 40), 4096), ((2, 8, 512, 80), 1024)])
 def test_cross_kernel_matches_plain(qshape, skv):
     _need_cuda()
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -180,6 +184,33 @@ def test_pv8_kernel_every_head_dim_and_ragged_s(d, bh, s):
     torch.cuda.synchronize()
     assert fa.flash_attention_pv8.launches == before + 1
     assert (got.float() - want.float()).abs().max().item() <= fa.kernel_tolerance(want)
+
+
+@pytest.mark.cuda
+def test_seq_split_attention_routes_on_the_card():
+    """Split over 'seq' at sp=2: a rank's ds1 self-attention (2,048 queries
+    over the 4,096 gathered keys) launches K2 once and matches plain
+    attention; the ds2 cross-attention (512 local queries of a 1,024-token
+    sequence over 148 tokens) launches K2 when the threshold reads the whole
+    sequence, and runs plain attention without a launch when it reads the
+    local one."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v = _randn((2, 8, 2048, 40), g), _randn((2, 8, 4096, 40), g), _randn((2, 8, 4096, 40), g)
+    before = (fa.flash_attention.launches, fa.cross_attention.launches)
+    got = fa.gathered_self_attn_fn(q, k, v)
+    want = fa.attention_plain(q, k, v)
+    assert (fa.flash_attention.launches, fa.cross_attention.launches) == (before[0],
+                                                                           before[1] + 1)
+    assert (got.float() - want.float()).abs().max().item() <= fa.kernel_tolerance(want)
+    q2, kv = _randn((2, 8, 512, 80), g), _randn((2, 8, 148, 80), g)
+    before = fa.cross_attention.launches
+    got = fa.split_cross_attn_fn(q2, kv, kv, sp=2)
+    assert fa.cross_attention.launches == before + 1
+    want = fa.attention_plain(q2, kv, kv)
+    assert (got.float() - want.float()).abs().max().item() <= fa.kernel_tolerance(want)
+    fa.cross_attn_fn(q2, kv, kv)
+    assert fa.cross_attention.launches == before + 1
 
 
 @pytest.mark.cuda

@@ -444,7 +444,9 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(pfd_tpu_torch.__path__, 'pfd_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "gates = ['pfd_tpu_torch.tools.e2e_gate', 'pfd_tpu_torch.tools.quant_gate',\n"
-        "         'pfd_tpu_torch.training.evaluator']\n"
+        "         'pfd_tpu_torch.training.evaluator', 'pfd_tpu_torch.parallel.mesh',\n"
+        "         'pfd_tpu_torch.parallel.sharding', 'pfd_tpu_torch.parallel.distributed',\n"
+        "         'pfd_tpu_torch.tools.vae_lab', 'pfd_tpu_torch.tools.golden_examples']\n"
         "assert all(n in sys.modules for n in gates), gates\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "       or n == 'pfd_tpu' or n.startswith('pfd_tpu.')]\n"

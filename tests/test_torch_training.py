@@ -597,16 +597,33 @@ def test_experiment_dirs_match_pfd_tpu(tmp_path):
     assert again == out
 
 
-@pytest.mark.parametrize("flags", [["--tp", "4"], ["--coordinator", "localhost:1234"]])
-def test_command_line_refuses_multi_device_flags(flags, capsys):
-    """The port trains on one device: a model-parallel degree other than 1,
-    or a coordinator, stops the command line instead of being ignored."""
+@pytest.mark.parametrize("flag", ["tp", "coordinator"])
+def test_command_line_flags_reach_the_mesh(flag, tmp_path, monkeypatch):
+    """``--tp`` and ``--coordinator`` are consumed, not ignored:
+    ``mesh_from_args`` joins the coordinator's process group
+    (``distributed.initialize``, the rank and world size from the
+    environment) and hands ``--tp`` to ``make_mesh``, which refuses a degree
+    the world does not take instead of carrying on at world size 1."""
+    import torch.distributed as dist
+
     from pfd_tpu_torch.utils import experiment as texp
 
-    assert texp.get_command_line_args(["--tp", "1"]).tp == 1
-    with pytest.raises(SystemExit):
-        texp.get_command_line_args(flags)
-    assert "one device" in capsys.readouterr().err
+    if flag == "tp":
+        mesh = texp.mesh_from_args(texp.get_command_line_args(["--tp", "1"]), device="cpu")
+        assert (mesh.dp, mesh.sp, mesh.tp) == (1, 1, 1) and not dist.is_initialized()
+        with pytest.raises(ValueError, match=r"tp\(4\)"):
+            texp.mesh_from_args(texp.get_command_line_args(["--tp", "4"]), device="cpu")
+        return
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("RANK", "0")
+    args = texp.get_command_line_args(["--coordinator", f"file://{tmp_path}/store"])
+    try:
+        mesh = texp.mesh_from_args(args, device="cpu")
+        assert dist.is_initialized() and dist.get_backend() == "gloo"
+        assert (mesh.dp, mesh.tp, mesh.rank) == (1, 1, 0)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def test_trainer_refuses_a_schedule_the_optimizer_does_not_read():
