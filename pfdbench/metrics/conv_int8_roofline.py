@@ -1,0 +1,7 @@
+"""``conv_int8``'s device time against the least time its calls need (%)."""
+
+from pfdbench.metrics import roofline
+
+
+def read(ctx):
+    return roofline(ctx, "conv_int8")

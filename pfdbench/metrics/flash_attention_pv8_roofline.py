@@ -1,0 +1,7 @@
+"""``flash_attention_pv8``'s device time against the least time its calls need (%)."""
+
+from pfdbench.metrics import roofline
+
+
+def read(ctx):
+    return roofline(ctx, "flash_attention_pv8")
