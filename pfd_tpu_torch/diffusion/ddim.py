@@ -56,6 +56,11 @@ rationale):
   caches, deltas and the linear slope never cross a phase boundary.
 - ``reuse_self_attn_fn``: the self-attention of reuse steps only (the KV
   pool, ``ops/kvpool.py``); needs CFG-delta reuse or phases.
+
+Each step of ``sample_fn``, whatever its mode, is one span ``pfd.step``
+(``utils/profiling.py``), marked on the device: its self time is the CFG
+doubling, the guidance combine and the DDIM update; the model's calls inside
+are their own spans.
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ import numpy as np
 import torch
 
 from pfd_tpu_torch.diffusion import schedules as sched_lib
+from pfd_tpu_torch.utils.profiling import span
 
 
 def ddim_step(xt, row, e_t):
@@ -292,6 +298,7 @@ class DDIMSampler:
                 x_prev = x_prev + noise
             return x_prev.to(xt.dtype), pred_x0
 
+        @span("step")
         def exact_step(xt, row):
             x_in, t_in = doubled(xt, step_ts(row))
             e = model.apply_model({"type": x_type, "x": x_in}, t_in, ci_full,
@@ -313,6 +320,7 @@ class DDIMSampler:
             linear = cfg_extrapolate == "linear"
             r_attn = reuse_self_attn_fn if reuse_self_attn_fn is not None else self_attn_fn
 
+            @span("step")
             def full_step(xt, row):
                 x_in, t_in = doubled(xt, step_ts(row))
                 xi = {"type": x_type, "x": x_in}
@@ -335,6 +343,7 @@ class DDIMSampler:
                 x_prev, px0 = update(xt, row, e_uc + scale * delta)
                 return x_prev, px0, delta, cache, deep
 
+            @span("step")
             def reuse_step(xt, row, delta, cache, deep):
                 ts = step_ts(row)
                 kw = {"x_type": x_type, "self_attn_fn": r_attn}
@@ -420,12 +429,13 @@ class DDIMSampler:
                 continue
             # encoder propagation: the first step is a key step, so no cache
             # is read before one is made
-            x_in, t_in = doubled(x, step_ts(row))
-            if i % encoder_interval == 0:
-                cache = model.apply_model_encoder({"type": x_type, "x": x_in}, t_in, ci_full,
-                                                  self_attn_fn=self_attn_fn)
-            e = model.apply_model_decoder(cache[0], cache[1], t_in, ci_full, x_type=x_type,
-                                          self_attn_fn=self_attn_fn)
-            x, pred_x0 = update(x, row, guide(e))
+            with span("step", x):
+                x_in, t_in = doubled(x, step_ts(row))
+                if i % encoder_interval == 0:
+                    cache = model.apply_model_encoder({"type": x_type, "x": x_in}, t_in,
+                                                      ci_full, self_attn_fn=self_attn_fn)
+                e = model.apply_model_decoder(cache[0], cache[1], t_in, ci_full, x_type=x_type,
+                                              self_attn_fn=self_attn_fn)
+                x, pred_x0 = update(x, row, guide(e))
         return x, {"pred_x0": pred_x0}
 

@@ -13,6 +13,8 @@ matching the classic SD encoder, so the module names are the torch checkpoint's
 (control_sd15_*_slimmed.safetensors). The hint pyramid is one ``nn.Sequential``
 with a SiLU at each odd index, so that its convs sit at the checkpoint's keys
 ``input_hint_block.0, 2, ..., 14``. Feature maps and the hint are NCHW.
+The hint pyramid runs inside the span ``pfd.controlnet``
+(``utils/profiling.py``), as the residuals do.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from pfd_tpu_torch.models import blocks
 from pfd_tpu_torch.models.build import zero_init
 from pfd_tpu_torch.ops import nn as F
 from pfd_tpu_torch.policy import Policy, FP32
+from pfd_tpu_torch.utils.profiling import span
 
 # (cout, stride) chain of the hint block's 3x3 convs, torch indices 0,2,4,...,12;
 # the zero-initialised conv to model_channels follows at index 14
@@ -98,6 +101,7 @@ class ControlNet(nn.Module):
     def num_residuals(self):
         return len(self.plan) + 1  # 12 input blocks + middle
 
+    @span("controlnet")
     def hint_embed(self, hint):
         """Full-res NCHW hint image in [0, 1] -> latent-res embedding."""
         h = self.policy.cast(hint)

@@ -27,6 +27,11 @@ before anything else reads it (``distributed.reduce_out``: the rest is
 replicated over the axis), so the loss and the VLB term are the whole
 latent's on every rank of the axis.
 
+Spans (``utils/profiling.py``): ``ctx_encode`` is ``pfd.seecoder``,
+``vae_decode`` ``pfd.vae_decode``, ``apply_model`` and each split forward of
+the turbo samplers ``pfd.unet``, and the ControlNet's residuals
+``pfd.controlnet`` (inside ``pfd.unet``), each also marked on the device.
+
 ``apply_model_multicontext`` (pfd.py:246-317) mixes several context
 streams per context block: ``"attention"`` sums every context's block
 output weighted by its ratio, ``"layer"`` runs one pathway per block, chosen
@@ -45,6 +50,7 @@ from pfd_tpu_torch.diffusion import schedules as sched_lib
 from pfd_tpu_torch.parallel import distributed
 from pfd_tpu_torch.parallel import mesh as mesh_lib
 from pfd_tpu_torch.policy import Policy, FP32
+from pfd_tpu_torch.utils.profiling import span
 
 
 @registry.register("pfd")
@@ -85,6 +91,7 @@ class PromptFreeDiffusion(nn.Module):
         scale = self.latent_scale_factor.get(which)
         return z * scale if scale is not None else z
 
+    @span("vae_decode")
     def vae_decode(self, z, which="image"):
         """Scaled NCHW latent -> NCHW image in [0, 1]."""
         scale = self.latent_scale_factor.get(which)
@@ -92,6 +99,7 @@ class PromptFreeDiffusion(nn.Module):
             z = z / scale
         return self.vae[which].decode(z)
 
+    @span("seecoder")
     def ctx_encode(self, x, which="image", **kwargs):
         """NCHW image in [0, 1] -> (B, 148, 768) SeeCoder tokens (or any
         registered context encoder's; ``kwargs`` such as ``masks`` pass
@@ -125,6 +133,7 @@ class PromptFreeDiffusion(nn.Module):
         """The ControlNet's residuals for this call; None without one."""
         return None
 
+    @span("unet")
     def apply_model(self, x_info, timesteps, c_info, *, self_attn_fn=None):
         """x_info: {'type': modality, 'x': NCHW latent};
         c_info: {'type': modality, 'c': context tokens}."""
@@ -229,6 +238,7 @@ class PromptFreeDiffusion(nn.Module):
 
     # ---- the split forwards of the turbo samplers (pfd.py:153-224) ---------
 
+    @span("unet")
     def apply_model_encoder(self, x_info, timesteps, c_info, *, self_attn_fn=None):
         """The UNet's encoder half, with the ControlNet's residuals folded
         into its state where the call has a hint: (h_mid, skips)."""
@@ -238,6 +248,7 @@ class PromptFreeDiffusion(nn.Module):
                                   control_residuals=self.control_residuals(
                                       x, timesteps, c_info, self_attn_fn), **kw)
 
+    @span("unet")
     def apply_model_decoder(self, h, hs, timesteps, c_info, *, x_type="image",
                             self_attn_fn=None):
         unet, kw = self._unet(x_type, c_info["type"], timesteps)
@@ -256,6 +267,7 @@ class PromptFreeDiffusion(nn.Module):
                 f"{type(diffuser).__name__} does not support decoder_split")
         return split[2]
 
+    @span("unet")
     def apply_model_encoder_shallow(self, x_info, timesteps, c_info, *, self_attn_fn=None):
         """Fresh shallow skips for a DeepCache reuse step. A hint is refused:
         its shallow residuals would need the whole ControlNet forward, so
@@ -267,12 +279,14 @@ class PromptFreeDiffusion(nn.Module):
         return unet.apply_encoder_shallow(x_info["x"], timesteps, c_info["c"],
                                           self_attn_fn=self_attn_fn, **kw)
 
+    @span("unet")
     def apply_model_decoder_deep(self, h, hs_deep, timesteps, c_info, *, x_type="image",
                                  self_attn_fn=None):
         unet, kw = self._unet(x_type, c_info["type"], timesteps)
         return unet.apply_decoder_deep(h, hs_deep, timesteps, c_info["c"],
                                        self_attn_fn=self_attn_fn, **kw)
 
+    @span("unet")
     def apply_model_decoder_shallow(self, h, hs_shallow, timesteps, c_info, *,
                                     x_type="image", self_attn_fn=None):
         unet, kw = self._unet(x_type, c_info["type"], timesteps)
@@ -303,6 +317,7 @@ class PromptFreeDiffusionWithControl(PromptFreeDiffusion):
         # stored, not applied, as in the reference (pfd.py:463 vs 515-519)
         self.control_scales = [1.0] * self.ctl.num_residuals
 
+    @span("controlnet")
     def control_residuals(self, x, timesteps, c_info, self_attn_fn=None):
         """The ControlNet's 13 residuals from ``c_info['control_embed']`` (the
         hoisted hint embedding) or ``c_info['control']`` (the NCHW hint

@@ -6,7 +6,9 @@ under the repository root, and loaded with ``ctypes``. The hash covers the
 source, the shared header and the flags, so an edited source is rebuilt and a
 stale library is never loaded. Nothing is built at import: the first launch
 (or ``build()``) builds, and ``build()`` starts one ``nvcc`` per source, all
-together.
+together. Each call of ``build()`` that compiled anything is logged in
+:data:`BUILDS`, so that a reader of set-up times can take the compiler's
+seconds out.
 
 The kernels are forward-only: a wrapper writes into a fresh tensor through
 raw pointers, so its output has no ``grad_fn``. Every launch wrapper calls
@@ -47,9 +49,23 @@ SIGNATURES = {
                              (_VP, _VP, _VP, _VP, _I, _I, _I, _F, _VP)),
     "conv3x3_bf16": ("pfd_conv3x3_bf16", (_VP,) * 8 + (_I,) * 6 + (_VP,)),
     "matmul_int8": ("pfd_matmul_int8", (_VP, _VP, _VP, _I, _I, _I, _VP)),
+    "span_mark": ("pfd_span_mark", (_I, _I, _VP)),
 }
 
 _loaded: dict = {}  # name -> (CDLL, entry point); the CDLL stays referenced
+# {"t": wall-clock end, "seconds", "names"} of each build() that compiled
+BUILDS: list = []
+
+
+def _flags(name: str) -> tuple:
+    """nvcc's flags for ``csrc/<name>.cu``: :data:`NVCC_FLAGS`, and for the
+    span markers the table of their names (``profiling.DEVICE_SPANS``)."""
+    if name != "span_mark":
+        return NVCC_FLAGS
+    from pfd_tpu_torch.utils import profiling
+
+    return NVCC_FLAGS + ("-DPFD_DEVICE_SPANS=" + "".join(f"X({n})" for n in
+                                                        profiling.DEVICE_SPANS),)
 
 
 def nvcc_path() -> str:
@@ -67,7 +83,7 @@ def _lib_path(name: str) -> Path:
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -78,14 +94,14 @@ def build(names=tuple(SIGNATURES)) -> dict[str, dict]:
     was already built reports 0 seconds. Raises with the compiler's output
     if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    log, procs = {}, {}
+    log, procs, t0 = {}, {}, time.perf_counter()
     for name in names:
         out = _lib_path(name)
         if out.exists():
             log[name] = {"seconds": 0.0, "ptxas": "", "path": str(out)}
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc_path(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        time.perf_counter(), tmp, out)
@@ -99,6 +115,9 @@ def build(names=tuple(SIGNATURES)) -> dict[str, dict]:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
+    if procs:
+        BUILDS.append({"t": time.time(), "seconds": time.perf_counter() - t0,
+                       "names": sorted(procs)})
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return log

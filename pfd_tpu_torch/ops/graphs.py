@@ -31,6 +31,12 @@ On CUDA a failed capture raises: there is no eager fallback. On the CPU (the
 tests ask for it explicitly) a call runs the callable eagerly
 (:meth:`Graphed.eager`, with its number arguments as 0-d fp32 tensors), and
 :meth:`Graphed.capture` does nothing.
+
+Spans (``utils/profiling.py``): ``pfd.capture`` around a capture's eager
+run and the capture, ``pfd.replay`` around a call's copies in, its replay
+and the clone out; the graph itself is launched with no span open
+(``profiling.paused``). Every capture's stats, with the wall-clock time it
+was made (``"t"``), are appended to :data:`CAPTURES`.
 """
 
 from __future__ import annotations
@@ -41,6 +47,11 @@ import time
 import torch
 
 from pfd_tpu_torch.ops import flash_attention, fused_conv, int8_conv, int8_matmul
+from pfd_tpu_torch.utils import profiling
+
+# every capture's stats in the order made, each with "t", the wall-clock time
+# (time.time()) it was made
+CAPTURES: list = []
 
 
 def counters():
@@ -135,7 +146,7 @@ class _Capture:
         dev, measure = pool.device, pool.measure
         self.static = [None if a is None else _as_tensor(a, dev).clone() for a in args]
         s = pool.stream
-        with torch.cuda.device(dev), torch.no_grad():
+        with torch.cuda.device(dev), torch.no_grad(), profiling.span("capture"):
             s.wait_stream(torch.cuda.current_stream(dev))
             t0 = time.perf_counter()
             with torch.cuda.stream(s):
@@ -162,7 +173,9 @@ class _Capture:
                 self.stats.update(instantiate_s=time.perf_counter() - t0, pool_gb=(
                     torch.cuda.memory_reserved(dev) - reserved) / 1e9)
             self.stats["launches"] = {k: v for k, v in self.launches.items() if v}
+        CAPTURES.append(dict(self.stats, t=time.time()))
 
+    @profiling.span("replay")
     def __call__(self, args):
         for s, a in zip(self.static, args):
             if s is None:
@@ -171,7 +184,8 @@ class _Capture:
                 s.fill_(a)
             else:
                 s.copy_(a)
-        self.graph.replay()
+        with profiling.paused():
+            self.graph.replay()
         add_launches(self.launches)
         return _clone(self.out)
 

@@ -23,6 +23,9 @@ re-quantized per output channel. That requantized kernel is computed here,
 once, into the non-persistent buffers ``phase_q`` / ``phase_scale``, and
 again, in place, whenever a state_dict is loaded into the conv.
 
+Each activation pass (:func:`quantize_act`) is the span ``pfd.quantize``
+(``utils/profiling.py``), marked on the device.
+
 Rounding is half-to-even (``torch.round``, as ``jnp.round``) and the scaled
 value is formed by a division, as in ``pfd_tpu``, so the codes are
 bit-equal to ``pfd_tpu``'s.
@@ -32,6 +35,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+
+from pfd_tpu_torch.utils.profiling import span
 
 # > 1: the activation abs-max is taken on a spatially strided subsample
 # (pfd_tpu quant.py:51-58, there opt-in through PFD_ACT_AMAX_STRIDE).
@@ -56,6 +61,7 @@ def quantize_weight(w, *, out_axis=0):
     return q, scale.reshape(w.shape[oa])
 
 
+@span("quantize")
 def quantize_act(x, *, amax_dims=(2, 3), memory_format=torch.preserve_format):
     """Dynamic symmetric per-tensor int8. Returns (x8, scale) with
     ``x8 * scale ~= x``; scale is an fp32 0-d tensor on x's device.

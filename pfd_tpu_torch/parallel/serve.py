@@ -13,7 +13,8 @@ references, the hints and the guidance scale are its inputs. ``warmup``
 captures the buckets ahead of the first requests (for references of the
 bucket's size; another reference size is captured at its first request).
 Each replica device has its own memory pool. ``_sample_body`` is the eager
-body the graphs are held to. On the CPU the buckets run eagerly.
+body the graphs are held to. On the CPU the buckets run eagerly. A call of
+``generate`` is the span ``pfd.request`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from pfd_tpu_torch.diffusion.ddim import DDIMSampler
 from pfd_tpu_torch.ops import graphs
+from pfd_tpu_torch.utils.profiling import span
 
 
 def nchw(a, device):
@@ -136,6 +138,7 @@ class DataParallelServer(_BatchServer):
 
         return self._graphs((h, w, batch, has_control), body)
 
+    @span("request")
     def generate(self, refs, hints=None, *, h=512, w=512, ugscale=2.0, seed=0):
         """refs: (B, H, W, 3) reference images in [0, 1], B divisible by the
         number of devices; hints: optional (B, h, w, 3) control hints.

@@ -73,6 +73,11 @@ anew. A checkpoint swap loads in place and keeps every graph valid, except
 a SeeCoder-PA change, which rebuilds the context encoder and drops the
 SeeCoder graphs. ``sample_decode`` and ``encode_context`` are the eager
 bodies the graphs are held to. On the CPU the buckets run eagerly.
+
+Spans (``utils/profiling.py``): a request is ``pfd.request``; inside it
+``pfd.context`` (the reference's upload and SeeCoder's graph),
+``pfd.hint`` (the resize and the annotator), ``pfd.start_latent``, the
+bucket's ``pfd.replay`` and ``pfd.copy_out``.
 """
 
 from __future__ import annotations
@@ -93,6 +98,7 @@ from pfd_tpu_torch.ops import quant
 from pfd_tpu_torch.ops.kvpool import make_kvpool_attn
 from pfd_tpu_torch.ops.tome import make_tome_attn
 from pfd_tpu_torch.policy import Policy, FP32, BF16
+from pfd_tpu_torch.utils.profiling import span
 
 
 def _to_array(im):
@@ -383,6 +389,7 @@ class PromptFreeDiffusionPipeline:
         return out + ([] if hints is None else list(hints))
 
     @torch.no_grad()
+    @span("request")
     def action_inference(self, im, imctl=None, ctl_method="canny",
                          do_preprocess=True, h=512, w=512, ugscale=2.0, seed=0,
                          tag_ctx=None, tag_diffuser=None, tag_ctl=None, steps=None,
@@ -401,12 +408,17 @@ class PromptFreeDiffusionPipeline:
         n = self.n_sample_image
         h, w = h // 64 * 64, w // 64 * 64
 
-        c = self._ctx_graph(self.reference(im)).repeat(n, 1, 1)
-        u = self.negative_context(c, anime_ug_path)
-        control, hints = self.hint_batch(imctl, ctl_method, do_preprocess, h, w)
-        x, eta_noise = self.start_latent(seed, h, w, steps)
+        with span("context"):
+            c = self._ctx_graph(self.reference(im)).repeat(n, 1, 1)
+            u = self.negative_context(c, anime_ug_path)
+        with span("hint"):
+            control, hints = self.hint_batch(imctl, ctl_method, do_preprocess, h, w)
+        with span("start_latent"):
+            x, eta_noise = self.start_latent(seed, h, w, steps)
         fn = self._sample_decode_fn(h, w, n, control is not None, steps, self.ddim_eta)
-        return self.images_out(fn(c, u, x, float(ugscale), control, eta_noise), hints)
+        imgs = fn(c, u, x, float(ugscale), control, eta_noise)
+        with span("copy_out"):
+            return self.images_out(imgs, hints)
 
 
 def _exists(path):

@@ -1,19 +1,56 @@
-"""Tracing / profiling (the port of ``pfd_tpu/utils/profiling.py``).
+"""Tracing (the port of ``pfd_tpu/utils/profiling.py``).
 
 Reference has only a thop FLOP hook and wall-clock timers (SURVEY §5).
 Here: a ``torch.profiler`` trace of the host and the card (a Chrome trace
-under ``log_dir``, readable in Perfetto), per-phase wall timers that wait for
-the card where asked, and a FLOP estimate for the UNet plan (the working
-equivalent of count_flops_attn, openaimodel.py:326-343).
+under ``log_dir``, readable in Perfetto), and the program's spans.
+
+A span (:class:`span`) marks one layer of the program: ``pfd.<name>`` on the
+host, in the profiler's trace beside the device's kernels, on the same
+clock. The layers in :data:`DEVICE_SPANS` also mark the device: where their
+work runs on a CUDA device, the span launches one empty kernel at its start
+and one at its end on the current stream, ``pfd_span_begin_<name>`` and
+``pfd_span_end_<name>`` (``csrc/span_mark.cu``). A launch made while a CUDA
+graph is captured becomes a node of the graph, so the markers bracket the
+layer's kernels in every replay (``ops/graphs.py``), where no Python runs
+and no host span could. A reader of the trace opens a span at each begin
+marker and closes it at the matching end marker; the device time between
+belongs to the innermost open span.
+
+The host part is a profiler record of the function kind, not a user
+annotation: ``torch.profiler`` copies each user annotation onto the
+device's timeline, where it would read as device activity over the
+interval it spans, idle time included. Both cost next to nothing while no
+profiler runs. A replay's graph is launched with no span open
+(:func:`paused`): the profiler ties every kernel of a replayed graph to the
+record open at its launch, and copies that whole list again to each of its
+own bookkeeping events that carry the record's id (buffer requests and
+flushes, a full command buffer), which made reading the trace of one
+hinted request take minutes. The spans that hold a launch read as two
+slices on the host, one each side of it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
-import time
+import threading
 
 import torch
+
+from pfd_tpu_torch.ops import cuda_build
+
+PREFIX = "pfd."
+# the layers whose device time the markers split out, in the order of the
+# marker kernels' table (csrc/span_mark.cu is built from it)
+DEVICE_SPANS = ("seecoder", "step", "unet", "controlnet", "vae_decode", "quantize")
+# whether a device span launches its markers; a graph captured with it False
+# holds none (it exists to measure what the markers cost)
+device_spans = True
+
+_INDEX = {name: i for i, name in enumerate(DEVICE_SPANS)}
+_HOST = torch._C._profiler._RecordFunctionFast
+_local = threading.local()  # .open: this thread's open spans, outermost first
 
 
 @contextlib.contextmanager
@@ -30,57 +67,89 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-class PhaseTimer:
-    """Wall-clock phase timing; ``sync_on`` (a tensor) waits for its card."""
-
-    def __init__(self):
-        self.phases: dict[str, float] = {}
-
-    @contextlib.contextmanager
-    def phase(self, name: str, sync_on=None):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if sync_on is not None and sync_on.is_cuda:
-                torch.cuda.synchronize(sync_on.device)
-            self.phases[name] = self.phases.get(name, 0.0) + time.perf_counter() - t0
-
-    def report(self) -> str:
-        total = sum(self.phases.values()) or 1.0
-        return " | ".join(f"{k}: {v * 1e3:.1f}ms ({v / total:.0%})"
-                          for k, v in sorted(self.phases.items(),
-                                             key=lambda kv: -kv[1]))
+def _first_tensor(args):
+    """The first tensor among ``args``, looking one level into dicts,
+    lists and tuples; None without one."""
+    for a in args:
+        if torch.is_tensor(a):
+            return a
+        items = a.values() if isinstance(a, dict) else a if isinstance(a, (list, tuple)) else ()
+        for b in items:
+            if torch.is_tensor(b):
+                return b
+    return None
 
 
-def unet_flops(plan, h, w, batch=1, ctx_len=148):
-    """FLOP estimate for one UNet forward at latent (h, w): convs + attention
-    (self-attn 4*S^2*C per block, count_flops_attn semantics x2 matmuls,
-    openaimodel.py:326-343; cross-attn 4*S*ctx_len*C; projections/FF 2*S*...)."""
-    total = 0
-    res = (h, w)
-    for op in plan.ops:
-        if op[0] == "d":
-            spec = plan.data_specs[op[1]]
-            hh, ww = res
-            if spec.kind in ("conv_in", "out"):
-                total += 2 * batch * hh * ww * 9 * spec.cin * spec.cout
-            elif spec.kind == "res":
-                total += 2 * batch * hh * ww * 9 * (spec.cin * spec.cout
-                                                    + spec.cout ** 2)
-                if spec.cin != spec.cout:
-                    total += 2 * batch * hh * ww * spec.cin * spec.cout
-            elif spec.kind == "down":
-                res = (hh // 2, ww // 2)
-                total += 2 * batch * res[0] * res[1] * 9 * spec.cin * spec.cout
-            elif spec.kind == "up":
-                res = (hh * 2, ww * 2)
-                total += 2 * batch * res[0] * res[1] * 9 * spec.cin * spec.cout
-        elif op[0] == "c":
-            spec = plan.context_specs[op[1]]
-            s = res[0] * res[1]
-            c = spec.ch
-            total += 4 * batch * s * s * c            # self-attn qk + pv
-            total += 4 * batch * s * ctx_len * c      # cross-attn
-            total += 2 * batch * s * c * c * 8        # qkv/out projections + GEGLU FF
-    return total
+def _open_spans():
+    if not hasattr(_local, "open"):
+        _local.open = []
+    return _local.open
+
+
+@contextlib.contextmanager
+def paused():
+    """The work inside with none of this thread's spans open on the host:
+    each is closed before it and opened again after it (module docstring).
+    Their device markers are not touched."""
+    spans = list(_open_spans())
+    for sp in reversed(spans):
+        sp._host.__exit__(None, None, None)
+    try:
+        yield
+    finally:
+        for sp in spans:
+            sp._host = _HOST(PREFIX + sp.name)
+            sp._host.__enter__()
+
+
+def _mark(index, end, stream):
+    """Launch span ``index``'s begin (``end`` 0) or end (1) marker on
+    ``stream`` (a ``cudaStream_t`` as an int)."""
+    err = cuda_build.entry("span_mark")(index, end, stream)
+    if err != 0:
+        raise RuntimeError(f"span marker {DEVICE_SPANS[index]!r} failed with cudaError {err}")
+
+
+class span:
+    """``pfd.<name>`` around the work inside (module docstring):
+    ``with span("hint"): ...``, or ``@span("unet")`` on a function.
+
+    ``on`` (a tensor or a device) says where the work runs; a device span
+    marks the device only where that is a CUDA device and
+    :data:`device_spans` is set. As a decorator, the call's first tensor
+    argument (or the first one inside its first dict, list or tuple that
+    holds one) says it."""
+
+    def __init__(self, name: str, on=None):
+        self.name = name
+        self.on = on
+        self._index = _INDEX.get(name)
+        self._stream = None
+
+    def __call__(self, fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(self.name, None if self._index is None else _first_tensor(args)):
+                return fn(*args, **kwargs)
+
+        return inner
+
+    def __enter__(self):
+        self._host = _HOST(PREFIX + self.name)
+        self._host.__enter__()
+        _open_spans().append(self)
+        on = self.on
+        if self._index is not None and device_spans and on is not None:
+            dev = on.device if torch.is_tensor(on) else torch.device(on)
+            if dev.type == "cuda":
+                self._stream = torch.cuda.current_stream(dev).cuda_stream
+                _mark(self._index, 0, self._stream)
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if self._stream is not None and exc_type is None:
+            _mark(self._index, 1, self._stream)
+        self._stream = None
+        _open_spans().remove(self)
+        self._host.__exit__(exc_type, exc, tb)
+        return False

@@ -556,25 +556,26 @@ def test_metric_logger_matches_pfd_tpu(tmp_path, capsys):
     assert capsys.readouterr().out == "step 7\nstep 7\n"
 
 
-def test_unet_flops_phase_timer_and_trace_on_the_cpu(tmp_path):
-    """``unet_flops`` equals pfd_tpu's on the same plan; ``PhaseTimer`` sums
-    phases and reports them; ``trace`` writes a Chrome trace of what ran."""
-    from pfd_tpu.utils import profiling as jprof
+def test_span_and_trace_on_the_cpu(tmp_path):
+    """``span`` records ``pfd.<name>`` as a context manager and as a
+    decorator, nested as called, and launches no marker on the CPU;
+    ``trace`` writes a Chrome trace of what ran, the spans in it."""
     from pfd_tpu_torch.utils import profiling as tprof
 
-    jm, tm = _pair(numpy_params(jreg.get("pfd")(**PFD["args"]), 0))
-    for hw, b in ((8, 1), (16, 2)):
-        assert tprof.unet_flops(tm.diffuser["image"].plan, hw, hw, b, ctx_len=8) == \
-            jprof.unet_flops(jm.diffuser["image"].plan, hw, hw, b, ctx_len=8)
-    timer = tprof.PhaseTimer()
-    x = torch.ones(4)
-    for _ in range(2):
-        with timer.phase("a", sync_on=x):
-            x = x + 1
-    assert set(timer.phases) == {"a"} and timer.phases["a"] > 0 and "a:" in timer.report()
+    @tprof.span("unet")
+    def twice(x):
+        return x * 2
+
     with tprof.trace(str(tmp_path / "tr")) as prof:
-        torch.matmul(torch.ones(8, 8), torch.ones(8, 8))
-    assert (tmp_path / "tr" / "trace.json").stat().st_size > 0
+        with tprof.span("request"):
+            torch.matmul(torch.ones(8, 8), torch.ones(8, 8))
+            twice(torch.ones(4))
+    spans = {e.name: e.time_range for e in prof.events() if e.name.startswith("pfd.")}
+    assert set(spans) == {"pfd.request", "pfd.unet"}
+    assert spans["pfd.request"].start <= spans["pfd.unet"].start
+    assert spans["pfd.unet"].end <= spans["pfd.request"].end
+    text = (tmp_path / "tr" / "trace.json").read_text()
+    assert '"pfd.unet"' in text and "pfd_span_" not in text
     assert any("matmul" in e.key for e in prof.key_averages())
 
 
