@@ -16,7 +16,8 @@ the next replay writes the same memory.
 What a graph bakes in: every kernel's arguments, so every address it reads.
 That is sound only while each input lives in a static buffer (the copies
 above) and every parameter and buffer is updated in place (``load_state_dict``
-copies; ``ops/quant.py`` refreshes the upsample phase kernels in place), and
+copies; ``ops/quant.py`` refreshes the upsample phase kernels in place,
+``ops/nn.py`` the pre-laid conv filters), and
 while the host-side arguments (step tables, Python scalars, the sampler's
 knobs) stay what they were at capture; the owners key their graphs on those.
 A Python number argument becomes a 0-d fp32 tensor on the device (a guidance

@@ -32,6 +32,26 @@ set of codes from the 3x3 ones, so a quantized upsample conv takes the
 phase form, with the kernel requantized once at quantize time
 (``quant.phase_kernel``).
 
+Pre-laid filters: cuDNN's sm90 bf16 kernels read NHWC maps and KRSC
+filters, and handed an NCHW map and an OIHW filter they transpose both into
+a workspace on every call, a constant filter too (inside a replayed graph
+as well). So a float conv of a bf16 or fp16 CUDA map, with a kernel larger
+than 1x1, whose filter holds at least twice as many values as the map (the
+UNet's and the ControlNet's deeper levels at small batch; nearer to 1:1
+ATen's map conversions cost more than the filter's), runs on a copy of the
+filter kept channels-last (KRSC) in the map's dtype: the non-persistent
+buffer ``weight_krsc``, made at the first eager call that takes it (a
+graph's eager warm-up comes before its capture), made again in place
+whenever the weight has changed since, and refreshed in place on
+``load_state_dict`` (a post-hook, as ``ops/quant.py`` refreshes its phase
+kernels), so that a captured graph reads the new filter. The map goes in
+channels-last and comes back NCHW, the bias added on the way; every other
+conv, and one that autograd records or a capture would have to build the
+copy for, is the plain call. ``weight`` stays OIHW. ``conv2d.prelaid`` and
+``conv2d.plain`` count the bf16/fp16 CUDA convs with a kernel larger than
+1x1 on each path, where Python runs them (eager and capture; a replay adds
+nothing).
+
 On a mesh with a 'seq' axis (``parallel/mesh.py``; the sharded entry points
 make it active) a feature map is this rank's rows of the latent: a conv
 with a kernel taller than one row takes its halo rows from the neighbouring
@@ -164,6 +184,62 @@ def conv2d_raw(x, weight, bias=None, *, stride=1, padding=0, dilation=1, groups=
         return F.conv2d(x, weight, bias, **kw)
 
 
+def _half_spatial(x, m) -> bool:
+    """A bf16/fp16 CUDA map and a float kernel larger than 1x1: the convs
+    that ``conv2d.prelaid`` and ``conv2d.plain`` count."""
+    return (x.is_cuda and x.dtype in (torch.bfloat16, torch.float16)
+            and not quant.is_quantized(m) and m.weight.shape[-2] * m.weight.shape[-1] > 1)
+
+
+def takes_prelaid(x, m) -> bool:
+    """Whether the conv of ``x`` by ``m`` is one for the pre-laid filter
+    (module docstring), from dtypes and shapes alone."""
+    return _half_spatial(x, m) and m.weight.numel() >= 2 * x.numel()
+
+
+def _weight_key(w):
+    # an in-place write bumps _version; a move or a new tensor changes data_ptr
+    return w.data_ptr(), w._version
+
+
+@torch.no_grad()
+def _refresh_prelaid(m, *_):
+    """Copy ``m.weight`` into its pre-laid filter in place (the buffer's
+    address is what a captured graph reads); drop the copy where it no
+    longer fits the weight."""
+    buf = m._buffers.get("weight_krsc")
+    if buf is None:
+        return
+    w = m._parameters.get("weight")
+    if w is None or w.shape != buf.shape or w.device != buf.device:
+        m._buffers.pop("weight_krsc")
+        return
+    buf.copy_(w)
+    m._pfd_krsc_key = _weight_key(w)
+
+
+def _prelaid(x, m):
+    """``m``'s filter as KRSC in ``x.dtype``, made or refreshed here, or None
+    where the call stays plain: autograd records it, a capture would have to
+    make the copy, or the copy is of another dtype (a graph may read it)."""
+    w = m.weight
+    buf = m._buffers.get("weight_krsc")
+    if cuda_build.records_grad(x, w) or (buf is not None and buf.dtype != x.dtype):
+        return None
+    if buf is not None and getattr(m, "_pfd_krsc_key", None) == _weight_key(w):
+        return buf
+    if x.is_cuda and torch.cuda.is_current_stream_capturing():
+        return None
+    _refresh_prelaid(m)
+    if "weight_krsc" not in m._buffers:
+        m.register_buffer("weight_krsc", w.detach().to(x.dtype, memory_format=torch.channels_last,
+                                                       copy=True), persistent=False)
+        m._pfd_krsc_key = _weight_key(w)
+        if not hasattr(m, "_pfd_krsc_hook"):
+            m._pfd_krsc_hook = m.register_load_state_dict_post_hook(_refresh_prelaid)
+    return m.weight_krsc
+
+
 def conv2d(x, m, *, stride=1, padding=0, dilation=1, groups=1):
     """NCHW conv with the module's weights cast to ``x.dtype``, or the int8
     conv where the module is quantized (module docstring; an int8 conv is
@@ -179,11 +255,30 @@ def conv2d(x, m, *, stride=1, padding=0, dilation=1, groups=1):
         y = _conv_q(x, m.weight_q, m.weight_scale, stride=stride, padding=padding)
         b = _b(m, x)
         return y if b is None else y + b[None, :, None, None]
+    w = _prelaid(x, m) if takes_prelaid(x, m) else None
+    if w is not None:
+        conv2d.prelaid += 1
+    elif _half_spatial(x, m):
+        conv2d.plain += 1
     if isinstance(padding, tuple):
         x = F.pad(x, padding)
         padding = 0
-    return conv2d_raw(x, _w(m, x), _b(m, x), stride=stride, padding=padding,
-                      dilation=dilation, groups=groups)
+    if w is None:
+        return conv2d_raw(x, _w(m, x), _b(m, x), stride=stride, padding=padding,
+                          dilation=dilation, groups=groups)
+    y = F.conv2d(x.contiguous(memory_format=torch.channels_last), w, None, stride=stride,
+                 padding=padding, dilation=dilation, groups=groups)
+    b = _b(m, x)
+    if b is None:
+        return y.contiguous()
+    # the bias is added as y goes back to NCHW: one pass over y fewer than
+    # cuDNN's add and then a copy, the same sum
+    return torch.add(y, b[None, :, None, None], out=torch.empty(y.shape, dtype=y.dtype,
+                                                                device=y.device))
+
+
+conv2d.prelaid = 0
+conv2d.plain = 0
 
 
 def _conv2d_seq(x, m, group, *, stride, padding, dilation, groups):

@@ -20,7 +20,10 @@ network on the card against itself on the CPU (relative L2 1e-4), and a
 graphed request with an HED hint against its eager twin, bit for bit; the
 span markers of ``utils/profiling.py`` in a replay, in capture order around
 their layers' kernels, and a request's graphs with them replaying bit for
-bit as the same graphs without them.
+bit as the same graphs without them; ``ops.nn.conv2d`` on the pre-laid
+(KRSC) filter bit for bit as the plain cuDNN call at the UNet's and the
+ControlNet's 3x3 shapes at batch 2 and 16, and a ``load_state_dict`` after a
+capture reaching the next replay.
 
 Needs a CUDA device and ``nvcc``; skips where there is none. Imports neither
 JAX nor pfd_tpu, so it also runs on a machine without them:
@@ -604,6 +607,66 @@ def test_fp32_pipeline_runs_on_the_card():
 
 def _rel_l2(got, want):
     return ((got.double().cpu() - want.double()).norm() / want.double().norm()).item()
+
+
+def _bf16_conv_cuda(cin, cout, stride, g):
+    conv = torch.nn.Conv2d(cin, cout, 3, stride=stride, padding=1, device="cuda",
+                           dtype=torch.bfloat16).requires_grad_(False)
+    conv.weight.copy_(_randn(conv.weight.shape, g) * (9 * cin) ** -0.5)
+    conv.bias.copy_(_randn(conv.bias.shape, g) * 0.1)
+    return conv
+
+
+# (batch, cin, cout, side, stride) of the UNet's and the ControlNet's 3x3 convs
+# that take the pre-laid filter at 512^2: batch 2 is b1 under CFG, 16 is b8
+_PRELAID_SHAPES = [(2, 320, 640, 32, 1), (2, 640, 640, 32, 1), (2, 640, 640, 32, 2),
+                   (2, 1280, 1280, 16, 1), (2, 1280, 1280, 8, 1), (2, 2560, 1280, 8, 1),
+                   (2, 1280, 1280, 32, 1), (16, 640, 1280, 16, 1), (16, 1280, 1280, 16, 2),
+                   (16, 2560, 1280, 16, 1), (16, 1280, 1280, 8, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,cin,cout,side,stride", _PRELAID_SHAPES)
+def test_prelaid_conv_equals_the_plain_call(b, cin, cout, side, stride):
+    """``ops.nn.conv2d`` on the pre-laid (KRSC) filter against the plain
+    cuDNN call on the OIHW filter, bit for bit, its output NCHW."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(b + cin + side + stride)
+    conv = _bf16_conv_cuda(cin, cout, stride, g)
+    x = _randn((b, cin, side, side), g)
+    assert tnn.takes_prelaid(x, conv)
+    before = (tnn.conv2d.prelaid, tnn.conv2d.plain)
+    got = tnn.conv2d(x, conv, stride=stride, padding=1)
+    want = torch.nn.functional.conv2d(x, conv.weight, conv.bias, stride=stride, padding=1)
+    assert (tnn.conv2d.prelaid, tnn.conv2d.plain) == (before[0] + 1, before[1])
+    assert conv.weight_krsc.is_contiguous(memory_format=torch.channels_last)
+    assert got.is_contiguous() and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_prelaid_filter_follows_a_load_into_a_captured_graph():
+    """A captured ``Graphed`` conv reads the pre-laid filter's address: a
+    ``load_state_dict`` of new weights after the capture refreshes it in
+    place, and the next replay gives the new weights' output, bit for bit
+    the plain call's."""
+    _need_cuda()
+    from pfd_tpu_torch.ops import graphs
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    conv = _bf16_conv_cuda(1280, 1280, 1, g)
+    x = _randn((2, 1280, 8, 8), g)
+    fn = graphs.Graphed(lambda a: tnn.conv2d(a, conv, padding=1), graphs.GraphPool("cuda"))
+    before = tnn.conv2d.prelaid
+    first = fn(x)
+    ptr = conv.weight_krsc.data_ptr()
+    assert tnn.conv2d.prelaid == before + 2  # the warm-up and the capture; a replay adds none
+    assert torch.equal(first, torch.nn.functional.conv2d(x, conv.weight, conv.bias, padding=1))
+    new = {"weight": _randn(conv.weight.shape, g) * 0.01, "bias": _randn(conv.bias.shape, g)}
+    conv.load_state_dict(new)
+    got = fn(x)
+    assert tnn.conv2d.prelaid == before + 2 and conv.weight_krsc.data_ptr() == ptr
+    want = torch.nn.functional.conv2d(x, new["weight"], new["bias"], padding=1)
+    assert torch.equal(got, want) and not torch.equal(got, first)
 
 
 @pytest.mark.cuda

@@ -3,6 +3,10 @@
 The same numpy inputs and weights go through both; layouts differ (the port
 is NCHW/OIHW/(out, in), pfd_tpu NHWC/HWIO/(in, out)), so the test transposes.
 Tolerance: atol 1e-4 (fp32, different summation orders).
+
+The pre-laid conv filters (``ops/nn.py``; a card-only path) are held to
+PyTorch's own conv instead: the rule on stand-ins for CUDA maps, the copy,
+its refresh and the counters with a CPU map let onto the path.
 """
 
 import jax.numpy as jnp
@@ -13,6 +17,7 @@ from torch import nn as tnn
 
 from pfd_tpu.ops import nn as jnn
 from pfd_tpu_torch.ops import nn as tn
+from pfd_tpu_torch.ops import quant
 
 torch.set_num_threads(1)
 ATOL = 1e-4
@@ -232,6 +237,155 @@ def test_dot_product_attention(with_bias):
                                    torch.from_numpy(v),
                                    bias=None if bias is None else torch.from_numpy(bias))
     _close(got, want)
+
+
+class _OnCard:
+    """Stands in for a CUDA feature map where the pre-laid rule reads one:
+    ``is_cuda``, the dtype and the number of values (no card here)."""
+
+    is_cuda = True
+
+    def __init__(self, shape, dtype=torch.bfloat16):
+        self.shape, self.dtype = shape, dtype
+
+    def numel(self):
+        return int(np.prod(self.shape))
+
+
+def _meta_conv(cin, cout, k=3):
+    return tnn.Conv2d(cin, cout, k, padding=k // 2, device="meta")
+
+
+# (level, cin, cout, side): the SD-1.5 UNet's (and the ControlNet encoder's)
+# 3x3 convs at a 512^2 image; batch 2 is b1 under CFG, batch 16 is b8
+@pytest.mark.parametrize("batch,level,cin,cout,side,takes", [
+    (2, "ds1", 320, 320, 64, False),
+    (2, "ds2 in", 320, 640, 32, True),
+    (2, "ds2", 640, 640, 32, True),
+    (2, "ds3", 1280, 1280, 16, True),
+    (2, "ds4", 1280, 1280, 8, True),
+    (2, "up ds3", 2560, 1280, 16, True),
+    (16, "ds1", 320, 320, 64, False),
+    (16, "ds2", 640, 640, 32, False),
+    (16, "ds3 in", 640, 1280, 16, True),
+    (16, "ds3", 1280, 1280, 16, True),
+    (16, "ds4", 1280, 1280, 8, True),
+    (16, "up ds3", 2560, 1280, 16, True),
+    (16, "up ds2", 1920, 640, 32, False),
+    (1, "VAE 64^2", 512, 512, 64, False),
+    (1, "VAE conv_in", 4, 512, 64, False)])
+def test_prelaid_rule_by_level(batch, level, cin, cout, side, takes):
+    """The pre-laid filter is taken where the filter holds at least twice as
+    many values as the map: every level but ds1 at batch 2, the two deepest
+    levels (and the decoder's ds3 convs) at batch 16; not the VAE decoder's
+    64^2 convs at batch 1 (filter 1.125 times the map)."""
+    m = _meta_conv(cin, cout)
+    assert tn.takes_prelaid(_OnCard((batch, cin, side, side)), m) is takes, level
+
+
+@pytest.mark.parametrize("case", ["1x1", "fp32", "quantized", "cpu", "fp16 taken"])
+def test_prelaid_rule_excludes(case):
+    """1x1 kernels (one layout either way), fp32 maps (training, the FP32
+    policy), quantized convs (the int8 kernel) and maps off the card stay
+    plain; fp16 maps take it as bf16 ones do."""
+    shape = (2, 1280, 8, 8)
+    m = _meta_conv(1280, 1280, 1 if case == "1x1" else 3)
+    x = _OnCard(shape, torch.float32 if case == "fp32" else
+                torch.float16 if case == "fp16 taken" else torch.bfloat16)
+    if case == "quantized":
+        m = quant.quantize_params(tnn.Conv2d(64, 64, 3))
+        x = _OnCard((1, 64, 2, 2))
+    if case == "cpu":
+        x = torch.empty(shape, dtype=torch.bfloat16, device="meta")
+    assert tn.takes_prelaid(x, m) is (case == "fp16 taken")
+
+
+@pytest.fixture
+def cpu_as_card(monkeypatch):
+    """Lets a CPU map take the pre-laid path, so that the copy, its refresh
+    and the counters run here."""
+    real = tn._half_spatial
+    monkeypatch.setattr(tn, "_half_spatial",
+                        lambda x, m: real(_OnCard(tuple(x.shape), x.dtype), m))
+    monkeypatch.setattr(tn.conv2d, "prelaid", 0)
+    monkeypatch.setattr(tn.conv2d, "plain", 0)
+
+
+def _bf16_conv(cin, cout, k, seed):
+    g = torch.Generator().manual_seed(seed)
+    m = tnn.Conv2d(cin, cout, k, padding=k // 2, dtype=torch.bfloat16).requires_grad_(False)
+    with torch.no_grad():
+        m.weight.copy_(torch.randn(m.weight.shape, generator=g) * 0.1)
+        m.bias.copy_(torch.randn(m.bias.shape, generator=g) * 0.1)
+    return m
+
+
+@pytest.mark.parametrize("case,prelaid,plain", [
+    ("small map", 1, 0), ("large map", 0, 1), ("1x1", 0, 0), ("fp32", 0, 0)])
+def test_prelaid_counters_on_each_path(cpu_as_card, case, prelaid, plain):
+    """``conv2d.prelaid`` counts the convs on the pre-laid filter,
+    ``conv2d.plain`` the other bf16 convs with a kernel larger than 1x1; the
+    output is NCHW and the plain call's within bf16 rounding."""
+    m = _bf16_conv(32, 32, 1 if case == "1x1" else 3, 0)
+    side = 32 if case == "large map" else 4
+    x = torch.randn((1, 32, side, side), generator=torch.Generator().manual_seed(1))
+    if case == "fp32":
+        m = m.float()
+    else:
+        x = x.bfloat16()
+    got = tn.conv2d(x, m, padding=m.kernel_size[0] // 2)
+    assert (tn.conv2d.prelaid, tn.conv2d.plain) == (prelaid, plain)
+    assert ("weight_krsc" in m._buffers) is bool(prelaid)
+    assert got.is_contiguous()
+    want = torch.nn.functional.conv2d(x.float(), m.weight.float(), m.bias.float(),
+                                      padding=m.kernel_size[0] // 2)
+    assert (got.float() - want).abs().max() <= 2e-2 * want.abs().max()
+
+
+def test_prelaid_filter_refreshes_in_place(cpu_as_card):
+    """The copy is KRSC in the map's dtype; ``load_state_dict`` of new weights
+    refreshes it in place (same address, new values), leaves ``weight`` OIHW
+    and keeps it out of the state dict; an in-place write to the weight is
+    picked up at the next call, at the same address."""
+    m = _bf16_conv(32, 48, 3, 0)
+    x = torch.randn((1, 32, 4, 4), generator=torch.Generator().manual_seed(1)).bfloat16()
+    tn.conv2d(x, m, padding=1)
+    buf = m.weight_krsc
+    ptr = buf.data_ptr()
+    assert buf.is_contiguous(memory_format=torch.channels_last) and not buf.is_contiguous()
+    assert torch.equal(buf, m.weight)
+    new = _bf16_conv(32, 48, 3, 5).state_dict()
+    assert set(m.state_dict()) == set(new)
+    m.load_state_dict(new)
+    assert m.weight_krsc.data_ptr() == ptr and torch.equal(m.weight_krsc, new["weight"])
+    assert m.weight.is_contiguous() and torch.equal(m.weight, new["weight"])
+    with torch.no_grad():
+        m.weight.mul_(2)
+    tn.conv2d(x, m, padding=1)
+    assert m.weight_krsc.data_ptr() == ptr and torch.equal(m.weight_krsc, 2 * new["weight"])
+    assert tn.conv2d.prelaid == 2
+
+
+def test_prelaid_keeps_a_copy_of_another_dtype(cpu_as_card):
+    """A map of another dtype than the copy's runs the plain call and leaves
+    the copy where it was (a captured graph may read it)."""
+    m = _bf16_conv(32, 32, 3, 0)
+    x = torch.randn((1, 32, 4, 4), generator=torch.Generator().manual_seed(1))
+    tn.conv2d(x.bfloat16(), m, padding=1)
+    buf = m.weight_krsc
+    got = tn.conv2d(x.half(), m, padding=1)
+    assert got.dtype == torch.float16 and m.weight_krsc is buf
+    assert (tn.conv2d.prelaid, tn.conv2d.plain) == (1, 1)
+
+
+def test_prelaid_skips_a_conv_autograd_records(cpu_as_card):
+    """A weight that requires grad under grad mode runs the plain call, so
+    that its gradient flows to ``weight``."""
+    m = _bf16_conv(32, 32, 3, 0).requires_grad_(True)
+    x = torch.randn((1, 32, 4, 4), generator=torch.Generator().manual_seed(1)).bfloat16()
+    tn.conv2d(x, m, padding=1).float().sum().backward()
+    assert m.weight.grad is not None and "weight_krsc" not in m._buffers
+    assert (tn.conv2d.prelaid, tn.conv2d.plain) == (0, 1)
 
 
 def numpy_params(model, seed=0, shapes=None):
