@@ -1,17 +1,15 @@
-"""The control of a cell's correctness check: the reference put in the
-program's place, computing one precision below the one the cell serves in
-(``run.CONTROL``: float8 for a bfloat16 mix, int4 for an int8 one), held to
-the reference as the benchmark holds the program.
+"""The control of a cell's correctness check, and the readings its limits are
+set from: the entry's ``control(cell, seeds)`` (``pfdbench/entries/``).
 
-    python3 -m pfdbench.control --workload <name> --seeds 11,12,13
+    python3 -m pfdbench.control --workload <name> --seeds 11,12,13 [--bench <file>]
 
-For each seed: the run's weights, pools and check sample (the first
-``check["requests"]`` requests of the seed, the images the check would
-draw), the reference at its precision (``run.REFERENCE``) and one below,
-and ``image_err`` of the second against the first.
-Prints one JSON line a seed and, last, the smallest reading. A limit is
-sound only where the control reads well above it. The benchmark's own runs
-never run this.
+A serving cell (``entries/serving.py``): the reference put in the program's
+place, computing one precision below the one the cell serves in (float8 for
+a bfloat16 mix, int4 for an int8 one), held to the reference as the
+benchmark holds the program; one JSON line a seed and, last, the smallest
+reading. A cell on several cards runs its entry's ``control`` in its ranks
+(``ranks.launch``); rank 0 prints the readings. A limit is sound only where
+the control reads well above it. The benchmark's own runs never run this.
 """
 
 from __future__ import annotations
@@ -19,37 +17,35 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-import time
 
 
-def control_readings(bench, cell, seeds, device, overrides=None):
-    """{seed: [image_err of each checked image]} of the control."""
-    import numpy as np
+def control_readings(cell, seeds, device, overrides=None, home=None, fault_seeds=(), timeout=3000):
+    """The entry's control readings of ``cell`` on ``seeds``: in this process,
+    or for a cell on several cards in its ranks (``ranks.launch``; the
+    planted faults read on ``fault_seeds``)."""
+    from pfdbench import entries, ranks, run
 
-    from pfdbench import run, traffic as traffic_lib
+    home = str(home or run.HERE)
+    if cell["chips"] > 1:
+        spec = {"cell": cell, "seeds": list(seeds), "device": device,
+                "overrides": overrides or {}, "home": home, "fault_seeds": list(fault_seeds)}
+        return ranks.launch(spec, cell["chips"], timeout, target="pfdbench.control:control_rank")
+    c = run.make_cell(cell, seeds[0], device, overrides, home)
+    return entries.module_of(c.traffic["entry"]).control(c, seeds)
 
-    overrides = overrides or {}
-    conf = run.load_json(run.HERE / "configs" / f"{cell['config']}.json")
-    model_cfg = overrides.get("model", conf["model"])
-    traffic = dict(traffic_lib.load(cell["traffic"]), **overrides.get("traffic", {}))
-    out = {}
-    for seed in seeds:
-        t0 = time.perf_counter()
-        pools = traffic_lib.pools(seed, traffic)
-        rng = np.random.default_rng([int(seed), 1 << 22])
-        picks = [(i, run.check_indices(rng, traffic["batch"], traffic["check"]["images"]))
-                 for i in range(traffic["check"]["requests"])]
-        ref = run.build_reference(model_cfg, conf["weights"], seed, device)
-        want = run.reference_images(ref, seed, traffic, pools, picks,
-                                    run.REFERENCE[traffic["mode"]])
-        low = run.reference_images(ref, seed, traffic, pools, picks, run.CONTROL[traffic["mode"]])
-        del ref
-        out[seed] = run.compare({i: imgs for i, (_, imgs) in low.items()},
-                                {i: (list(range(len(idx))), imgs)
-                                 for i, (idx, imgs) in want.items()})
-        print(json.dumps({"workload": cell["name"], "seed": seed,
-                          "precision": run.CONTROL[traffic["mode"]], "image_err": out[seed],
-                          "seconds": time.perf_counter() - t0}), flush=True)
+
+def control_rank(spec, rank, world, rendezvous):
+    """A rank of a several-card cell's control (``ranks.launch``'s target)."""
+    from pfdbench import entries, ranks, run
+
+    on_card = spec["device"].startswith("cuda")
+    group = ranks.join(rendezvous, world, rank, on_card)
+    import torch
+    device = f"cuda:{torch.cuda.current_device()}" if on_card else "cpu"
+    c = run.make_cell(spec["cell"], spec["seeds"][0], device,
+                      spec["overrides"], spec["home"], rank, world)
+    out = entries.module_of(c.traffic["entry"]).control(c, spec["seeds"], spec, group)
+    ranks.leave(group)
     return out
 
 
@@ -57,6 +53,10 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--workload", required=True)
     p.add_argument("--seeds", required=True)
+    p.add_argument("--bench", default="BENCHMARK.json",
+                   help="the file of cells, from the checkout's root (``run.py``)")
+    p.add_argument("--fault-seeds", default="",
+                   help="seeds on which an entry with planted faults also reads them")
     args = p.parse_args(argv)
     from pfdbench import run
 
@@ -66,9 +66,13 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("the control runs on a CUDA card", file=sys.stderr)
         return 2
-    bench = run.load_json(run.ROOT / "BENCHMARK.json")
-    cell = run.cell_of(bench, args.workload)
-    readings = control_readings(bench, cell, [int(s) for s in args.seeds.split(",")], "cuda")
+    cell = run.cell_of(run.load_json(run.ROOT / args.bench), args.workload, args.bench)
+    seeds = [int(s) for s in args.seeds.split(",")]
+    fault_seeds = [int(s) for s in args.fault_seeds.split(",") if s]
+    readings = control_readings(cell, seeds, "cuda", fault_seeds=fault_seeds)
+    if cell["chips"] > 1:
+        print(json.dumps({"workload": cell["name"], "readings": readings}), flush=True)
+        return 0
     print(json.dumps({"workload": cell["name"], "min_image_err": min(
         max(v) for v in readings.values())}), flush=True)
     return 0

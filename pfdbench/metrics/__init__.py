@@ -30,9 +30,9 @@ def roofline(ctx, kernel):
     return 100.0 * ctx.n_requests * sum(c.bound_s() for c in want) / got_s
 
 
-def share_of_peak(ctx):
-    """The model FLOPs of the traced requests over the traced window at the
-    bf16 dense peak (%)."""
+def share_of_peak(ctx, peak=work.PEAK_BF16):
+    """The model FLOPs of the traced requests over the traced window at
+    ``peak`` FLOP/s (%; the bf16 dense peak by default)."""
     if ctx.trace.window_s <= 0 or not ctx.trace.device:
         return None
-    return 100.0 * ctx.n_requests * ctx.request_flops / (ctx.trace.window_s * work.PEAK_BF16)
+    return 100.0 * ctx.n_requests * ctx.request_flops / (ctx.trace.window_s * peak)

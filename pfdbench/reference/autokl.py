@@ -1,9 +1,12 @@
-"""The f=8 KL autoencoder's decoder (and the parameters of its encoder, which
-a served request never runs) in plain float32, with the program's module
-and parameter names: post_quant_conv -> conv_in -> mid (ResNet, one-head
-attention over the latent grid, ResNet) -> levels of ResNets and nearest-2x
-upsample convs -> GroupNorm, SiLU, conv_out -> (x + 1) / 2 clamped to
-[0, 1] (upstream's autokl_modules.py)."""
+"""The f=8 KL autoencoder in plain float32, with the program's module and
+parameter names (upstream's autokl_modules.py). The decoder (a served
+request's): post_quant_conv -> conv_in -> mid (ResNet, one-head attention
+over the latent grid, ResNet) -> levels of ResNets and nearest-2x upsample
+convs -> GroupNorm, SiLU, conv_out -> (x + 1) / 2 clamped to [0, 1]. The
+encoder (a training batch's latents): 2x - 1 -> conv_in -> levels of ResNets
+and stride-2 convs after a right and bottom pad of one -> mid -> GroupNorm,
+SiLU, conv_out -> quant_conv -> the posterior's mean and log-variance, the
+latter clamped to [-30, 20]."""
 
 from __future__ import annotations
 
@@ -57,7 +60,6 @@ class _Resample(nn.Module):
 
 
 class Encoder(nn.Module):
-    """Parameters only (a served request decodes and never encodes)."""
 
     def __init__(self, ch, ch_mult, num_res_blocks, in_channels, z_channels, **_):
         super().__init__()
@@ -76,6 +78,17 @@ class Encoder(nn.Module):
             ResnetBlock(cmid, cmid), AttnBlock(cmid), ResnetBlock(cmid, cmid))
         self.norm_out = nn.GroupNorm(32, cmid, eps=EPS)
         self.conv_out = nn.Conv2d(cmid, 2 * z_channels, 3, padding=1)
+
+    def forward(self, x, qmode=None):
+        h = F.conv2d(x, self.conv_in, padding=1)
+        for level in self.down:
+            for blk in level.block:
+                h = blk(h)
+            if level.downsample is not None:
+                h = F.conv2d(h, level.downsample.conv, stride=2, padding=(0, 1, 0, 1))
+        h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h), qmode))
+        h = TF.silu(F.group_norm(h, self.norm_out, eps=EPS))
+        return F.conv2d(h, self.conv_out, padding=1)
 
 
 class Decoder(nn.Module):
@@ -122,6 +135,12 @@ class AutoencoderKL(nn.Module):
         zc = ddconfig["z_channels"]
         self.quant_conv = nn.Conv2d(2 * zc, 2 * embed_dim, 1)
         self.post_quant_conv = nn.Conv2d(embed_dim, zc, 1)
+
+    def encode_moments(self, x, qmode=None):
+        """NCHW image in [0, 1] -> (mean, log-variance) of the posterior."""
+        moments = F.conv2d(self.encoder(x.float() * 2 - 1, qmode), self.quant_conv)
+        mean, logvar = moments.chunk(2, dim=1)
+        return mean, logvar.clamp(-30.0, 20.0)
 
     def decode(self, z, qmode=None):
         """Unscaled NCHW latent -> NCHW image in [0, 1]."""

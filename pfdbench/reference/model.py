@@ -79,7 +79,7 @@ class Reference(nn.Module):
         self.qmode = mode if mode == "fp8" else None
         parts = [self.diffuser, self.vae, getattr(self, "ctl", None)]
         for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
+            if isinstance(m, (nn.Conv2d, nn.Linear, seecoder.ConvNorm)):
                 m.qmode = None
         if mode == "fp8":
             for m in self.modules():

@@ -1,30 +1,43 @@
 """Run one cell of the benchmark once.
 
     python3 -m pfdbench.run --workload <name> --seed <n> --seconds <s> --trace <0|1>
+        [--bench <file>]
 
-From the root of a checkout. The cell (``BENCHMARK.json``'s ``workloads``)
-names its configuration (``configs/<config>.json``: the model as it is run
-and the weights' recipe), its traffic mix (``traffic/<traffic>.json``, read
-by ``traffic.py``) and, in ``workloads/<name>.json``, the limit of each
-number its correctness check compares.
+From the root of a checkout. The cell (``BENCHMARK.json``'s ``workloads``,
+or those of ``--bench``, a file of the same form: ``pfdbench/held_back.json``
+holds the cells that run but are kept out of ``BENCHMARK.json``) names its configuration (``configs/<config>.json``: the model as it is run,
+the weights' recipe and, under ``reference``, the module of its plain
+reference, ``pfdbench.reference.model`` by default), its traffic mix
+(``traffic/<traffic>.json``) and, in ``workloads/<name>.json``, the limit of
+each number its correctness check compares. The mix names its entry
+(``pfdbench/entries/``): the program the window drives, its requests and its
+check. A new cell is new files alone.
 
-A run: the weights from the seed on the card (``weights.py``), the program's
-entry built and loaded with them (``program.py``), the image pools, two
-warm-up requests (the bucket's capture: set-up ends there), then a closed
-loop of one client that starts whole requests until ``--seconds`` have
-passed, each timed from its call to its images in host memory. With
-``--trace 1`` the first requests of the window run under ``torch.profiler``
-and the cell's per-layer metrics are read from them (``metrics/``);
-otherwise the end-to-end metrics (``e2e/``). Then the program is freed and
-the reference (``reference/``, float32, TF32 off) recomputes a sample of the
-finished requests, drawn from the seed, from the same weights and inputs;
-``correct`` holds where every compared number is within its limit. The last
-line of standard output is the result as one JSON object; the last lines of
-standard error give each compared number beside its limit.
+A run: set-up builds the entry (the weights from the seed on the card, the
+program loaded with them) and runs its warm-up requests; then a closed loop of
+one client starts whole requests until ``--seconds`` have passed, each timed
+from its call to its work done. With ``--trace 1`` the first requests of the
+window run under ``torch.profiler`` and the cell's per-layer metrics are
+read from them (``metrics/``); otherwise the end-to-end metrics (``e2e/``).
+Then the program is freed and the entry's check recomputes what it produced
+with the plain reference; ``correct`` holds where every compared number is
+within its limit. The last line of standard output is the result as one JSON
+object; the last lines of standard error give each compared number beside
+its limit.
+
+A cell on several cards runs one process a card (``ranks.py``), started as
+``torchrun`` starts ranks; each joins through the program's
+``parallel.distributed.initialize`` and takes its own card. Every rank runs
+the same requests; rank 0 times the window, and after each request tells the
+others whether to go on (one scalar broadcast over gloo). Every rank traces,
+rank 0's trace gives the per-layer metrics and ``busy_s`` is the ranks'
+mean; rank 0 runs the check. This process prints the result once every rank
+has exited 0; a rank that fails or outlives its time limit ends the run with
+no result.
 
 The run fails (exit code not 0, no result) without enough CUDA cards, and
-where JAX or the JAX package was loaded in this process by the time the
-window closed.
+where JAX or the JAX package was loaded in a rank's process, or this one, by
+the time the window closed.
 """
 
 from __future__ import annotations
@@ -46,11 +59,10 @@ ROOT = Path(__file__).resolve().parents[1]
 HERE = ROOT / "pfdbench"
 BUILD = ROOT / "build" / "pfdbench"
 FORBIDDEN = ("jax", "jaxlib", "flax", "pfd_tpu")
-WARMUP = 2
-# the precision the reference computes in for a mode (the int8 mode's codes
-# worked out again), and its control's, one below the mode's
-REFERENCE = {"bf16": None, "int8": "int8"}
-CONTROL = {"bf16": "fp8", "int8": "int4"}
+DEFAULT_REFERENCE = "pfdbench.reference.model"
+# a run on several cards ends within this many seconds, a checkout's first
+# run (which builds the kernels) too
+RANKS_LIMIT_S = 340
 
 
 def process_start():
@@ -81,11 +93,11 @@ def load_json(path):
     return json.loads(Path(path).read_text())
 
 
-def cell_of(bench, name):
+def cell_of(bench, name, where="BENCHMARK.json"):
     for w in bench["workloads"]:
         if w["name"] == name:
             return w
-    raise SystemExit(f"no workload {name!r} in BENCHMARK.json")
+    raise SystemExit(f"no workload {name!r} in {where}")
 
 
 def metric_names(bench, cell, section):
@@ -126,142 +138,117 @@ class TraceContext:
         print(f"trace: {msg}", file=sys.stderr, flush=True)
 
 
-def image_err(got, want):
-    """||got - want|| / ||want - mean(want)|| over an image's pixels."""
-    import numpy as np
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want - want.mean()), 1e-12))
+@dataclasses.dataclass
+class Cell:
+    """What an entry is built from: the cell's name, the seed, the device,
+    the configuration file (``conf``; ``model_cfg`` its model, overrides
+    applied), the mix, the limits, this rank and the world, and the set-up's
+    log (``mark``)."""
+    name: str
+    seed: int
+    device: str
+    conf: dict
+    model_cfg: dict
+    traffic: dict
+    limits: dict
+    rank: int = 0
+    world: int = 1
+    t_proc: float = 0.0
+    marks: list = dataclasses.field(default_factory=list)
+
+    @property
+    def recipe(self):
+        return self.conf["weights"]
+
+    def reference_module(self):
+        """The module of the model's plain reference (``Reference(model_cfg)``)."""
+        return importlib.import_module(self.conf.get("reference", DEFAULT_REFERENCE))
+
+    def sync(self):
+        import torch
+        if self.device.startswith("cuda"):
+            torch.cuda.synchronize(self.device)
+
+    def mark(self, name):
+        self.marks.append((name, time.time() - self.t_proc))
 
 
-def check_indices(rng, batch, k):
-    """``k`` images of a batch drawn from ``rng``: all where k >= batch, else
-    one from each of k equal parts."""
-    if k >= batch:
-        return list(range(batch))
-    part = batch // k
-    return [int(j * part + rng.integers(part)) for j in range(k)]
-
-
-def build_reference(model_cfg, recipe, seed, device):
-    """The reference on ``device`` in float32 (TF32 off) with the run's
-    weights, made again from the seed."""
-    import torch
-
-    from pfdbench import weights
-    from pfdbench.reference import ops
-    from pfdbench.reference.model import Reference
-
-    ops.no_tf32()
-    with torch.device("meta"):
-        ref = Reference(model_cfg)
-    ref = ref.to_empty(device=torch.device(device))
-    ref.load_state_dict(weights.make(weights.rules(ref), recipe, seed, device), strict=True)
-    return ref
-
-
-def reference_images(ref, seed, traffic, pools, picks, precision):
-    """{request index: (image indices, (n, S, S, 3) images)} of the picked
-    requests, the reference ``ref`` computing in ``precision``."""
-    import numpy as np
-    import torch
-
-    from pfdbench import program, traffic as traffic_lib
-    from pfdbench.reference import canny
-
-    ref.set_precision(precision)
-    dev = next(ref.parameters()).device
-    refs_pool, hints_pool = pools
-    s, out = traffic["size"], {}
-    for i, idx in picks:
-        req = traffic_lib.request(seed, i, traffic)
-        x = program.start_latent(req["seed"], traffic["batch"], s, dev)[idx]
-        refs = torch.as_tensor(refs_pool[req["refs"][idx]], device=dev).permute(0, 3, 1, 2)
-        hints = None
-        if traffic.get("hint"):
-            h = np.stack([canny.hint(hints_pool[j]) for j in req["hints"][idx]])
-            hints = torch.as_tensor(h, device=dev).permute(0, 3, 1, 2)
-        img = ref.generate(refs, x, hints, scale=traffic["guidance"], steps=traffic["steps"],
-                           phases=traffic.get("phases"))
-        out[i] = (idx, img.permute(0, 2, 3, 1).cpu().numpy())
-    return out
-
-
-def compare(got, want):
-    """[image_err] of each image of ``want`` ({request: (indices, images)})
-    against ``got`` ({request: (n, S, S, 3) images})."""
-    return [image_err(got[i][j], img) for i, (idx, imgs) in want.items()
-            for j, img in zip(idx, imgs)]
-
-
-def pick_requests(seed, n_done, traffic):
-    """[(request index, image indices)] of the sample the check compares,
-    drawn from the seed among the finished requests."""
-    import numpy as np
-    spec = traffic["check"]
-    rng = np.random.default_rng([int(seed), 1 << 22])
-    chosen = sorted(rng.choice(n_done, size=min(spec["requests"], n_done), replace=False))
-    return [(int(i), check_indices(rng, traffic["batch"], spec["images"])) for i in chosen]
-
-
-def run(bench, cell, seed, seconds, trace, device, overrides=None):
-    """One run of ``cell`` (module docstring) -> (result dict, {compared
-    name: (value, limit)}). ``overrides`` replace the configuration's
-    ``model``, the mix's keys and the limits (the CPU tests' tiny sizes)."""
-    t_proc = process_start()
-    import numpy as np
-    import torch
-
-    from pfdbench import program, traffic as traffic_lib, weights, work
-    from pfdbench import trace as trace_lib
-    from pfdbench.reference.model import Reference
-
+def make_cell(cell, seed, device, overrides=None, home=HERE, rank=0, world=1, t_proc=0.0):
+    """``Cell`` of ``cell`` from its files under ``home``; ``overrides``
+    replace the configuration's ``model``, the mix's keys and the limits
+    (the CPU tests' tiny sizes)."""
     overrides = overrides or {}
-    conf = load_json(HERE / "configs" / f"{cell['config']}.json")
-    model_cfg = overrides.get("model", conf["model"])
-    recipe = conf["weights"]
-    traffic = dict(traffic_lib.load(cell["traffic"]), **overrides.get("traffic", {}))
-    limits = dict(load_json(HERE / "workloads" / f"{cell['name']}.json")["limits"],
+    home = Path(home)
+    conf = load_json(home / "configs" / f"{cell['config']}.json")
+    traffic = dict(load_json(home / "traffic" / f"{cell['traffic']}.json"),
+                   **overrides.get("traffic", {}))
+    limits = dict(load_json(home / "workloads" / f"{cell['name']}.json")["limits"],
                   **overrides.get("limits", {}))
+    return Cell(cell["name"], int(seed), device, conf, overrides.get("model", conf["model"]),
+                traffic, limits, rank, world, t_proc)
+
+
+def run(bench, cell, seed, seconds, trace, device, overrides=None, home=HERE, timeout=None,
+        plant=None):
+    """One run of ``cell`` (module docstring) -> (result dict, {compared
+    name: (value, limit)}). A cell on several cards starts its ranks and
+    returns rank 0's (``ranks.launch``; ``timeout`` their time limit).
+    ``plant``: "module:function", called in each rank before its set-up (the
+    tests' planted faults)."""
+    spec = {"bench": bench, "cell": cell, "seed": int(seed), "seconds": seconds,
+            "trace": bool(trace), "device": device, "overrides": overrides or {},
+            "home": str(home), "t0": process_start(), "plant": plant}
+    if cell["chips"] == 1:
+        return run_rank(spec, 0, 1, None)
+    from pfdbench import ranks
+
+    result, compared = ranks.launch(spec, cell["chips"], timeout or RANKS_LIMIT_S)
+    return result, {k: tuple(v) for k, v in compared.items()}
+
+
+def run_rank(spec, rank, world, rendezvous):
+    """One rank's part of a run (module docstring); rank 0 returns the
+    result, the others None."""
+    t_proc = min(process_start(), spec.get("t0") or _T_IMPORT)
+    import numpy as np
+    import torch
+
+    from pfdbench import entries, ranks, work
+    from pfdbench import trace as trace_lib
+
+    bench, cell, seconds, trace = spec["bench"], spec["cell"], spec["seconds"], spec["trace"]
+    on_card = spec["device"].startswith("cuda")
+    group = None
+    if world > 1:
+        group = ranks.join(rendezvous, world, rank, on_card)
+    device = f"cuda:{torch.cuda.current_device()}" if on_card and world > 1 else spec["device"]
     dev = torch.device(device)
-    on_card = dev.type == "cuda"
+    c = make_cell(cell, spec["seed"], device, spec["overrides"], spec["home"], rank,
+                  world, t_proc)
+    if spec.get("plant"):
+        ranks.call(spec["plant"])
 
-    def sync():
-        if on_card:
-            torch.cuda.synchronize(dev)
-
-    # set-up: weights, the program, the pools, the bucket
-    marks = [("import", time.time() - t_proc)]
-    with torch.device("meta"):
-        table = weights.rules(Reference(model_cfg))
-    prog = program.Program(model_cfg, traffic, weights.make(table, recipe, seed, dev), dev,
-                           BUILD / "no-weights")
-    gc.collect()
-    sync()
-    marks.append(("program", time.time() - t_proc))
-    pools = traffic_lib.pools(seed, traffic)
-    refs_pool, hints_pool = pools
-    marks.append(("pools", time.time() - t_proc))
-
-    def inputs(req):
-        return (refs_pool[req["refs"]],
-                None if hints_pool is None else hints_pool[req["hints"]], req["seed"])
-
-    for _ in range(WARMUP):
-        prog(*inputs(traffic_lib.warmup_request(traffic)))
-    sync()
+    # set-up: the entry (weights, the program), its warm-up requests
+    c.mark("import")
+    entry = entries.load(c.traffic["entry"])(c)
+    for j in range(entry.warmup):
+        entry.warm(j)
+    c.sync()
     setup_s = time.time() - t_proc
-    marks.append(("warm-up", setup_s))
-    print("setup: " + ", ".join(f"{k} {v:.2f} s" for k, v in marks), file=sys.stderr, flush=True)
+    c.mark("warm-up")
+    print(f"setup (rank {rank}): " + ", ".join(f"{k} {v:.2f} s" for k, v in c.marks),
+          file=sys.stderr, flush=True)
 
     # the window
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
-    n_trace = traffic["trace_requests"] if trace else 0
+    n_trace = c.traffic["trace_requests"] if trace else 0
     prof, records, outputs = None, [], []
     start = time.perf_counter()
-    while not records or time.perf_counter() - start < seconds:
+    go = True
+    while go:
         i = len(records)
-        req = inputs(traffic_lib.request(seed, i, traffic))
+        req = entry.request(i)
         if i == 0 and n_trace:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if on_card:
@@ -270,72 +257,75 @@ def run(bench, cell, seed, seconds, trace, device, overrides=None):
             prof.start()
         with torch.profiler.record_function(trace_lib.SPAN_PREFIX + "request"):
             t0 = time.perf_counter()
-            imgs = prog(*req)
+            out = entry(req)
             t1 = time.perf_counter()
-        records.append((t0, t1, len(imgs)))
-        outputs.append(imgs)
+        records.append((t0, t1, entry.count(out)))
+        outputs.append(out)
         if prof is not None and i + 1 == n_trace:
             prof.stop()
+        go = time.perf_counter() - start < seconds
+        if group is not None:
+            go = ranks.agree(go, group)
     if prof is not None and len(records) < n_trace:
         prof.stop()
-    sync()
+    c.sync()
     window = Window(setup_s, start, records)
     peak = int(torch.cuda.max_memory_allocated(dev)) if on_card else 0
-    net = prog.net
-    prog.close()
-    del prog, net
+    wk = entry.work()
+    entry.close()
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
 
-    failed = sum(1 for o in outputs if o.shape != (traffic["batch"], traffic["size"],
-                                                   traffic["size"], 3)
-                 or not np.isfinite(o).all())
+    failed = sum(1 for o in outputs if entry.failed(o))
     result = {"correct": False, "attempted": len(records), "failed": failed, "metrics": {},
               "device": {"platform": "gpu" if on_card else "cpu",
                          "kind": torch.cuda.get_device_name(dev) if on_card else "cpu",
-                         "count": 1, "memory_peak_bytes": peak}}
+                         "count": world, "memory_peak_bytes": peak}}
+    busy_s = None
     if trace:
         t_read = time.perf_counter()
         tr = trace_lib.from_profiler(prof, [], (0.0, 0.0))
         spans = trace_lib.spans_of(tr.host, "request")
         tr.requests, tr.window = spans, ((spans[0][0], spans[-1][1]) if spans else (0.0, 0.0))
-        req = work.request_of(traffic)
-        ctx = TraceContext(tr, work.kernel_work(model_cfg, req),
-                           work.request_flops(model_cfg, req), len(spans),
-                           len(spans) * traffic["batch"])
-        ctx.log(f"read in {time.perf_counter() - t_read:.1f} s: "
-                f"{len(tr.device)} device events in {tr.window_s:.4f} s over {len(spans)} "
-                f"requests; kernels {json.dumps(tr.by_class())}; expected a request "
-                f"{json.dumps(work.launches(ctx.calls))}")
-        for m in metric_names(bench, cell, "per_layer"):
-            v = importlib.import_module(f"pfdbench.metrics.{m['name']}").read(ctx)
-            if v is not None:
-                result["metrics"][m["name"]] = {"value": v, "unit": m["unit"]}
-        result["device"].update(busy_s=tr.busy_s(), window_s=tr.window_s)
-        result["breakdown"] = tr.breakdown()
-    else:
+        busy_s = tr.busy_s()
+        if rank == 0:
+            ctx = TraceContext(tr, wk.calls, wk.request_flops, len(spans), len(spans) * wk.items)
+            ctx.log(f"read in {time.perf_counter() - t_read:.1f} s: "
+                    f"{len(tr.device)} device events in {tr.window_s:.4f} s over {len(spans)} "
+                    f"requests; kernels {json.dumps(tr.by_class())}; expected a request "
+                    f"{json.dumps(work.launches(ctx.calls))}")
+            for m in metric_names(bench, cell, "per_layer"):
+                v = importlib.import_module(f"pfdbench.metrics.{m['name']}").read(ctx)
+                if v is not None:
+                    result["metrics"][m["name"]] = {"value": v, "unit": m["unit"]}
+            result["device"].update(window_s=tr.window_s)
+            result["breakdown"] = tr.breakdown()
+    elif rank == 0:
         for m in metric_names(bench, cell, "end_to_end"):
             v = importlib.import_module(f"pfdbench.e2e.{m['name']}").read(window)
             if v is not None:
                 result["metrics"][m["name"]] = {"value": v, "unit": m["unit"]}
+    if group is not None:
+        peaks = ranks.gather(peak, group)
+        result["device"]["memory_peak_bytes"] = max(peaks)
+        busy = ranks.gather(busy_s, group)
+        if rank == 0:
+            print(f"ranks: memory peaks {peaks}, busy s {busy}", file=sys.stderr, flush=True)
+        busy_s = None if busy_s is None else float(np.mean(busy))
+    if busy_s is not None:
+        result["device"]["busy_s"] = busy_s
 
     # the check, once the window has closed and the program is gone
-    picks = pick_requests(seed, len(outputs), traffic)
-    t_check = time.perf_counter()
-    ref = build_reference(model_cfg, recipe, seed, dev)
-    want = reference_images(ref, seed, traffic, pools, picks, REFERENCE[traffic["mode"]])
-    del ref
-    errs = compare(outputs, want)
-    compared = {"image_err": (max(errs), limits["image_err"])}
-    imgs = np.concatenate([v for _, v in want.values()])
-    print(f"check: {len(errs)} images of {len(picks)} requests in "
-          f"{time.perf_counter() - t_check:.1f} s; image_err each "
-          f"{[round(e, 6) for e in errs]}; reference images: std {imgs.std():.4f}, "
-          f"at 0 or 1 {np.mean((imgs <= 0) | (imgs >= 1)):.4f}", file=sys.stderr, flush=True)
-    result["correct"] = failed == 0 and all(v <= lim for v, lim in compared.values())
-    result["compared"] = {k: {"value": v, "limit": lim} for k, (v, lim) in compared.items()}
-    return result, compared
+    compared = None
+    if rank == 0:
+        values = entry.check(outputs)
+        compared = {k: (v, c.limits[k]) for k, v in values.items()}
+        result["correct"] = failed == 0 and all(v <= lim for v, lim in compared.values())
+        result["compared"] = {k: {"value": v, "limit": lim} for k, (v, lim) in compared.items()}
+    if group is not None:
+        ranks.leave(group)
+    return (result, compared) if rank == 0 else None
 
 
 def parse(argv):
@@ -344,13 +334,15 @@ def parse(argv):
     p.add_argument("--seed", type=int, required=True)
     p.add_argument("--seconds", type=float, required=True)
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    p.add_argument("--bench", default="BENCHMARK.json",
+                   help="the file of cells and metrics, from the checkout's root")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse(argv)
-    bench = load_json(ROOT / "BENCHMARK.json")
-    cell = cell_of(bench, args.workload)
+    bench = load_json(ROOT / args.bench)
+    cell = cell_of(bench, args.workload, args.bench)
     fix_caches()
     import torch
 
@@ -359,7 +351,13 @@ def main(argv=None):
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0} found",
               file=sys.stderr)
         return 2
-    result, compared = run(bench, cell, args.seed, args.seconds, bool(args.trace), "cuda")
+    from pfdbench import ranks
+
+    try:
+        result, compared = run(bench, cell, args.seed, args.seconds, bool(args.trace), "cuda")
+    except ranks.RankFailed as e:
+        print(f"{args.workload}: {e}", file=sys.stderr, flush=True)
+        return e.code
     found = forbidden_modules()
     if found:
         print(f"loaded in this process: {', '.join(found)}", file=sys.stderr)

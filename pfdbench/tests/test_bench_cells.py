@@ -52,7 +52,7 @@ def test_control_fails_the_limit(name):
     cell = run.cell_of(BENCH, name)
     t = traffic.load(cell["traffic"])
     ov = tiny.overrides(cell, t)
-    readings = control.control_readings(BENCH, cell, [SEED, 5], "cpu", ov)
+    readings = control.control_readings(cell, [SEED, 5], "cpu", ov)
     limit = ov["limits"]["image_err"]
     assert min(max(v) for v in readings.values()) > 2 * limit
 
@@ -63,17 +63,17 @@ def _step_unchanged(monkeypatch):
 
 
 def _half_batch(monkeypatch):
-    from pfdbench import program
-    call = program.Program.__call__
+    from pfdbench.entries import serving
+    call = serving.Serving.__call__
 
-    def half(self, refs, hints, seed):
-        out = call(self, refs, hints, seed)
+    def half(self, req):
+        out = call(self, req)
         n = len(out) // 2
         if n:
             out[n:2 * n] = out[:n]
         return out
 
-    monkeypatch.setattr(program.Program, "__call__", half)
+    monkeypatch.setattr(serving.Serving, "__call__", half)
 
 
 def _answer_altered(monkeypatch):

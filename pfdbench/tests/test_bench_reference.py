@@ -7,7 +7,8 @@ import numpy as np
 import pytest
 import torch
 
-from pfdbench import program, traffic, weights
+from pfdbench import traffic, weights
+from pfdbench.entries import serving
 from pfdbench.reference import canny
 from pfdbench.reference.model import Reference, ddim_rows, turbo_schedule
 from pfdbench.tests import tiny
@@ -51,15 +52,14 @@ def test_reference_matches_the_program_in_fp32(case):
     img = traffic.reference_image(rng, 64)
     hint_img = traffic.hint_image(rng, 64) if case == "canny" else None
     got = pipe.action_inference(img, hint_img, "canny", True, 64, 64, 2.0, 123)[0]
-    x = program.start_latent(123, 1, 64, "cpu")
+    x = serving.start_latent(123, 1, 64, "cpu")
     hints = None
     if hint_img is not None:
         hints = torch.as_tensor(canny.hint(hint_img)).permute(2, 0, 1)[None]
     want = ref.generate(torch.as_tensor(img).permute(2, 0, 1)[None], x, hints, scale=2.0,
                         steps=10, phases=phases)[0].permute(1, 2, 0).numpy()
     if case == "int8":
-        from pfdbench.run import image_err
-        assert image_err(got, want) < 0.03
+        assert serving.image_err(got, want) < 0.03
     else:
         assert np.abs(got - want).max() < 2e-5
     assert want.std() > 0.05

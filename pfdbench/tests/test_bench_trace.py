@@ -1,6 +1,10 @@
 """Reading a trace: the kernels told apart by name, busy time and idle gaps,
-and the per-layer readers on a made-up trace (a roofline share, and none
-where the launches are not the expected ones)."""
+the profiler's copies of user annotations left out, and the per-layer
+readers on a made-up trace (a roofline share, and none where the launches
+are not the expected ones; the training cell's exposed NCCL time and FP32
+share of peak)."""
+
+from types import SimpleNamespace
 
 from pfdbench import metrics, run, trace, work
 
@@ -59,3 +63,38 @@ def test_readers():
     from pfdbench.metrics import idle_ms_per_req, idle_share
     assert abs(idle_share.read(ctx) - 70.0) < 1e-9
     assert abs(idle_ms_per_req.read(ctx) - (35e-3 + 35e-3) / 2) < 1e-12
+
+
+def _event(name, start, end, device, annotation=False):
+    return SimpleNamespace(name=name, time_range=SimpleNamespace(start=start, end=end),
+                           device_type=SimpleNamespace(name=device),
+                           is_user_annotation=annotation)
+
+
+def test_annotation_copies_are_no_device_work():
+    prof = SimpleNamespace(events=lambda: [
+        _event("pfdbench.request", 0.0, 100.0, "CPU", True),
+        _event("pfdbench.request", 0.0, 100.0, "CUDA", True),
+        _event("Optimizer.step#AdamW.step", 10.0, 90.0, "CUDA", True),
+        _event("nccl:all_reduce", 40.0, 60.0, "CUDA", True),
+        _event("ncclDevKernel_AllReduce_Sum_f32_RING_LL", 41.0, 59.0, "CUDA"),
+        _event(K1, 10.0, 20.0, "CUDA")])
+    t = trace.from_profiler(prof, [], (0.0, 100.0))
+    assert [n for n, _, _ in t.device] == [K1, "ncclDevKernel_AllReduce_Sum_f32_RING_LL"]
+    assert [n for n, _, _ in t.host] == ["pfdbench.request"]
+    assert abs(t.busy_s() - 28e-6) < 1e-12
+
+
+def test_training_readers():
+    from pfdbench.metrics import allreduce_exposed_ms_per_step, mfu_fp32
+    dev = [("ncclDevKernel_AllReduce", 100.0, 200.0), ("gemm", 150.0, 170.0),
+           ("ncclDevKernel_AllGather", 190.0, 260.0), ("gemm", 250.0, 300.0),
+           ("ncclDevKernel_AllGather", 400.0, 410.0)]
+    t = trace.Trace(dev, [], [(0.0, 500.0), (500.0, 1000.0)], (0.0, 1000.0))
+    ctx = run.TraceContext(t, [], work.PEAK_FP32 * 100e-6, 2, 16)
+    # NCCL over 100-260 and 400-410, other kernels over 150-170 and 250-300:
+    # 50 + 80 + 0 + 10 us bare, over 2 steps
+    assert abs(allreduce_exposed_ms_per_step.read(ctx) - 70e-3) < 1e-12
+    assert abs(mfu_fp32.read(ctx) - 20.0) < 1e-9
+    bare = trace.Trace(dev[1:2], [], [(0.0, 1000.0)], (0.0, 1000.0))
+    assert allreduce_exposed_ms_per_step.read(run.TraceContext(bare, [], 1.0, 1, 8)) is None

@@ -1,7 +1,8 @@
 """The benchmark's counts of work: the model FLOPs against PyTorch's FLOP
 counter on the reference at two shapes each, the kernels' operations, bytes
 and bounds against hand counts, and the launch arithmetic against the smoke
-test's ``LaunchPlan`` on the program's own model for each cell's schedule."""
+test's ``LaunchPlan`` on the program's own model for each cell's schedule
+(a training step's: the batcher's one VAE encode, phase 15's K1 a batch)."""
 
 import pytest
 import torch
@@ -13,6 +14,8 @@ from pfdbench.tests import tiny
 
 torch.set_num_threads(2)
 BENCH = run.load_json(run.ROOT / "BENCHMARK.json")
+HELD = run.load_json(run.HERE / "held_back.json")
+CELLS = {w["name"]: w for w in BENCH["workloads"] + HELD["workloads"]}
 
 
 def _flops(fn, *args):
@@ -80,15 +83,40 @@ def test_kernel_counts_by_hand():
                              ("conv", 320, 320, 64, 64, 1, 1, False)], 1) == []
 
 
-@pytest.mark.parametrize("name", [w["name"] for w in BENCH["workloads"]])
+def _train_launches(t):
+    """A step's calls against the program's VAE encoder: one mid-block
+    attention an encode, at the mix's size (the tiny VAE's map at 64^2
+    scaled up; the CPU holds no 512^2 attention of a whole batch)."""
+    from pfd_tpu_torch.models.build import build_model
+    from pfd_tpu_torch.policy import FP32
+
+    from pfdbench.entries import train
+
+    net = build_model(tiny.PFD, policy=FP32, device="cpu")
+    seen = []
+    net.vae["image"].encoder.mid.attn_1.register_forward_pre_hook(
+        lambda m, a: seen.append(tuple(a[0].shape)))
+    with torch.no_grad():
+        net.vae_encode(torch.rand(2, 3, 64, 64), "image",
+                       generator=torch.Generator().manual_seed(0), sample=True)
+    (_, c, h, w), = seen
+    calls = train.kernel_calls(tiny.PFD, t)
+    k = t["size"] // 64
+    assert work.launches(calls) == {"flash_attention": 1}
+    assert calls[0].shape == (t["batch"], 1, h * w * k * k, h * w * k * k, c)
+
+
+@pytest.mark.parametrize("name", list(CELLS))
 def test_launches_match_the_launch_plan(name):
     import chip_smoke
     from pfd_tpu_torch.models.build import build_model
     from pfd_tpu_torch.ops import quant
     from pfd_tpu_torch.policy import FP32
 
-    cell = run.cell_of(BENCH, name)
+    cell = CELLS[name]
     t = traffic.load(cell["traffic"])
+    if t["entry"] == "train":
+        return _train_launches(t)
     req = work.request_of(t)
     net = build_model(tiny.PFD_CTL, policy=FP32, device="cpu")
     if req.int8:
@@ -116,3 +144,6 @@ def test_full_width_counts():
     assert launches["h"] == {"flash_attention": 193, "cross_attention": 192}
     assert launches["i"] == {"flash_attention_pv8": 192, "cross_attention": 192,
                              "conv_int8": 639, "flash_attention": 1}
+    from pfdbench.entries import train
+    step = train.kernel_calls(cfg, traffic.load("train-dp2sp2-fp32"))
+    assert [c.shape for c in step] == [(8, 1, 4096, 4096, 512)]

@@ -48,11 +48,40 @@ TURBO_PHASES = [[4, 2], [6, 3]]
 LIMITS = {"bf16": 0.04, "int8": 0.12}
 
 
+# the training cell's limits at these sizes, set as the cell's are: sound runs
+# of the program on 4 CPU ranks read batch_err 0.011-0.013, loss_err and
+# grad_norm_err up to 1.2e-7, grad1_leaf_err up to 6.5e-7, delta_leaf_err
+# 1.5e-5-4.0e-5, ema_leaf_err 1.1e-5-4.4e-5; the control (bf16-rounded
+# gradients, float8 encoders) 0.146-0.155, ~1e-7 (no TF32 on the CPU: its loss
+# moves by rounding alone), 4.3e-5-1.3e-4, 6.8e-4-9.5e-4, 1.4e-4-2.4e-4 and
+# 1.7e-4-2.8e-4; the EMA without its warm-up decay reads ema_leaf_err 1
+TRAIN_LIMITS = {"batch_err": 0.04, "loss_err": 2e-5, "grad_norm_err": 2e-5,
+                "grad1_leaf_err": 1e-4, "delta_leaf_err": 1e-4, "ema_leaf_err": 1e-4}
+
+
 def overrides(cell, traffic, **kw):
     """``run.run``'s overrides of ``cell`` at the tiny sizes."""
+    if traffic["entry"] == "train":
+        return {"model": copy.deepcopy(MODELS[cell["config"]]),
+                "traffic": dict({"size": 64, "trace_requests": 1}, **kw), "limits": TRAIN_LIMITS}
     t = dict(TRAFFIC, **kw)
     if traffic.get("phases"):
         t["phases"] = TURBO_PHASES
     t["trace_requests"] = 1
     return {"model": copy.deepcopy(MODELS[cell["config"]]), "traffic": t,
             "limits": {"image_err": LIMITS[traffic["mode"]]}}
+
+
+def die_on_rank_2():
+    """A rank that fails at its set-up (``run.run``'s ``plant``)."""
+    import os
+    if os.environ.get("RANK") == "2":
+        raise RuntimeError("rank 2 fails at its set-up")
+
+
+def hang_on_rank_1():
+    """A rank that never gets to its set-up."""
+    import os
+    import time
+    while os.environ.get("RANK") == "1":
+        time.sleep(1.0)

@@ -136,14 +136,18 @@ class Trace:
 
 
 def from_profiler(prof, requests, window):
-    """A ``Trace`` from a stopped ``torch.profiler.profile``."""
+    """A ``Trace`` from a stopped ``torch.profiler.profile``. The profiler
+    copies each user annotation (the benchmark's spans, ``torch.optim``'s and
+    ``torch.distributed``'s records) onto the device's timeline, where it
+    would read as device activity over all it spans, gaps included: those
+    copies are left out."""
     device, host = [], []
     for ev in prof.events():
         tr = ev.time_range
         rec = (ev.name, float(tr.start), float(tr.end))
         if ev.device_type.name != "CUDA":
             host.append(rec)
-        elif not ev.name.startswith(SPAN_PREFIX):  # a span's copy on the device's timeline
+        elif not (getattr(ev, "is_user_annotation", False) or ev.name.startswith(SPAN_PREFIX)):
             device.append(rec)
     device.sort(key=lambda r: r[1])
     return Trace(device, host, list(requests), tuple(window))

@@ -28,6 +28,7 @@ from pfdbench.reference.unet import build_plan
 # NVIDIA H100 SXM data sheet, dense
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
+PEAK_FP32 = 67e12          # float32 outside the tensor cores
 PEAK_BYTES = 3.35e12
 
 KERNEL_MIN_S = 1024        # sequence length from which attention runs the kernels
@@ -334,6 +335,14 @@ def _conv_calls(blocks, b):
         nbytes = b * cin * hin * win + cout * cin * taps * (4 if up else 1) + 4 * b * cout * h * w
         out.append(Call("conv_int8", (b, cin, cout, h, w, k, stride, up), 0, ops, nbytes))
     return out
+
+
+def vae_encoder_calls(cfg, size, n):
+    """[Call] of the VAE encode of ``n`` ``size``^2 images: the encoder's
+    mid-block attention, at the latent's resolution."""
+    dd = dict(cfg["args"]["vae_cfg_list"])["image"]["args"]["ddconfig"]
+    lat = size >> (len(dd["ch_mult"]) - 1)
+    return _attn_calls([("vae_attn", dd["ch"] * dd["ch_mult"][-1], 1, lat, lat)], n, 0, False)
 
 
 def kernel_work(cfg, req):
