@@ -1274,12 +1274,12 @@ def compiled_hot_path(card, pipe, pipe8, ref, hint_src, lp, lp8, eager, full8):
         return len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
 
     def capture(p, label, with_control, steps=50):
-        n0 = len(p._ctx_graph.stats)
+        n0 = len(p.context_graph().stats)
         _, dt = _synced(p.warmup, batch=p.n_sample_image, with_control=with_control,
                         steps=steps)
         st = p._graphs[(512, 512, p.n_sample_image, with_control, steps, 0.0)].stats[0]
         cost[label] = {"warmup_call_s": dt, **st,
-                       **({"seecoder": p._ctx_graph.stats[0]} if n0 == 0 else {})}
+                       **({"seecoder": p.context_graph().stats[0]} if n0 == 0 else {})}
         print(f"graph bucket {label}: {json.dumps(cost[label])} ({card})", flush=True)
 
     def replay(p, label, want_launches, steps=50, imctl=None, ugscale=2.0, want=None):
@@ -1382,15 +1382,15 @@ def compiled_hot_path(card, pipe, pipe8, ref, hint_src, lp, lp8, eager, full8):
         replay(pipe, "J", lp.expected(control=True, phases=ph_j), imctl=hint_src)
         # SeeCoder-PA rebuilds the context encoder: its graph goes, the
         # bucket's stays; last, since the rebuilt encoder has new weights
-        ctx_graph = pipe._ctx_graph
+        ctx_graph = pipe.context_graph()
         pipe.action_load_ctx("SeeCoder-PA")
-        if pipe._ctx_graph is ctx_graph:
+        if pipe.context_graph() is ctx_graph:
             raise AssertionError("graphs: the SeeCoder-PA swap kept the old SeeCoder graph")
         want = eager_request(pipe, ref, 42, 50, hint_src)[:1]
         replay(pipe, "J with SeeCoder-PA", lp.expected(control=True, phases=ph_j),
                imctl=hint_src, want=want)
         print(f"graphs: SeeCoder-PA swap captured SeeCoder anew "
-              f"{json.dumps(pipe._ctx_graph.stats)}; J's bucket replayed to its eager twin",
+              f"{json.dumps(pipe.context_graph().stats)}; J's bucket replayed to its eager twin",
               flush=True)
     # int8: D, a swap, E (K5), G with the hint, I, then b8 x 50 ph8x2_42x21
     capture(pipe8, "D", False)

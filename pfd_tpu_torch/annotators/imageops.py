@@ -126,6 +126,23 @@ def resize_weights(n_in: int, n_out: int, method: str, antialias: bool = True) -
     return np.ascontiguousarray(np.where(inside[None, :], w, f32(0)).T.astype(f32))
 
 
+_WEIGHTS = {}  # resize_weights' matrices on a CUDA device, uploaded once
+
+
+def _weights_on(n_in, n_out, method, antialias, like):
+    """``resize_weights`` as a tensor on ``like``'s device and dtype; on a
+    CUDA device uploaded once and kept, so that a CUDA graph that resizes
+    copies nothing from the host."""
+    key = (n_in, n_out, method, antialias, str(like.device), like.dtype)
+    if key in _WEIGHTS:
+        return _WEIGHTS[key]
+    w = torch.from_numpy(resize_weights(n_in, n_out, method, antialias)).to(like.device,
+                                                                             like.dtype)
+    if like.device.type == "cuda":
+        _WEIGHTS[key] = w
+    return w
+
+
 def resize(t: torch.Tensor, size: tuple[int, int], method: str = "linear",
            antialias: bool = True) -> torch.Tensor:
     """``jax.image.resize`` of a float tensor's last two (spatial) axes to
@@ -133,11 +150,9 @@ def resize(t: torch.Tensor, size: tuple[int, int], method: str = "linear",
     does not change left as it is (as JAX skips it)."""
     h, w = int(size[0]), int(size[1])
     if t.shape[-2] != h:
-        wh = torch.from_numpy(resize_weights(t.shape[-2], h, method, antialias))
-        t = torch.matmul(wh.to(t.device, t.dtype), t)
+        t = torch.matmul(_weights_on(t.shape[-2], h, method, antialias, t), t)
     if t.shape[-1] != w:
-        ww = torch.from_numpy(resize_weights(t.shape[-1], w, method, antialias))
-        t = torch.matmul(t, ww.to(t.device, t.dtype).T)
+        t = torch.matmul(t, _weights_on(t.shape[-1], w, method, antialias, t).T)
     return t
 
 

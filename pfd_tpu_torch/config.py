@@ -280,3 +280,74 @@ register_config("openai_unet_sd", {
         "legacy": False,
     },
 })
+
+
+# ---------------------------------------------------------------------------
+# Versatile Diffusion four-flow v1.0 (SHI-Labs/Versatile-Diffusion,
+# arXiv:2211.08332): the model Prompt-Free Diffusion is measured against.
+# Its dual-guided image generation walks the image UNet's data blocks and,
+# at each of the 16 attention blocks, mixes the image UNet's
+# SpatialTransformer over the CLIP-image context with the text UNet's over
+# the CLIP-text context (``PromptFreeDiffusion.apply_model_multicontext``).
+# ---------------------------------------------------------------------------
+
+register_config("clip_image_context_encoder", {
+    # Versatile-Diffusion configs/model/clip.yaml clip_image_context_encoder:
+    # openai/clip-vit-large-patch14's vision tower (ViT-L/14 at 224^2: 24
+    # layers of width 1024, 16 heads, 257 tokens) and its visual projection
+    # to 768, the encoder's published defaults
+    "symbol": "clip",
+    "type": "clip_image_context_encoder",
+    "args": {"hidden": 1024, "layers": 24, "heads": 16, "patch": 14, "image_size": 224,
+             "intermediate": 4096, "projection_dim": 768},
+})
+
+register_config("clip_text_context_encoder", {
+    # Versatile-Diffusion configs/model/clip.yaml clip_text_context_encoder:
+    # openai/clip-vit-large-patch14's text tower (12 layers of width 768, 12
+    # heads, 77 tokens) and its text projection to 768
+    "symbol": "clip",
+    "type": "clip_text_context_encoder",
+    "args": {"vocab": 49408, "hidden": 768, "layers": 12, "heads": 12, "intermediate": 3072,
+             "max_length": 77, "projection_dim": 768},
+})
+
+register_config("openai_unet_2d_next", {
+    # Versatile-Diffusion configs/model/openai_unet.yaml openai_unet_2d_next:
+    # the SD-1.5 widths in the data/context split layout
+    "super_cfg": "openai_unet_2d_v1",
+})
+
+register_config("openai_unet_0d_next", {
+    # Versatile-Diffusion configs/model/openai_unet.yaml openai_unet_0d_next:
+    # the text-flow diffuser over 768-wide vectors, [C, 4] sequences, its 16
+    # context blocks at the image UNet's widths (320/640/1280, 8 heads)
+    "symbol": "unet",
+    "type": "openai_unet_0d_next",
+    "args": {
+        "input_channels": 768,
+        "model_channels": 320,
+        "output_channels": 768,
+        "num_noattn_blocks": [2, 2, 2, 2],
+        "channel_mult": [1, 2, 4, 4],
+        "second_dim": [4, 4, 4, 4],
+        "with_attn": [True, True, True, False],
+        "num_heads": 8,
+        "context_dim": 768,
+    },
+})
+
+register_config("vd_four_flow", {
+    # Versatile-Diffusion configs/model/vd.yaml vd_four_flow_v1-0 (over
+    # vd_base's schedule, pfd_base's here). Left out: the text VAE
+    # (optimus_vae_next), which only the flows that output text run.
+    "super_cfg": "pfd_base",
+    "args": {
+        "vae_cfg_list": [["image", "MODEL(autokl_v2)"]],
+        "ctx_cfg_list": [["image", "MODEL(clip_image_context_encoder)"],
+                         ["text", "MODEL(clip_text_context_encoder)"]],
+        "diffuser_cfg_list": [["image", "MODEL(openai_unet_2d_next)"],
+                              ["text", "MODEL(openai_unet_0d_next)"]],
+        "latent_scale_factor": {"image": 0.18215},
+    },
+})

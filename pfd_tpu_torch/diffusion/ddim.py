@@ -11,10 +11,12 @@ ahead by :meth:`DDIMSampler.eta_noise` (a captured graph draws nothing):
 torch cannot replay ``jax.random``, so the tests pass the start latent
 (and the img2img noise) in explicitly.
 
-``sample_multicontext`` (ddim.py:75-140) samples over several context
-streams mixed per context block (``apply_model_multicontext``), one
-guidance scale shared by all; its ``"layer"`` pathways and its noise come
-from the caller's generator or are passed in (``multicontext_draws``).
+Several context streams mixed per context block
+(``apply_model_multicontext``), one guidance scale shared by all, run
+through ``sample_fn``'s exact steps (``c_info['contexts']``), graphed or
+eager. ``sample_multicontext`` (ddim.py:75-140) adds what it alone does: the
+start latent, the ``"layer"`` pathways and the noise drawn from the caller's
+generator or passed in (``multicontext_draws``).
 
 The guidance scale is a Python number or a 0-d fp32 tensor on the
 latent's device (an input of a captured graph, as ``pfd_tpu`` traces it);
@@ -177,8 +179,9 @@ class DDIMSampler:
         ``generator`` (on its device unless ``device`` is given); then ``choices`` (row i: step i's ``"layer"``
         pathways) and ``eta_noise`` (row i: step i's normals) where given,
         else ``multicontext_draws`` from ``generator``. With no CFG eps is
-        not scaled (unlike ``sample_fn``'s quirk). Returns (final latent,
-        {'pred_x0': the last x0 estimate})."""
+        not scaled (unlike ``sample_fn``'s quirk). The loop is
+        ``sample_fn``'s over the contexts (``c_info['contexts']``). Returns
+        (final latent, {'pred_x0': the last x0 estimate})."""
         tables = self.make_tables(steps, eta)
         scales = {float(ci["unconditional_guidance_scale"]) for ci in c_info_list}
         if len(scales) != 1:
@@ -199,43 +202,50 @@ class DDIMSampler:
                                             mixing_type, generator, x.device, x_type)
             choices = drawn[0] if choices is None else choices
             eta_noise = drawn[1] if eta_noise is None else eta_noise
-        if use_cfg:
-            ci_list = [{"type": ci["type"], "ratio": ci["ratio"],
-                        "c": torch.cat([ci["unconditional_conditioning"], ci["conditioning"]])}
-                       for ci in c_info_list]
-        else:
-            ci_list = [{"type": ci["type"], "ratio": ci["ratio"], "c": ci["conditioning"]}
-                       for ci in c_info_list]
-        b = x.shape[0]
-        pred_x0 = None
-        for i, row in enumerate(rows):
-            ts = torch.full((b,), int(row[0]), dtype=torch.long, device=x.device)
-            x_in, t_in = (torch.cat([x, x]), torch.cat([ts, ts])) if use_cfg else (x, ts)
-            e = self.model.apply_model_multicontext(
-                {"type": x_type, "x": x_in}, t_in, ci_list, mixing_type,
-                choices=None if choices is None else choices[i],
-                self_attn_fn=self_attn_fn).float()
-            if use_cfg:
-                e_uc, e_c = e.chunk(2, dim=0)
-                e = e_uc + scale * (e_c - e_uc)
-            x_prev, pred_x0 = ddim_step(x, row, e)
-            if eta_noise is not None:
-                x_prev = x_prev + float(row[4]) * eta_noise[i] * temperature
-            x = x_prev.to(x.dtype)
-        return x, {"pred_x0": pred_x0}
+        # without CFG no unconditional context: sample_fn's eps * scale is
+        # then eps * 1, the same numbers
+        contexts = [{"type": ci["type"], "ratio": ci["ratio"], "conditioning": ci["conditioning"],
+                     "unconditional_conditioning": (ci["unconditional_conditioning"]
+                                                    if use_cfg else None)}
+                    for ci in c_info_list]
+        return self.sample_fn(x, {"contexts": contexts, "unconditional_guidance_scale": scale},
+                              tables, temperature=temperature, x_type=x_type,
+                              mixing_type=mixing_type, choices=choices, eta_noise=eta_noise,
+                              self_attn_fn=self_attn_fn)
 
     def sample_fn(self, x, c_info, tables, n_steps=None, *, generator=None,
                   temperature=1.0, noise_dropout=0.0, x_type="image", c_type="image",
                   self_attn_fn=None, encoder_interval=1, cfg_interval=1, deep_interval=1,
                   cfg_extrapolate="const", phases=None, reuse_self_attn_fn=None,
-                  eta_noise=None):
+                  eta_noise=None, mixing_type="attention", choices=None):
         """The DDIM loop over the first ``n_steps`` (default all) steps of
         ``tables``, last to first, in the mode the turbo arguments pick
         (module docstring). Draws (eta > 0) come from ``generator``, or the
-        normal draws from ``eta_noise`` (:meth:`eta_noise`), row i at step i."""
+        normal draws from ``eta_noise`` (:meth:`eta_noise`), row i at step i.
+
+        ``c_info['contexts']``, in place of ``'conditioning'`` and
+        ``'unconditional_conditioning'``: several context streams
+        [{'type', 'conditioning', 'unconditional_conditioning' (None for
+        all of them: no CFG), 'ratio'}], each step's model the
+        ``apply_model_multicontext`` of ``mixing_type``; ``"layer"`` takes
+        step i's pathways from row i of ``choices``. Exact steps only: a turbo
+        argument or a hint with several contexts raises."""
         model = self.model
-        cond = c_info["conditioning"]
-        uncond = c_info.get("unconditional_conditioning")
+        contexts = c_info.get("contexts")
+        if contexts is not None:
+            cond = None
+            uncond = contexts[0]["unconditional_conditioning"]
+            if any((ci["unconditional_conditioning"] is None) != (uncond is None)
+                   for ci in contexts):
+                raise ValueError("give every context an unconditional context, or none")
+            turbo = (encoder_interval, cfg_interval, deep_interval) != (1, 1, 1)
+            if turbo or phases is not None or reuse_self_attn_fn is not None or (
+                    c_info.get("control") is not None):
+                raise ValueError("several contexts are sampled in exact steps, without a hint")
+        else:
+            cond = c_info["conditioning"]
+            uncond = c_info.get("unconditional_conditioning")
+        picks = iter(choices) if choices is not None else None
         scale = c_info.get("unconditional_guidance_scale", 1.0)
         if torch.is_tensor(scale):
             scale_m1 = scale - 1.0
@@ -253,10 +263,14 @@ class DDIMSampler:
         if control is not None and control_mask is not None:
             ci_cond["control_mask"] = torch.as_tensor(control_mask, device=x.device)
         ci_full = ci_cond
-        if use_cfg:
+        if use_cfg and contexts is None:
             ci_full = {k: v if k == "type" else torch.cat([v, v])
                        for k, v in ci_cond.items() if k != "c"}
             ci_full["c"] = torch.cat([uncond, cond], dim=0)
+        if contexts is not None:
+            ci_mixed = [{"type": ci["type"], "ratio": ci["ratio"],
+                         "c": (torch.cat([ci["unconditional_conditioning"], ci["conditioning"]])
+                               if use_cfg else ci["conditioning"])} for ci in contexts]
         has_control = control is not None
 
         n_steps = len(tables.timesteps) if n_steps is None else int(n_steps)
@@ -301,8 +315,13 @@ class DDIMSampler:
         @span("step")
         def exact_step(xt, row):
             x_in, t_in = doubled(xt, step_ts(row))
-            e = model.apply_model({"type": x_type, "x": x_in}, t_in, ci_full,
-                                  self_attn_fn=self_attn_fn)
+            if contexts is None:
+                e = model.apply_model({"type": x_type, "x": x_in}, t_in, ci_full,
+                                      self_attn_fn=self_attn_fn)
+            else:
+                e = model.apply_model_multicontext(
+                    {"type": x_type, "x": x_in}, t_in, ci_mixed, mixing_type,
+                    choices=None if picks is None else next(picks), self_attn_fn=self_attn_fn)
             return update(xt, row, guide(e))
 
         def cfg_reuse(x, rows, k, use_enc_cache, use_deep):

@@ -40,6 +40,11 @@ antialiased Keys cubic for the image, the triangle for the mask), and keep
 ``pfd_tpu``'s mask arithmetic verbatim, quirks included (the OpenCLIP one
 pools the inverted mask and zeroes the cls token).
 
+Every encoder runs under the ``clip`` span (``SPAN``) when
+``PromptFreeDiffusion.ctx_encode`` calls it. The image encoders' resize
+matrices and normalisation constants are uploaded once a device, so a
+tower captures into a CUDA graph (``ops/graphs.py``) as it is.
+
 ``init_clip_text``, ``init_clip_vision``, ``init_openclip_text`` and
 ``init_openclip_visual`` draw ``pfd_tpu``'s pytrees with numpy (the
 structure and distributions of ``pfd_tpu``'s inits, whose HF text tower has
@@ -62,6 +67,11 @@ from pfd_tpu_torch.training import lora
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+# CLIP's start- and end-of-text ids (its tokenizer pads with the latter)
+BOS, EOS = 49406, 49407
+# the span (``utils/profiling.py``) a CLIP tower runs under in
+# ``PromptFreeDiffusion.ctx_encode``
+SPAN = "clip"
 # the files a string prompt needs: open_clip's merges, or HF's vocabulary
 # and merges of openai/clip-vit-large-patch14
 BPE_VOCABULARY = ("bpe_simple_vocab_16e6.txt.gz (open_clip), or vocab.json and merges.txt "
@@ -266,6 +276,8 @@ def _run_blocks(x, blocks, n, heads, act, bias=None):
 class _OpenCLIPText(nn.Module):
     """The OpenCLIP text tower's parameters (``init_openclip_text``)."""
 
+    span_name = SPAN
+
     def __init__(self, num_layers, width, vocab, n_ctx, embed_dim):
         super().__init__()
         self.token_embedding = nn.Embedding(vocab, width)
@@ -291,6 +303,8 @@ class _OpenCLIPText(nn.Module):
 class CLIPTextContextEncoderSDv1(nn.Module):
     """SD-v1 CLIP text conditioning: the final-LN hidden states of every
     token (clip.py:40-73)."""
+
+    span_name = SPAN
 
     def __init__(self, version="openai/clip-vit-large-patch14", max_length=77, heads=12,
                  act="quick_gelu", policy=None, vocab=49408, hidden=768, layers=12,
@@ -335,13 +349,21 @@ class CLIPTextContextEncoder(CLIPTextContextEncoderSDv1):
         return z / torch.linalg.vector_norm(z_pooled[:, None, :], dim=-1, keepdim=True)
 
 
+_NORM = {}  # device -> the CLIP mean and std as (1, 3, 1, 1) tensors on it
+
+
 def _clip_preprocess(images, n, device):
     """NCHW [0, 1] images -> CLIP-normalised (B, 3, n, n): ``jax.image.resize``'s
-    antialiased bicubic (Keys a = -0.5), then the CLIP mean and std."""
+    antialiased bicubic (Keys a = -0.5), then the CLIP mean and std. The
+    constants are uploaded once a device, so a captured graph copies
+    nothing from the host."""
     x = torch.as_tensor(images, device=device).float()
     x = resize(x, (n, n), "cubic")
-    mean = torch.tensor(CLIP_MEAN, device=device)[None, :, None, None]
-    std = torch.tensor(CLIP_STD, device=device)[None, :, None, None]
+    key = str(device)
+    if key not in _NORM:
+        _NORM[key] = tuple(torch.tensor(v, device=device)[None, :, None, None]
+                           for v in (CLIP_MEAN, CLIP_STD))
+    mean, std = _NORM[key]
     return (x - mean) / std
 
 
@@ -360,6 +382,7 @@ class CLIPImageContextEncoder(nn.Module):
     (clip.py:205-275)."""
 
     position_agnostic = False
+    span_name = SPAN
 
     def __init__(self, version="openai/clip-vit-large-patch14", heads=16, act="quick_gelu",
                  image_size=224, policy=None, hidden=1024, layers=24, patch=14,
@@ -426,6 +449,7 @@ class CLIPTextSD1CE(nn.Module):
     ``cembedding`` and mask 1."""
 
     special_token = "<new_token>"
+    span_name = SPAN
 
     def __init__(self, replace_info="token_embedding|4",
                  version="openai/clip-vit-large-patch14", max_length=77, policy=None,
@@ -646,6 +670,8 @@ class OpenCLIPImageEmbedder(nn.Module):
     every token, the projection, scaled by the cls token's norm
     (clip.py:622-706). With masks, ``pfd_tpu``'s quirk: the inverted mask
     is pooled into the token weights and the cls token zeroed."""
+
+    span_name = SPAN
 
     def __init__(self, arch="ViT-H-14", version=None, width=1280, layers=32, heads=16,
                  patch=14, image_size=224, embed_dim=1024, act="gelu", policy=None, **kw):

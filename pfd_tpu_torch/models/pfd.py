@@ -27,10 +27,13 @@ before anything else reads it (``distributed.reduce_out``: the rest is
 replicated over the axis), so the loss and the VLB term are the whole
 latent's on every rank of the axis.
 
-Spans (``utils/profiling.py``): ``ctx_encode`` is ``pfd.seecoder``,
-``vae_decode`` ``pfd.vae_decode``, ``apply_model`` and each split forward of
-the turbo samplers ``pfd.unet``, and the ControlNet's residuals
-``pfd.controlnet`` (inside ``pfd.unet``), each also marked on the device.
+Spans (``utils/profiling.py``): ``ctx_encode`` is ``pfd.seecoder`` (a CLIP
+tower's ``pfd.clip``), ``vae_decode`` ``pfd.vae_decode``, ``apply_model``,
+``apply_model_multicontext`` and each split forward of the turbo samplers
+``pfd.unet``, the ControlNet's residuals ``pfd.controlnet`` (inside
+``pfd.unet``), and in the multi-context walk each context's block
+``pfd.context_<type>`` (inside ``pfd.unet``), each also marked on the device
+(the context spans for the types "image" and "text").
 
 ``apply_model_multicontext`` (pfd.py:246-317) mixes several context
 streams per context block: ``"attention"`` sums every context's block
@@ -99,14 +102,18 @@ class PromptFreeDiffusion(nn.Module):
             z = z / scale
         return self.vae[which].decode(z)
 
-    @span("seecoder")
     def ctx_encode(self, x, which="image", **kwargs):
         """NCHW image in [0, 1] -> (B, 148, 768) SeeCoder tokens (or any
-        registered context encoder's; ``kwargs`` such as ``masks`` pass
-        through, pfd.py:103-108)."""
+        registered context encoder's: a CLIP tower's from an image or token
+        ids; ``kwargs`` such as ``masks`` pass through, pfd.py:103-108), under
+        the encoder's span (its ``span_name``: ``clip`` for the CLIP towers;
+        ``seecoder`` for SeeCoder and any other)."""
         if which.startswith("vae_"):
-            return self.vae[which[4:]].encode(x, sample=False, **kwargs)
-        return self.ctx[which].encode(x, **kwargs)
+            with span("seecoder", x if torch.is_tensor(x) else None):
+                return self.vae[which[4:]].encode(x, sample=False, **kwargs)
+        enc = self.ctx[which]
+        with span(getattr(enc, "span_name", "seecoder"), x if torch.is_tensor(x) else None):
+            return enc.encode(x, **kwargs)
 
     def _extract(self, table, t, ndim):
         out = torch.as_tensor(table, dtype=torch.float32, device=t.device)[t]
@@ -184,8 +191,15 @@ class PromptFreeDiffusion(nn.Module):
 
     @staticmethod
     def mix_ratios(c_info_list):
-        """The contexts' ratios normalised to sum 1, in fp32 as ``pfd_tpu``'s."""
-        r = np.array([ci["ratio"] for ci in c_info_list], np.float32)
+        """The contexts' ratios normalised to sum 1, in fp32 as ``pfd_tpu``'s:
+        a numpy array, or a tensor on their device where any ratio is a
+        tensor (an input of a captured graph)."""
+        rs = [ci["ratio"] for ci in c_info_list]
+        dev = next((r.device for r in rs if torch.is_tensor(r)), None)
+        if dev is None:
+            r = np.array(rs, np.float32)
+        else:
+            r = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=dev) for v in rs])
         return r / r.sum()
 
     def choose_pathways(self, c_info_list, generator=None, device=None, x_type="image"):
@@ -197,6 +211,7 @@ class PromptFreeDiffusion(nn.Module):
         return torch.multinomial(p, self.context_block_count(x_type), replacement=True,
                                  generator=generator)
 
+    @span("unet")
     def apply_model_multicontext(self, x_info, timesteps, c_info_list,
                                  mixing_type="attention", *, choices=None, generator=None,
                                  self_attn_fn=None):
@@ -207,7 +222,10 @@ class PromptFreeDiffusion(nn.Module):
         value ``pfd_tpu``'s ``lax.switch`` over every branch selects.
         ``"attention"`` forms the weighted sum in fp32 and casts it back to
         the compute dtype, so the walk stays in it (``pfd_tpu``'s fp32
-        ratios would promote a bf16 walk to fp32 from the first block on)."""
+        ratios would promote a bf16 walk to fp32 from the first block on).
+        The walk is the span ``unet``; each context's block runs inside it
+        under ``context_<type>`` (device spans for "image" and "text"), its
+        weighting and the sum in ``unet``'s own time."""
         x_type, x = x_info["type"], x_info["x"]
         if mixing_type not in ("attention", "layer"):
             raise ValueError(mixing_type)
@@ -222,13 +240,18 @@ class PromptFreeDiffusion(nn.Module):
             picks = [int(i) for i in (choices.tolist() if torch.is_tensor(choices)
                                       else np.asarray(choices).tolist())]
 
+        names = ["context_" + ci["type"] for ci in c_info_list]
+
+        def pathway(j, i, h):
+            with span(names[j], h):
+                return blocks[j][i][0](h, contexts[j], self_attn_fn=self_attn_fn)
+
         def run_context(i, h):
             if mixing_type == "layer":
-                j = picks[i]
-                return blocks[j][i][0](h, contexts[j], self_attn_fn=self_attn_fn)
+                return pathway(picks[i], i, h)
             mixed = None
-            for cb, c, r in zip(blocks, contexts, ratios):
-                o = cb[i][0](h, c, self_attn_fn=self_attn_fn).float() * float(r)
+            for j, r in enumerate(ratios):
+                o = pathway(j, i, h).float() * (r if torch.is_tensor(r) else float(r))
                 mixed = o if mixed is None else mixed + o
             return mixed.to(h.dtype)
 

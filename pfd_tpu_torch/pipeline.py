@@ -74,8 +74,27 @@ a SeeCoder-PA change, which rebuilds the context encoder and drops the
 SeeCoder graphs. ``sample_decode`` and ``encode_context`` are the eager
 bodies the graphs are held to. On the CPU the buckets run eagerly.
 
+Versatile Diffusion's dual-guided image generation (``config_override`` =
+``config.model_cfg("vd_four_flow")``: a CLIP image context, a CLIP text
+context, an image and a text diffuser): ``action_dual_guided(im, prompt,
+ratio, ...)`` takes one reference image, one prompt's CLIP token ids
+(``clip_prompt`` builds them from a prompt's tokens; a string raises, there
+being no BPE vocabulary here) and the image context's ratio. The towers run
+as graphs (``context_graph``), their unconditional pair (CLIP of a black
+image and of the empty prompt) once a shape and set of weights
+(``dual_contexts``), and the bucket is one graph of ``sample_decode`` over
+the contexts: at every context block the image diffuser's block over the
+image context at ``ratio`` plus the text diffuser's over the text context
+at 1 - ratio, the CFG DDIM loop's exact steps (``sample_fn``), the decode.
+Its key is the single-context key with the contexts' (type, tokens)
+appended; the ratios, like the guidance scale, are inputs of the graph. A
+pipeline built on a CLIP image context skips SeeCoder's set-up (the PA
+variant, SeeCoder checkpoints); its ``action_inference`` serves
+single-context requests on the CLIP image context.
+
 Spans (``utils/profiling.py``): a request is ``pfd.request``; inside it
-``pfd.context`` (the reference's upload and SeeCoder's graph),
+``pfd.context`` (the reference's upload and SeeCoder's graph; the CLIP
+towers' graphs and the unconditional pair),
 ``pfd.hint`` (the resize and the annotator), ``pfd.start_latent``, the
 bucket's ``pfd.replay`` and ``pfd.copy_out``.
 """
@@ -91,6 +110,7 @@ import torch
 from pfd_tpu_torch import annotators, config, zoo
 from pfd_tpu_torch.diffusion.ddim import DDIMSampler
 from pfd_tpu_torch.io import loader
+from pfd_tpu_torch.models import clip
 from pfd_tpu_torch.models.build import build_model
 from pfd_tpu_torch.ops import graphs
 from pfd_tpu_torch.ops import nn as ops_nn
@@ -145,7 +165,10 @@ class PromptFreeDiffusionPipeline:
             cfg = config.model_cfg("pfd_seecoder_with_controlnet" if with_control
                                    else "pfd_seecoder")
         self._ctx_cfg = dict(cfg["args"]["ctx_cfg_list"])["image"]
-        _set_pa(self._ctx_cfg, tag_ctx == "SeeCoder-PA")
+        # SeeCoder's own set-up (the PA variant) where the image context is SeeCoder
+        self._seecoder = self._ctx_cfg["type"] == "seecoder"
+        if self._seecoder:
+            _set_pa(self._ctx_cfg, tag_ctx == "SeeCoder-PA")
         self.net = build_model(cfg, policy=self.policy, device=self.device,
                                generator=self._generator())
         if quantized:
@@ -156,7 +179,10 @@ class PromptFreeDiffusionPipeline:
         # the compiled hot path (module docstring): one pool for every graph
         self._pool = graphs.GraphPool(self.device)
         self._graphs, self._graph_knobs = {}, None
-        self._ctx_graph = self._new_ctx_graph()
+        # the context encoders' graphs by encoder ("image", "text"), and the
+        # dual-guided request's unconditional contexts by (encoder, input
+        # shape), computed with the weights loaded last
+        self._ctx_graphs, self._uncond = {}, {}
         self.tag_ctx = self.tag_diffuser = self.tag_ctl = None
         self.action_load_ctx(tag_ctx)
         self.action_load_diffuser(tag_diffuser)
@@ -170,8 +196,10 @@ class PromptFreeDiffusionPipeline:
     def _load(self, module, sd):
         """Load the mapped checkpoint ``sd`` into ``module`` in place (each
         tensor cast to its parameter's dtype), its quantized layers from
-        codes of the loaded weights (``quant.quantize_state_dict``)."""
+        codes of the loaded weights (``quant.quantize_state_dict``). The
+        unconditional contexts cached from the old weights are dropped."""
         module.load_state_dict(quant.quantize_state_dict(module, sd), strict=True)
+        self._uncond.clear()
 
     def action_load_ctx(self, tag):
         """Swap the SeeCoder. The PA variant carries a PPE-MLP, so the
@@ -179,12 +207,16 @@ class PromptFreeDiffusionPipeline:
         changes, as ``pfd_tpu`` rebuilds its net (pipeline.py:137-157), and
         its graphs are dropped; a missing checkpoint file keeps the weights
         and only sets the tag."""
+        if not self._seecoder:  # a CLIP image context: no SeeCoder checkpoint applies
+            self.tag_ctx = tag
+            return tag
         pa = tag == "SeeCoder-PA"
         if pa != (self.net.ctx["image"].qtransformer.pe_layer is not None):
             _set_pa(self._ctx_cfg, pa)
             self.net.ctx["image"] = build_model(self._ctx_cfg, policy=self.policy,
                                                 device=self.device, generator=self._generator())
-            self._ctx_graph = self._new_ctx_graph()
+            self._ctx_graphs.pop("image", None)
+            self._uncond.clear()
         path = zoo.resolve(zoo.CTXENCODER_PATH.get(tag), self.root)
         if _exists(path):
             self._load(self.net.ctx, loader.ctx_sd_to_params(loader.load_sd_file(path)))
@@ -275,20 +307,30 @@ class PromptFreeDiffusionPipeline:
         return kw
 
     @torch.no_grad()
-    def sample_decode(self, c, u, x, ugscale, steps, control=None, eta_noise=None):
+    def sample_decode(self, c, u, x, ugscale, steps, control=None, eta_noise=None,
+                      contexts=None):
         """CFG DDIM from the NCHW start latent ``x`` with context ``c``,
         unconditional context ``u``, guidance scale ``ugscale`` (a number or
         a 0-d fp32 tensor) and, if given, the NCHW hint images ``control``
         (one per latent), in the pipeline's turbo mode, then the VAE decode
         -> NCHW in [0, 1]. For eta > 0, ``eta_noise`` holds the loop's draws
-        (``start_latent``); without it they come from torch's generator."""
+        (``start_latent``); without it they come from torch's generator.
+        ``contexts``, [(type, c, u, ratio)] in place of ``c`` and ``u``: the
+        contexts mixed per context block by ``apply_model_multicontext``'s
+        ``"attention"``, in exact steps (no turbo argument, no hint)."""
         tables = self.sampler.make_tables(steps, self.ddim_eta)
-        c_info = {"conditioning": c, "unconditional_conditioning": u,
-                  "unconditional_guidance_scale": ugscale}
+        kw = self.sampler_args(tuple(x.shape[2:]), control is not None)
+        c_info = {"unconditional_guidance_scale": ugscale}
+        if contexts is None:
+            c_info.update(conditioning=c, unconditional_conditioning=u)
+        else:
+            c_info["contexts"] = [{"type": kind, "conditioning": ci, "ratio": ratio,
+                                   "unconditional_conditioning": ui}
+                                  for kind, ci, ui, ratio in contexts]
+            kw = {k: kw[k] for k in ("self_attn_fn", "cfg_extrapolate")}
         if control is not None:
             c_info["control"] = control
-        x, _ = self.sampler.sample_fn(x, c_info, tables, eta_noise=eta_noise,
-                                      **self.sampler_args(tuple(x.shape[2:]), control is not None))
+        x, _ = self.sampler.sample_fn(x, c_info, tables, eta_noise=eta_noise, **kw)
         return self.net.vae_decode(x, "image")
 
     def _knobs(self):
@@ -298,27 +340,40 @@ class PromptFreeDiffusionPipeline:
                 None if self.phases is None else tuple(map(tuple, self.phases)),
                 self.kv_pool, self.kv_min_s, self.control_turbo)
 
-    def _sample_decode_fn(self, h, w, batch, has_control, steps, eta):
+    def _sample_decode_fn(self, h, w, batch, has_control, steps, eta, mixed=None):
         """The bucket's program (``pfd_tpu`` pipeline.py:210-266): a
         ``graphs.Graphed`` of ``sample_decode`` taking (c, u, x, scale,
-        control, eta_noise). Every bucket is dropped when a knob it bakes in
-        has changed since the buckets were made."""
+        control, eta_noise), keyed (h, w, batch, has_control, steps, eta).
+        ``mixed``, a tuple of (type, tokens) a context, makes it the bucket
+        of ``sample_decode`` over those contexts, taking (None, None, x,
+        scale, None, eta_noise, then c, u, ratio of each context), keyed
+        with ``mixed`` appended: the contexts and their lengths are baked
+        in, the ratios are inputs. Every bucket is dropped when a knob it
+        bakes in has changed since the buckets were made."""
         knobs = self._knobs()
         if knobs != self._graph_knobs:
             self._graphs.clear()
             self._graph_knobs = knobs
-        key = (h, w, batch, has_control, steps, eta)
+        key = (h, w, batch, has_control, steps, eta) + ((tuple(mixed),) if mixed else ())
         if key not in self._graphs:
-            def fn(c, u, x, scale, control, eta_noise):
-                return self.sample_decode(c, u, x, scale, steps, control, eta_noise)
+            kinds = [kind for kind, _ in mixed] if mixed else []
+
+            def fn(c, u, x, scale, control, eta_noise, *mix):
+                contexts = [(kind, *mix[3 * j:3 * j + 3]) for j, kind in enumerate(kinds)]
+                return self.sample_decode(c, u, x, scale, steps, control, eta_noise,
+                                          contexts or None)
 
             self._graphs[key] = graphs.Graphed(fn, self._pool)
         return self._graphs[key]
 
-    def _new_ctx_graph(self):
-        """SeeCoder as a ``graphs.Graphed``, one graph per reference shape
-        (``pfd_tpu``'s ``_ctx_encode_jit``, pipeline.py:269-271)."""
-        return graphs.Graphed(lambda x: self.net.ctx_encode(x, "image"), self._pool)
+    def context_graph(self, which="image"):
+        """The context encoder ``which`` as a ``graphs.Graphed``, one graph
+        per input shape (``pfd_tpu``'s ``_ctx_encode_jit``,
+        pipeline.py:269-271)."""
+        if which not in self._ctx_graphs:
+            self._ctx_graphs[which] = graphs.Graphed(
+                lambda x: self.net.ctx_encode(x, which), self._pool)
+        return self._ctx_graphs[which]
 
     def warmup(self, sizes=((512, 512),), batch=1, with_control=True, steps=None):
         """Capture the (h, w) buckets of ``sizes`` (the app's 64-multiple
@@ -332,7 +387,7 @@ class PromptFreeDiffusionPipeline:
             fn = self._sample_decode_fn(h, w, batch, with_control, steps, self.ddim_eta)
             if not self._pool.on_card:
                 continue
-            c = self._ctx_graph(self.reference(np.zeros((h, w, 3), np.float32)))
+            c = self.context_graph()(self.reference(np.zeros((h, w, 3), np.float32)))
             c = c.repeat(batch, 1, 1)
             x = torch.zeros((batch, vae.embed_dim, h // f, w // f), device=dev)
             control = torch.zeros((batch, 3, h, w), device=dev) if with_control else None
@@ -369,6 +424,34 @@ class PromptFreeDiffusionPipeline:
                                  "to nothing: send no hint image, or choose another method")
         hints = np.repeat(np.asarray(a, np.float32)[None], self.n_sample_image, 0)
         return torch.as_tensor(hints.transpose(0, 3, 1, 2).copy(), device=self.device), hints
+
+    def prompt_ids(self, prompt):
+        """A prompt's CLIP token ids (one sequence as the tokenizer gives it:
+        BOS, the tokens, EOS, padding) -> the (1, S) int64 tensor the text
+        tower takes; a string raises, as the text tower does (no BPE
+        vocabulary here)."""
+        if isinstance(prompt, str):
+            clip.no_tokenizer(prompt)
+        return torch.as_tensor(np.asarray(prompt, np.int64).reshape(1, -1), device=self.device)
+
+    def dual_contexts(self, im, prompt):
+        """The dual-guided request's contexts of one reference image and one
+        prompt's ids (``prompt_ids``): (CLIP-image context, its unconditional
+        context, CLIP-text context, its unconditional context), each (1, S,
+        D), through the encoders' graphs. The unconditional pair, the image
+        context of a black image and the text context of the empty prompt,
+        is constant for a shape and the weights: computed once, until
+        ``_load`` loads other weights."""
+        ref, ids = self.reference(im), self.prompt_ids(prompt)
+        out = []
+        for which, x in (("image", ref), ("text", ids)):
+            key = (which, tuple(x.shape))
+            if key not in self._uncond:
+                blank = (torch.zeros_like(x) if which == "image" else
+                         torch.as_tensor(clip_prompt([], x.shape[1]), device=self.device)[None])
+                self._uncond[key] = self.context_graph(which)(blank)
+            out += [self.context_graph(which)(x), self._uncond[key]]
+        return tuple(out)
 
     def start_latent(self, seed, h, w, steps):
         """The request's start latent (n, C, h/f, w/f) from its seed, and
@@ -409,7 +492,7 @@ class PromptFreeDiffusionPipeline:
         h, w = h // 64 * 64, w // 64 * 64
 
         with span("context"):
-            c = self._ctx_graph(self.reference(im)).repeat(n, 1, 1)
+            c = self.context_graph()(self.reference(im)).repeat(n, 1, 1)
             u = self.negative_context(c, anime_ug_path)
         with span("hint"):
             control, hints = self.hint_batch(imctl, ctl_method, do_preprocess, h, w)
@@ -419,6 +502,43 @@ class PromptFreeDiffusionPipeline:
         imgs = fn(c, u, x, float(ugscale), control, eta_noise)
         with span("copy_out"):
             return self.images_out(imgs, hints)
+
+    @torch.no_grad()
+    @span("request")
+    def action_dual_guided(self, im, prompt, ratio=0.6, h=512, w=512, ugscale=7.5, seed=0,
+                           steps=None):
+        """Versatile Diffusion's dual-guided image generation (a pipeline
+        built from ``vd_four_flow``): one reference image ``im``, one prompt's
+        CLIP token ids ``prompt`` (``prompt_ids``) and the ratio ``ratio`` of
+        the image context -> n (h, w, 3) float32 images in [0, 1]. The
+        contexts (``dual_contexts``), then one bucket of ``sample_decode``
+        over them: at every context block the image UNet's block over the
+        CLIP-image context at ``ratio`` plus the text UNet's over the
+        CLIP-text context at 1 - ratio, DDIM with CFG, the decode."""
+        steps = steps or self.ddim_steps
+        n = self.n_sample_image
+        h, w = h // 64 * 64, w // 64 * 64
+        with span("context"):
+            c_img, u_img, c_txt, u_txt = (c.repeat(n, 1, 1)
+                                          for c in self.dual_contexts(im, prompt))
+        with span("start_latent"):
+            x, eta_noise = self.start_latent(seed, h, w, steps)
+        mixed = (("image", c_img.shape[1]), ("text", c_txt.shape[1]))
+        fn = self._sample_decode_fn(h, w, n, False, steps, self.ddim_eta, mixed)
+        ratio = float(ratio)
+        imgs = fn(None, None, x, float(ugscale), None, eta_noise,
+                  c_img, u_img, ratio, c_txt, u_txt, 1.0 - ratio)
+        with span("copy_out"):
+            return self.images_out(imgs, None)
+
+
+def clip_prompt(tokens, length=77):
+    """CLIP's ids of a prompt's ``tokens`` (ids below BOS): BOS, the tokens,
+    EOS, then EOS as padding to ``length``, as CLIP's tokenizer pads; the
+    empty prompt for no tokens."""
+    tokens = list(tokens)[:length - 2]
+    ids = [clip.BOS] + tokens + [clip.EOS] * (length - 1 - len(tokens))
+    return np.asarray(ids, np.int64)
 
 
 def _exists(path):

@@ -42,8 +42,10 @@ from pfd_tpu_torch.ops import cuda_build
 
 PREFIX = "pfd."
 # the layers whose device time the markers split out, in the order of the
-# marker kernels' table (csrc/span_mark.cu is built from it)
-DEVICE_SPANS = ("seecoder", "step", "unet", "controlnet", "vae_decode", "quantize")
+# marker kernels' table (csrc/span_mark.cu is built from it); new layers are
+# appended, so the markers keep their indices
+DEVICE_SPANS = ("seecoder", "step", "unet", "controlnet", "vae_decode", "quantize", "clip",
+                "context_image", "context_text")
 # whether a device span launches its markers; a graph captured with it False
 # holds none (it exists to measure what the markers cost)
 device_spans = True

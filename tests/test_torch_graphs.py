@@ -78,7 +78,7 @@ def test_bucket_matches_pfd_tpu_at_two_scales(pipes, has_control):
     x = np.asarray(jax.random.normal(init_rng, (1, H // 8, W // 8, 4), jnp.float32))
     cj = jp._ctx_encode_jit(jp.params, jnp.asarray(ref)[None])
     jfn = jp._sample_decode_fn(H, W, 1, has_control, STEPS, 0.0)
-    c = tp._ctx_graph(tp.reference(ref))
+    c = tp.context_graph()(tp.reference(ref))
     n_buckets = len(tp._graphs)
     tfn = tp._sample_decode_fn(H, W, 1, has_control, STEPS, 0.0)
     control = None if hint is None else torch.from_numpy(hint.transpose(2, 0, 1)[None].copy())
@@ -259,10 +259,10 @@ def test_knob_change_and_pa_swap_drop_graphs(pipes):
     keeps both."""
     _, tp = pipes
     fn = tp._sample_decode_fn(H, W, 1, False, STEPS, 0.0)
-    ctx = tp._ctx_graph
+    ctx = tp.context_graph()
     assert tp._sample_decode_fn(H, W, 1, False, STEPS, 0.0) is fn
     tp.action_load_diffuser("Deliberate-v2.0")
-    assert tp._ctx_graph is ctx and tp._sample_decode_fn(H, W, 1, False, STEPS, 0.0) is fn
+    assert tp.context_graph() is ctx and tp._sample_decode_fn(H, W, 1, False, STEPS, 0.0) is fn
     tp.cfg_interval = 2
     try:
         assert tp._sample_decode_fn(H, W, 1, False, STEPS, 0.0) is not fn
@@ -271,6 +271,6 @@ def test_knob_change_and_pa_swap_drop_graphs(pipes):
         tp.cfg_interval = 1
     tp.action_load_ctx("SeeCoder-PA")
     try:
-        assert tp._ctx_graph is not ctx
+        assert tp.context_graph() is not ctx
     finally:
         tp.action_load_ctx("SeeCoder")

@@ -23,7 +23,10 @@ their layers' kernels, and a request's graphs with them replaying bit for
 bit as the same graphs without them; ``ops.nn.conv2d`` on the pre-laid
 (KRSC) filter bit for bit as the plain cuDNN call at the UNet's and the
 ControlNet's 3x3 shapes at batch 2 and 16, and a ``load_state_dict`` after a
-capture reaching the next replay.
+capture reaching the next replay; a dual-guided request (Versatile
+Diffusion's four-flow model) replaying its CLIP graphs and its bucket as its
+eager run bit for bit, and at published widths launching what the
+benchmark's entry reckons.
 
 Needs a CUDA device and ``nvcc``; skips where there is none. Imports neither
 JAX nor pfd_tpu, so it also runs on a machine without them:
@@ -995,7 +998,7 @@ def test_bucket_with_span_markers_replays_as_one_without(mode, monkeypatch):
     for on in (True, False):
         monkeypatch.setattr(profiling, "device_spans", on)
         pipe._graphs.clear()
-        pipe._ctx_graph = pipe._new_ctx_graph()
+        pipe._ctx_graphs.clear()
         pipe.action_inference(ref, h=128, w=128, ugscale=2.0, seed=1, steps=4)
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1416,3 +1419,114 @@ def test_classic_unet_through_the_kernels_matches_plain_attention():
         assert e_p.float().abs().max() > 1e-2
         chip_smoke.compare_eps(f"{name} eps, kernels vs plain attention", e_k.float(),
                                e_p.float())
+
+
+def _tiny_vd():
+    """A tiny Versatile Diffusion four-flow model on ``_TINY_PFD``'s UNet and
+    VAE (128^2: S = 1,024 at the first level): CLIP towers of 257 and 77
+    tokens, a 0d_next text UNet whose context blocks pair with the image
+    UNet's (32, 64 | 64 | 64 x 2, 32 x 2)."""
+    import copy
+
+    args = copy.deepcopy(_TINY_PFD["args"])
+    args["ctx_cfg_list"] = [
+        ["image", {"type": "clip_image_context_encoder", "args": dict(
+            hidden=64, layers=2, heads=4, patch=14, image_size=224, intermediate=128,
+            projection_dim=128)}],
+        ["text", {"type": "clip_text_context_encoder", "args": dict(
+            vocab=49408, hidden=64, layers=2, heads=4, intermediate=128, max_length=77,
+            projection_dim=128)}]]
+    args["diffuser_cfg_list"].append(["text", {"type": "openai_unet_0d_next", "args": dict(
+        input_channels=16, model_channels=32, output_channels=16, context_dim=128,
+        num_noattn_blocks=[1, 1], channel_mult=[1, 2], second_dim=[2, 2],
+        with_attn=[True, True], num_heads=4)}])
+    return {"type": "pfd", "args": args}
+
+
+@pytest.mark.cuda
+def test_dual_guided_replay_equals_eager():
+    """A tiny bf16 dual-guided request (4 steps, CFG 7.5): the CLIP graphs
+    and the bucket's replay give the eager request's image bit for bit, and
+    one replay launches what the benchmark entry's ``kernel_work`` reckons
+    for it (K1 and K2 on both pathways of each 1,024-token block a step,
+    K1 once in the VAE's mid-block)."""
+    import numpy as np
+    from unittest import mock
+
+    from pfd_tpu_torch.models.build import dezero_
+    from pfd_tpu_torch.ops import graphs
+    from pfd_tpu_torch.pipeline import PromptFreeDiffusionPipeline, clip_prompt
+    from pfdbench import work
+    from pfdbench.entries import vd
+
+    _need_cuda()
+    cfg = _tiny_vd()
+    pipe = PromptFreeDiffusionPipeline(fp16=True, with_control=False, tag_ctx="CLIP",
+                                       tag_ctl="none", config_override=cfg, device="cuda",
+                                       self_attn_fn=fa.self_attn_fn)
+    dezero_(pipe.net, torch.Generator(device="cuda").manual_seed(1))
+    ref = np.random.default_rng(0).random((64, 64, 3), dtype=np.float32)
+    ids = clip_prompt(range(1, 21))
+
+    def request():
+        return pipe.action_dual_guided(ref, ids, 0.6, 128, 128, 7.5, 1, steps=4)[0]
+
+    with mock.patch.object(graphs.Graphed, "__call__", graphs.Graphed.eager):
+        want = request()
+    pipe._uncond.clear()
+    got = request()  # captures the CLIP graphs and the bucket, then replays them
+    assert np.array_equal(got, want) and np.isfinite(got).all() and got.std() > 0
+    before = graphs.launch_counts()
+    assert np.array_equal(request(), want)
+    launches = {k: v - before[k] for k, v in graphs.launch_counts().items() if v - before[k]}
+    # the tiny VAE is f=4: the 128^2 request's latent is 32^2, the work's size / 8
+    reckoned = work.launches(vd.kernel_work(cfg, {"batch": 1, "size": 8 * 32, "steps": 4}))
+    assert launches == reckoned == {"flash_attention": 25, "cross_attention": 24}
+
+
+@pytest.mark.cuda
+def test_dual_guided_request_launches_the_entrys_work(monkeypatch):
+    """``vd_four_flow`` at published widths, b4 at 512^2, 50 steps: one
+    request (after the capture) replays K1 1,001 times (20 a UNet call: the
+    10 long blocks of both pathways; 1 in the VAE's mid-block at b4) and K2
+    1,000 times, what ``pfdbench.entries.vd.kernel_work`` reckons; the eager
+    twin's K2 calls run 500 over 257 keys and 500 over 77."""
+    import numpy as np
+    from unittest import mock
+
+    from pfd_tpu_torch import config
+    from pfd_tpu_torch.ops import graphs
+    from pfd_tpu_torch.pipeline import PromptFreeDiffusionPipeline, clip_prompt
+    from pfdbench import traffic, work
+    from pfdbench.entries import vd
+
+    _need_cuda()
+    cfg = config.model_cfg("vd_four_flow")
+    pipe = PromptFreeDiffusionPipeline(fp16=True, with_control=False, tag_ctx="CLIP",
+                                       tag_ctl="none", config_override=cfg, device="cuda",
+                                       self_attn_fn=fa.self_attn_fn)
+    pipe.n_sample_image = 4
+    ref = np.random.default_rng(0).random((512, 512, 3), dtype=np.float32)
+    ids = clip_prompt(range(1, 31))
+
+    def request():
+        return pipe.action_dual_guided(ref, ids, 0.6, 512, 512, 7.5, 1)
+
+    request()
+    before = graphs.launch_counts()
+    imgs = request()
+    launches = {k: v - before[k] for k, v in graphs.launch_counts().items() if v - before[k]}
+    assert len(imgs) == 4 and all(np.isfinite(i).all() for i in imgs)
+    reckoned = work.launches(vd.kernel_work(cfg, traffic.load("b4-dual-ddim50-bf16")))
+    assert launches == reckoned == {"flash_attention": 1001, "cross_attention": 1000}
+    keys, real = [], fa.with_padded_head
+
+    def counted(fn, q, k, v, *args):
+        if fn is fa.cross_attention:
+            keys.append(k.shape[2])
+        return real(fn, q, k, v, *args)
+
+    monkeypatch.setattr(fa, "with_padded_head", counted)
+    with mock.patch.object(graphs.Graphed, "__call__", graphs.Graphed.eager):
+        request()
+    assert len(keys) == 1000 and keys.count(257) == keys.count(77) == 500

@@ -69,6 +69,8 @@ def test_pipeline_request_spans_nest(monkeypatch):
     assert _parents(spans, "unet") == ["pfd.step"] * 4
     assert sorted(_parents(spans, "controlnet")) == ["pfd.request"] + ["pfd.unet"] * 4
     assert not _parents(spans, "quantize") and not _parents(spans, "replay")
+    for name in ("clip", "context_image", "context_text"):  # the multi-context walk's alone
+        assert not _parents(spans, name), name
     names = [n for n, *_ in spans]
     assert names.index("pfd.hint") < names.index("pfd.step") < names.index("pfd.vae_decode")
 
@@ -102,3 +104,37 @@ def test_int8_server_request_counts_each_quantize_pass(monkeypatch):
     assert _parents(spans, "unet") == ["pfd.step"] * 8
     q = _parents(spans, "quantize")
     assert len(q) == len(calls) > 0 and set(q) == {"pfd.unet", "pfd.vae_decode"}
+
+
+def test_dual_guided_request_books_clip_and_each_context_pathway(monkeypatch):
+    """A tiny dual-guided request (two steps, a UNet of 7 context blocks):
+    both CLIP towers under ``pfd.clip`` in ``pfd.context`` (the reference and
+    the prompt, and on the first request the unconditional pair), no
+    ``pfd.seecoder``; each step's ``pfd.unet`` holding one
+    ``pfd.context_image`` and one ``pfd.context_text`` a context block. A
+    single-context request on the same pipeline opens no context span."""
+    import copy
+
+    from pfd_tpu_torch.pipeline import clip_prompt
+    from pfdbench.tests.tiny_vd import VD
+
+    pipe = PromptFreeDiffusionPipeline(fp16=False, with_control=False, tag_ctx="CLIP",
+                                       tag_ctl="none", config_override=copy.deepcopy(VD),
+                                       device="cpu", self_attn_fn=fa.self_attn_fn)
+    pipe.ddim_steps = 2
+    rng = np.random.default_rng(0)
+    ref, ids = rng.random((64, 64, 3), dtype=np.float32), clip_prompt(range(10))
+    for first in (True, False):
+        out, spans = _profiled(lambda: pipe.action_dual_guided(ref, ids, 0.6, 64, 64, 7.5, 1),
+                               monkeypatch)
+        assert len(out) == 1 and out[0].shape == (64, 64, 3)
+        assert _parents(spans, "clip") == ["pfd.context"] * (4 if first else 2)
+        assert not _parents(spans, "seecoder")
+        assert _parents(spans, "unet") == ["pfd.step"] * 2
+        for name in ("context_image", "context_text"):
+            assert _parents(spans, name) == ["pfd.unet"] * 14, name
+    out, spans = _profiled(lambda: pipe.action_inference(ref, None, "canny", True, 64, 64, 2.0,
+                                                         1), monkeypatch)
+    assert _parents(spans, "clip") == ["pfd.context"]
+    assert _parents(spans, "unet") == ["pfd.step"] * 2
+    assert not _parents(spans, "context_image") and not _parents(spans, "context_text")
